@@ -1,0 +1,211 @@
+"""Attention for serving: prefill over the whole prompt, decode against a
+KV cache.
+
+Counterpart of ``repro.models.attention``. Parameters keep the reference's
+per-head layouts — wq (D, H, Dh), wk/wv (D, KV, Dh), wo (H, Dh, D) — so
+weights convert one to one. Two implementations:
+
+  - ``einsum`` : materialized scores in float32 — the plain path;
+  - ``kernel`` : the hand-written CUDA kernels of ``repro_torch.kernels``
+                 (prefill ``flash_attention``, decode ``decode_attention``);
+                 the counterpart of the reference's ``impl="pallas"``. On CPU
+                 tensors their wrappers run the kernels' plain versions.
+
+The reference's chunked ``xla`` path and its custom-VJP backward serve
+training and the dry-run; they are not ported here.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import AttentionConfig
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.layers import apply_rope, as_param, truncated_normal_init
+
+NEG_INF = -1e30
+
+
+class AttnParams(nn.Module):
+    def __init__(self, wq, wk, wv, wo, bq=None, bk=None, bv=None):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = (as_param(w) for w in (wq, wk, wv, wo))
+        self.bq, self.bk, self.bv = (as_param(b) if b is not None else None
+                                     for b in (bq, bk, bv))
+
+
+def attn_params(d_model: int, cfg: AttentionConfig, generator, device,
+                dtype=torch.float32) -> AttnParams:
+    s = 1.0 / math.sqrt(d_model)
+    so = 1.0 / math.sqrt(cfg.q_dim)
+    init = lambda shape, scale: truncated_normal_init(shape, scale, generator,
+                                                      device, dtype)
+    p = dict(
+        wq=init((d_model, cfg.n_heads, cfg.head_dim), s),
+        wk=init((d_model, cfg.n_kv_heads, cfg.head_dim), s),
+        wv=init((d_model, cfg.n_kv_heads, cfg.head_dim), s),
+        wo=init((cfg.n_heads, cfg.head_dim, d_model), so),
+    )
+    if cfg.qkv_bias:
+        zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
+        p.update(bq=zeros(cfg.n_heads, cfg.head_dim),
+                 bk=zeros(cfg.n_kv_heads, cfg.head_dim),
+                 bv=zeros(cfg.n_kv_heads, cfg.head_dim))
+    return AttnParams(**p)
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matrix product."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _project_qkv(x, p: AttnParams, cfg: AttentionConfig):
+    q, k, v = _project(x, p.wq), _project(x, p.wk), _project(x, p.wv)
+    if cfg.qkv_bias:
+        q = q + p.bq.to(x.dtype)
+        k = k + p.bk.to(x.dtype)
+        v = v + p.bv.to(x.dtype)
+    if cfg.kv_repeat > 1:
+        k = torch.repeat_interleave(k, cfg.kv_repeat, dim=2)
+        v = torch.repeat_interleave(v, cfg.kv_repeat, dim=2)
+    return q, k, v
+
+
+def _apply_positional(q, k, rope: Optional[torch.Tensor]):
+    if rope is not None:
+        q, k = apply_rope(q, rope), apply_rope(k, rope)
+    return q, k
+
+
+# ---------------------------------------------------------------------------
+# Plain attention (materialized scores)
+# ---------------------------------------------------------------------------
+
+def attention_einsum(q, k, v, cfg: AttentionConfig, q_offset: int = 0):
+    """q: (B,Sq,H,D), k/v: (B,Skv,KV_eff,D). Returns (B,Sq,H,D)."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) \
+        / math.sqrt(D)
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if cfg.causal:
+        mask &= kpos <= qpos
+    if cfg.sliding_window is not None:
+        mask &= kpos > qpos - cfg.sliding_window
+    scores = scores.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def attention_decode(q, k_cache, v_cache, cfg: AttentionConfig,
+                     lengths: torch.Tensor, window: Optional[int] = None):
+    """q: (B,1,H,D); caches: (B,W,KV_eff,D); lengths: (B,) tokens already
+    in cache (including the newly inserted one). Returns (B,1,H,D)."""
+    B, W, KV, D = k_cache.shape
+    H = q.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, D)
+    # bf16 products are exact in float32, so upcasting the operands matches
+    # the reference's float32-accumulated mixed-precision dot
+    s = torch.einsum("bkgd,btkd->bkgt", qg.float(), k_cache.float()) / math.sqrt(D)
+    slot = torch.arange(W, device=q.device)[None, :]
+    if window is None:
+        mask = slot < lengths[:, None]
+    else:
+        # ring buffer: every slot valid once the cache has wrapped
+        mask = slot < torch.clamp(lengths, max=W)[:, None]
+    s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", w.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+def cache_window(cfg: AttentionConfig, max_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
+def init_kv_cache(n_layers: int, batch: int, cfg: AttentionConfig,
+                  max_len: int, device, dtype=torch.bfloat16) -> dict:
+    """Layout (L, B, W, KV_eff, D), the reference's."""
+    W = cache_window(cfg, max_len)
+    shape = (n_layers, batch, W, cfg.n_kv_eff, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "lengths": torch.zeros(batch, dtype=torch.int32, device=device),
+    }
+
+
+def cache_insert_decode(cache_k, cache_v, k_new, v_new, lengths, window: int):
+    """Insert one token per sequence at ring position ``lengths % window``.
+
+    cache_k/v: (B,W,KV,D); k_new/v_new: (B,1,KV,D); lengths: (B,). The port
+    writes into the cache in place (the reference returns updated copies)."""
+    rows = torch.arange(cache_k.shape[0], device=cache_k.device)
+    idx = (lengths % window).long()
+    cache_k[rows, idx] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[rows, idx] = v_new[:, 0].to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Full attention block
+# ---------------------------------------------------------------------------
+
+def attention_block(x, p: AttnParams, cfg: AttentionConfig, *,
+                    rope: Optional[torch.Tensor],
+                    mode: str = "prefill",
+                    cache: Optional[Tuple] = None,
+                    lengths: Optional[torch.Tensor] = None,
+                    impl: str = "kernel"):
+    """One attention application.
+
+    rope: ``layers.rope_angles`` of the tokens' positions (None without
+    RoPE). mode: "train"/"prefill" (full sequence) or "decode" (one token
+    w/ cache). cache (decode): (k_cache, v_cache) of shape (B,W,KV_eff,D).
+    Returns (out (B,S,D), new_cache_kv or computed (k, v))."""
+    if impl not in ("kernel", "einsum"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    q, k, v = _project_qkv(x, p, cfg)
+    q, k = _apply_positional(q, k, rope)
+
+    if mode == "decode":
+        if cache is None or lengths is None:
+            raise ValueError("decode needs a cache and lengths")
+        ck, cv = cache
+        W = ck.shape[1]
+        window = cfg.sliding_window
+        ck, cv = cache_insert_decode(ck, cv, k, v, lengths, W)
+        if impl == "kernel":
+            out = decode_attention(q, ck, cv, lengths + 1, window=window)
+        else:
+            out = attention_decode(q, ck, cv, cfg, lengths + 1, window=window)
+        new_cache = (ck, cv)
+    else:
+        if impl == "kernel":
+            out = flash_attention(q, k, v, causal=cfg.causal,
+                                  window=cfg.sliding_window)
+        else:
+            out = attention_einsum(q, k, v, cfg)
+        new_cache = (k, v)
+
+    H, Dh, D = p.wo.shape
+    proj = out.reshape(*out.shape[:-2], H * Dh) @ p.wo.to(x.dtype).reshape(H * Dh, D)
+    return proj, new_cache

@@ -1,0 +1,154 @@
+"""Shared layer primitives: norms, rotary embeddings, MLP, initializers.
+
+Counterpart of ``repro.models.layers``. Parameters live in small
+``nn.Module`` containers (``requires_grad=False``: the port serves, it does
+not train yet) and the math is plain functions on tensors, so each function
+here maps one for one onto its reference. Norms compute in float32 and cast
+back, as the reference does.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def as_param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def truncated_normal_init(shape: Sequence[int], scale: float,
+                          generator: torch.Generator, device: torch.device,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``scale`` x a unit normal truncated at two sigma, drawn in float32 and
+    stored in ``dtype``. Same distribution as the reference's
+    ``jax.random.truncated_normal(-2, 2)``; not the same numbers."""
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.mul_(scale).to(dtype)
+
+
+def dense_init(d_in: int, d_out: int, generator, device, dtype=torch.float32):
+    return truncated_normal_init((d_in, d_out), 1.0 / math.sqrt(d_in),
+                                 generator, device, dtype)
+
+
+def embed_init(vocab: int, d: int, generator, device, dtype=torch.float32):
+    return truncated_normal_init((vocab, d), 1.0, generator, device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+class NormParams(nn.Module):
+    """RMSNorm scale, plus a bias for LayerNorm; always float32."""
+
+    def __init__(self, scale: torch.Tensor, bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.scale = as_param(scale.float())
+        self.bias = as_param(bias.float()) if bias is not None else None
+
+
+def norm_params(d: int, kind: str, device) -> NormParams:
+    ones = torch.ones(d, dtype=torch.float32, device=device)
+    return NormParams(ones, torch.zeros_like(ones) if kind == "layernorm" else None)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * scale, computed in float32."""
+    return F.rms_norm(x.float(), (x.shape[-1],), scale.float(), eps).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * scale + bias, computed in float32."""
+    return F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(),
+                        eps).to(x.dtype)
+
+
+def apply_norm(x: torch.Tensor, p: NormParams, kind: str, eps: float):
+    if kind == "rmsnorm":
+        return rmsnorm(x, p.scale, eps)
+    return layernorm(x, p.scale, p.bias, eps)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":  # jax.nn.gelu defaults to the tanh approximation
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {kind}")
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings (RoPE / partial RoPE)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, rope_pct: float, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    rot = int(head_dim * rope_pct) // 2 * 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)  # (rot/2,)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, rope_pct: float,
+                theta: float) -> torch.Tensor:
+    """Unit complex rotations exp(i * pos * inv_freq), (..., S, 1, rot/2).
+
+    Computed once per forward and shared by every layer's q and k."""
+    inv = rope_freqs(head_dim, rope_pct, theta, positions.device)
+    ang = positions[..., :, None].float() * inv          # (..., S, rot/2)
+    return torch.polar(torch.ones_like(ang), ang)[..., :, None, :]
+
+
+def apply_rope(x: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, D); rot: ``rope_angles`` for x's positions.
+
+    Rotates the interleaved pairs (x[2j], x[2j+1]) of the first 2*rot/2
+    channels in float32, as the reference's
+    (x1 cos - x2 sin, x2 cos + x1 sin), and leaves the rest (partial RoPE)."""
+    n = 2 * rot.shape[-1]
+    xr = x[..., :n].float().unflatten(-1, (n // 2, 2))
+    out = torch.view_as_real(torch.view_as_complex(xr) * rot).flatten(-2)
+    out = out.to(x.dtype)
+    return torch.cat([out, x[..., n:]], dim=-1) if n < x.shape[-1] else out
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+class MLPParams(nn.Module):
+    """up/gate (D, F) and down (F, D), stored in the compute dtype."""
+
+    def __init__(self, up, down, gate=None):
+        super().__init__()
+        self.up = as_param(up)
+        self.down = as_param(down)
+        self.gate = as_param(gate) if gate is not None else None
+
+
+def mlp_params(d: int, d_ff: int, gated: bool, generator, device,
+               dtype=torch.float32) -> MLPParams:
+    up = dense_init(d, d_ff, generator, device, dtype)
+    down = dense_init(d_ff, d, generator, device, dtype)
+    gate = dense_init(d, d_ff, generator, device, dtype) if gated else None
+    return MLPParams(up, down, gate)
+
+
+def apply_mlp(x: torch.Tensor, p: MLPParams, act: str, gated: bool) -> torch.Tensor:
+    up = x @ p.up.to(x.dtype)
+    if gated:
+        h = activation(x @ p.gate.to(x.dtype), act) * up
+    else:
+        h = activation(up, act)
+    return h @ p.down.to(x.dtype)

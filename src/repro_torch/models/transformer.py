@@ -1,0 +1,162 @@
+"""Decoder transformer stack, dense family.
+
+Counterpart of ``repro.models.transformer``. The reference stacks layers on
+a leading axis and runs them with ``lax.scan``; here the layers are an
+``nn.ModuleList`` walked by a Python loop. The MoE, VLM and audio branches
+are not ported yet and raise ``NotImplementedError``. The reference's
+sharding constraints (``distributed.axes.constrain``) have no counterpart on
+one card.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_mlp, apply_norm, as_param,
+                                       embed_init, mlp_params, norm_params,
+                                       rope_angles)
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.embed_stub or cfg.is_encoder_only \
+            or cfg.attention.rope == "mrope":
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense decoder family (RoPE or none) is "
+            "ported")
+
+
+class LayerParams(nn.Module):
+    def __init__(self, attn_norm, attn_p, mlp_norm, mlp):
+        super().__init__()
+        self.attn_norm = attn_norm
+        self.attn = attn_p
+        self.mlp_norm = mlp_norm
+        self.mlp = mlp
+
+
+class TransformerParams(nn.Module):
+    """embed (V, D), lm_head (V, D) unless tied, per-layer modules, final norm.
+
+    Matrices are stored in the compute dtype (the reference keeps float32
+    masters and casts them on every use, which gives the same values); norm
+    scales stay float32."""
+
+    def __init__(self, embed, lm_head, layers, final_norm):
+        super().__init__()
+        self.embed = as_param(embed)
+        self.lm_head = as_param(lm_head) if lm_head is not None else None
+        self.layers = nn.ModuleList(layers)
+        self.final_norm = final_norm
+
+
+def init_transformer(cfg: ModelConfig, generator: torch.Generator,
+                     device: torch.device) -> TransformerParams:
+    """Random weights with the reference's initializers and scales, drawn
+    from ``generator`` on ``device``."""
+    check_supported(cfg)
+    dt = compute_dtype(cfg)
+    embed = embed_init(cfg.vocab_size, cfg.d_model, generator, device, dt)
+    lm_head = (None if cfg.tie_embeddings else
+               embed_init(cfg.vocab_size, cfg.d_model, generator, device, dt))
+    layers = [
+        LayerParams(
+            norm_params(cfg.d_model, cfg.norm, device),
+            attn.attn_params(cfg.d_model, cfg.attention, generator, device, dt),
+            norm_params(cfg.d_model, cfg.norm, device),
+            mlp_params(cfg.d_model, cfg.mlp.d_ff, cfg.mlp.gated, generator,
+                       device, dt))
+        for _ in range(cfg.n_layers)]
+    return TransformerParams(embed, lm_head, layers,
+                             norm_params(cfg.d_model, cfg.norm, device))
+
+
+def _layer_apply(x, lp: LayerParams, cfg: ModelConfig, *, rope, mode,
+                 cache_kv, lengths, impl):
+    h = apply_norm(x, lp.attn_norm, cfg.norm, cfg.norm_eps)
+    a_out, new_kv = attn.attention_block(
+        h, lp.attn, cfg.attention, rope=rope, mode=mode,
+        cache=cache_kv, lengths=lengths, impl=impl)
+    x = x + a_out
+    h = apply_norm(x, lp.mlp_norm, cfg.norm, cfg.norm_eps)
+    x = x + apply_mlp(h, lp.mlp, cfg.mlp.activation, cfg.mlp.gated)
+    return x, new_kv
+
+
+def transformer_forward(params: TransformerParams, cfg: ModelConfig, x, *,
+                        positions, mode: str = "prefill",
+                        cache: Optional[Dict] = None,
+                        attn_impl: str = "kernel"):
+    """x: (B, S, D) embeddings. Returns (hidden (B,S,D), new_cache).
+
+    decode: ``cache`` k/v are updated in place and returned with
+    ``lengths + 1``. prefill: returns the computed K/V stacked as
+    (L, B, S, KV, D), as the reference does."""
+    check_supported(cfg)
+    lengths = cache["lengths"] if cache is not None else None
+    a = cfg.attention
+    rope = (rope_angles(positions, a.head_dim, a.rope_pct, a.rope_theta)
+            if a.rope == "rope" else None)
+    computed_k, computed_v = [], []
+    for i, lp in enumerate(params.layers):
+        cache_kv = (cache["k"][i], cache["v"][i]) if mode == "decode" else None
+        x, (nk, nv) = _layer_apply(
+            x, lp, cfg, rope=rope, mode=mode, cache_kv=cache_kv,
+            lengths=lengths, impl=attn_impl)
+        if mode == "prefill":
+            computed_k.append(nk)
+            computed_v.append(nv)
+    new_cache = None
+    if mode == "decode":
+        new_cache = {"k": cache["k"], "v": cache["v"], "lengths": lengths + 1}
+    elif mode == "prefill":
+        new_cache = {"computed_k": torch.stack(computed_k),
+                     "computed_v": torch.stack(computed_v)}
+    return x, new_cache
+
+
+def write_prefill_to_cache(cache: Dict, rows, computed_k, computed_v,
+                           prefill_len: int) -> None:
+    """Write prefill K/V (L, b, S, KV, D) into ``cache`` rows ``rows`` in
+    place, ring-aware for sliding windows, and set their lengths.
+
+    The reference rebuilds the whole cache on every insert
+    (``fill_cache_from_prefill`` + ``ServingEngine._insert_cache``); the port
+    writes only the positions the prompt fills."""
+    S = computed_k.shape[2]
+    W = cache["k"].shape[2]
+    keep = min(S, W)
+    slots = (torch.arange(keep, device=computed_k.device) + (S - keep)) % W
+    cache["k"][:, rows, slots] = computed_k[:, :, S - keep:].to(cache["k"].dtype)
+    cache["v"][:, rows, slots] = computed_v[:, :, S - keep:].to(cache["v"].dtype)
+    cache["lengths"][rows] = prefill_len
+
+
+def fill_cache_from_prefill(cfg: ModelConfig, computed_k, computed_v,
+                            prefill_len: int, max_len: int) -> Dict:
+    """Build a decode cache from prefill-computed K/V (ring-aware for SWA)."""
+    L, B, S, KV, D = computed_k.shape
+    cache = attn.init_kv_cache(L, B, cfg.attention, max_len,
+                               computed_k.device, computed_k.dtype)
+    write_prefill_to_cache(cache, slice(None), computed_k, computed_v,
+                           prefill_len)
+    return cache
+
+
+def embed_tokens(params: TransformerParams, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    return params.embed[tokens].to(compute_dtype(cfg))
+
+
+def lm_logits(params: TransformerParams, cfg: ModelConfig,
+              h: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(h, params.final_norm, cfg.norm, cfg.norm_eps)
+    head = params.embed if cfg.tie_embeddings else params.lm_head
+    return h @ head.to(h.dtype).T

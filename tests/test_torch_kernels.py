@@ -1,0 +1,104 @@
+"""The port's attention kernels against the JAX reference, on the CPU.
+
+On CPU tensors each wrapper runs its kernel's plain PyTorch version; these
+tests hold it against ``repro``'s Pallas kernel (interpret mode) and its
+``ref.py`` oracle on the ``tests/test_kernels.py`` sweeps, with the same
+numpy inputs. The CUDA kernels themselves run only on the card:
+``tests/test_torch_card.py`` holds them against the plain versions there.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention import decode_attention as jax_decode
+from repro.kernels.decode_attention import (
+    decode_attention_reference as jax_decode_ref)
+from repro.kernels.flash_attention import attention_reference as jax_flash_ref
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_reference)
+from repro_torch.kernels.flash_attention import (attention_reference,
+                                                 flash_attention)
+
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+FLASH_SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 64),
+                (1, 200, 8, 1, 32),   # unpadded seq, MQA
+                (2, 64, 6, 3, 80)]    # odd heads / head_dim
+FLASH_MASKS = [(True, None), (True, 64), (False, None)]
+DECODE_SHAPES = [(2, 512, 8, 2, 64), (1, 1024, 4, 4, 128), (3, 300, 6, 3, 80)]
+
+
+def _tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+def _inputs(rng, dtype, *shapes):
+    """Normal draws rounded to ``dtype``: (torch tensors, jax arrays)."""
+    tdt, jdt = DTYPES[dtype]
+    ts = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(tdt)
+          for s in shapes]
+    js = [jnp.asarray(t.float().numpy(), jdt) for t in ts]
+    return ts, js
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+@pytest.mark.parametrize("B,S,H,KV,D", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+def test_flash_attention_matches_reference(B, S, H, KV, D, dtype, causal,
+                                           window):
+    (q, k, v), (jq, jk, jv) = _inputs(np.random.default_rng(0), dtype,
+                                      (B, S, H, D), (B, S, KV, D), (B, S, KV, D))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    pallas = jax_flash(jq, jk, jv, causal=causal, window=window, interpret=True)
+    tr = lambda x: x.transpose(0, 2, 1, 3)
+    oracle = tr(jax_flash_ref(tr(jq), tr(jk), tr(jv), causal=causal,
+                              window=window))
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(oracle), **_tol(dtype))
+
+
+@pytest.mark.parametrize("B,W,H,KV,D", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_attention_matches_reference(B, W, H, KV, D, dtype):
+    rng = np.random.default_rng(1)
+    (q, kc, vc), (jq, jkc, jvc) = _inputs(rng, dtype, (B, 1, H, D),
+                                          (B, W, KV, D), (B, W, KV, D))
+    lengths = rng.integers(1, W + 1, B).astype(np.int32)
+    out = decode_attention(q, kc, vc, torch.from_numpy(lengths))
+    assert out.shape == q.shape and out.dtype == q.dtype
+    pallas = jax_decode(jq, jkc, jvc, jnp.asarray(lengths), interpret=True)
+    oracle = jax_decode_ref(jq.reshape(B, KV, H // KV, D),
+                            jkc.transpose(0, 2, 1, 3), jvc.transpose(0, 2, 1, 3),
+                            jnp.asarray(lengths)).reshape(B, 1, H, D)
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(oracle), **_tol(dtype))
+
+
+def test_decode_attention_ring_window():
+    """SWA ring cache: all slots valid once lengths >= window."""
+    B, W, H, KV, D = 2, 256, 4, 4, 64
+    rng = np.random.default_rng(2)
+    (q, kc, vc), (jq, jkc, jvc) = _inputs(rng, "float32", (B, 1, H, D),
+                                          (B, W, KV, D), (B, W, KV, D))
+    lengths = np.array([W + 57, 100], np.int32)  # one wrapped, one not
+    out = decode_attention(q, kc, vc, torch.from_numpy(lengths), window=W)
+    pallas = jax_decode(jq, jkc, jvc, jnp.asarray(lengths), window=W,
+                        interpret=True)
+    np.testing.assert_allclose(_np(out), _np(pallas), rtol=2e-5, atol=2e-5)
+
+
+def test_cpu_tensors_never_launch_a_kernel():
+    before = (flash_attention.launches, decode_attention.launches)
+    q = torch.randn(1, 16, 2, 16)
+    flash_attention(q, q, q)
+    decode_attention(q[:, :1], q, q, torch.tensor([5], dtype=torch.int32))
+    assert (flash_attention.launches, decode_attention.launches) == before
