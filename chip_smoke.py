@@ -7,13 +7,14 @@ Phases, each printing its lines; any failure exits non-zero and prints no
 result:
 
 1. card: name and power limit (nvidia-smi), device name and count; TF32 off;
-2. build: both CUDA kernels with nvcc (``repro_torch.kernels._build``), with
-   ptxas' registers, shared memory and spills per kernel;
+2. build: the three CUDA kernels with nvcc (``repro_torch.kernels._build``),
+   with ptxas' registers, shared memory and spills per kernel;
 3. kernels against their plain PyTorch versions on the card: the
-   ``tests/test_kernels.py`` sweeps (float32 at 2e-5, bfloat16 at 2e-2) and
-   the served model's own shapes, each timed with CUDA events beside its
-   bound, its plain version and ``scaled_dot_product_attention`` (a
-   yardstick the port never calls);
+   ``tests/test_kernels.py`` sweeps (attention: float32 at 2e-5, bfloat16 at
+   2e-2; gla_scan: 2e-4 and 5e-2, strong decay) and the served models' own
+   shapes, each timed with CUDA events beside its bound, its plain version
+   and, for attention, ``scaled_dot_product_attention`` (a yardstick the
+   port never calls; no PyTorch call computes the GLA scan);
 4. Llama-3-8B at full width served through the launcher
    (``repro_torch.launch.serve.main``);
 5. the main path: Llama-3-8B at full width served by ``ServingEngine`` with
@@ -22,7 +23,11 @@ result:
 6. full-width consistency: engine against a hand-rolled prefill + decode
    loop, and the kernel path's logits against the plain einsum path's;
 7. where the time goes: device busy share and kernel time by name
-   (``torch.profiler``) for one prefill and four decode iterations.
+   (``torch.profiler``) for one prefill and four decode iterations;
+8-10. phases 5-7 for RWKV6-1.6B at full width: every prefill scan goes
+   through ``gla_scan`` (24 launches per prefill), decode through the plain
+   single-token step; phase 9 holds the kernel path against the plain
+   chunked scan (``gla_chunked``).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Weights are random, drawn
@@ -49,11 +54,17 @@ PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 ARCH = "llama3-8b"
+RWKV_ARCH = "rwkv6-1.6b"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:99"
 DECODE_REPLACES = "src/repro/kernels/decode_attention/kernel.py:86"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 DECODE_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
+GLA_REPLACES = "src/repro/kernels/gla_scan/kernel.py:103"
+GLA_SOURCE = "src/repro_torch/kernels/gla_scan/csrc/gla_scan.cu"
+GLA_CHUNK = 32              # the gla_scan kernel's chunk tile (csrc/gla_scan.cu)
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+# gla_scan: the tolerances of tests/test_kernels.py::test_gla_scan_sweep
+GLA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (5e-2, 5e-2)}
 
 
 def fail(msg: str):
@@ -82,10 +93,10 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def max_err(out, ref, dtype) -> float:
+def max_err(out, ref, dtype, tol=TOL) -> float:
     """Max |out - ref|; fails when any element is outside atol + rtol|ref|."""
     a, b = out.float(), ref.float()
-    rtol, atol = TOL[dtype]
+    rtol, atol = tol[dtype]
     if not torch.isfinite(a).all():
         fail("kernel output is not finite")
     diff = (a - b).abs()
@@ -209,11 +220,53 @@ def decode_case(B, W, H, KV, D, dtype, lengths, window, gen, timed=False):
     return row
 
 
+def gla_case(B, T, H, K, V, mode, dtype, gen, lw_dtype=None, timed=False):
+    """gla_scan against its plain version (the token-by-token scan) in the
+    sweep's strong-decay range, log w = -exp(U(-6, 2.5)), |log w| up to 12
+    per token. ``lw_dtype``: log_w's dtype (the sweep rounds it to
+    ``dtype``; the model makes it in float32)."""
+    from repro_torch.kernels.gla_scan import gla_scan, gla_scan_reference
+    q, k = randn((B, T, H, K), dtype, gen), randn((B, T, H, K), dtype, gen)
+    v = randn((B, T, H, V), dtype, gen)
+    unif = torch.rand((B, T, H, K), generator=gen, device="cuda")
+    log_w = (-torch.exp(unif * 8.5 - 6.0)).to(lw_dtype or dtype)
+    u = 0.3 * randn((H, K), dtype, gen) if mode == "rwkv" else None
+    tr = lambda x: x.transpose(1, 2)
+
+    def plain():
+        o, s = gla_scan_reference(tr(q), tr(k), tr(v), tr(log_w), u=u, mode=mode)
+        return tr(o), s
+
+    kernel = lambda: gla_scan(q, k, v, log_w, u=u, mode=mode)
+    out, state = kernel()
+    torch.cuda.synchronize()
+    ref_o, ref_s = plain()
+    row = {"max_abs_err": max(max_err(out, ref_o, dtype, GLA_TOL),
+                              max_err(state, ref_s, dtype, GLA_TOL))}
+    if timed:
+        # work of this run's shapes at the kernel's chunk tile: pairs the
+        # causal mask keeps, exps of the intra term
+        n_chunk = -(-T // GLA_CHUNK)
+        c = GLA_CHUNK
+        pairs = c * (c - 1) // 2 if mode == "rwkv" else c * (c + 1) // 2
+        per_chunk = 2 * c * K * V * 2 + 2 * pairs * (K + V)
+        flops = float(B * H * n_chunk * per_chunk)
+        nbytes = ((2 * K + V) * q.element_size() + K * log_w.element_size()
+                  + V * out.element_size()) * B * T * H + 4 * B * H * K * V
+        if u is not None:
+            nbytes += u.numel() * u.element_size()
+        row.update(ms=time_ms(kernel, 20), plain_ms=time_ms(plain, 1, warmup=1),
+                   library_ms=None, exps=B * H * n_chunk * pairs * K)
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
+    return row
+
+
 def fmt(row: dict) -> str:
     parts = [f"max_err={row['max_abs_err']:.3e}"]
     if "ms" in row:
+        lib = row["library_ms"]
         parts += [f"ms={row['ms']:.4f}", f"plain_ms={row['plain_ms']:.4f}",
-                  f"library_ms={row['library_ms']:.4f}",
+                  f"library_ms={'none' if lib is None else f'{lib:.4f}'}",
                   f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})",
                   f"of_bound={row['bound_ms'] / row['ms']:.3f}"]
     return " ".join(parts)
@@ -255,6 +308,28 @@ def phase_kernels() -> dict:
     row = decode_case(8, 4096, 32, 8, 128, bf16, wrapped, 4096, gen, timed=True)
     print(f"decode B=8 W=4096 window=4096 lengths={wrapped.tolist()}: {fmt(row)}")
     rows["decode_window"] = row
+
+    print("-- gla_scan: the tests/test_kernels.py sweep (float32 tol 2e-4, "
+          "bfloat16 tol 5e-2; log_w in the input dtype, strong decay)")
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, T, H, K, V in [(1, 64, 2, 32, 32), (2, 130, 2, 64, 64),
+                              (1, 256, 4, 16, 64)]:
+            for mode in ("ssd", "rwkv"):
+                row = gla_case(B, T, H, K, V, mode, dtype, gen)
+                print(f"gla sweep B={B} T={T} H={H} K={K} V={V} {mode} "
+                      f"{dtype}: {fmt(row)}")
+    print("-- gla_scan at the served shapes (RWKV6-1.6B: H=32 K=V=64, bf16 "
+          "q/k/v, float32 log_w; Zamba2 widths for ssd); no PyTorch call "
+          "computes this scan, so library_ms is none")
+    for T in (128, 1000, 2048):
+        row = gla_case(1, T, 32, 64, 64, "rwkv", bf16, gen,
+                       lw_dtype=torch.float32, timed=True)
+        print(f"gla rwkv B=1 T={T} H=32 K=V=64: {fmt(row)} "
+              f"intra_exps={row['exps']}")
+        rows[f"gla_T{T}"] = row
+    row = gla_case(1, 2048, 64, 64, 64, "ssd", bf16, gen,
+                   lw_dtype=torch.float32, timed=True)
+    print(f"gla ssd B=1 T=2048 H=64 K=V=64: {fmt(row)} intra_exps={row['exps']}")
     return rows
 
 
@@ -262,25 +337,34 @@ def phase_kernels() -> dict:
 # phases 4-6: full-width serving
 # ---------------------------------------------------------------------------
 
+def kernel_wrappers() -> dict:
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gla_scan import gla_scan
+    return {"flash_attention": flash_attention,
+            "decode_attention": decode_attention, "gla_scan": gla_scan}
+
+
 def reset_counts():
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    flash_attention.launches = 0
-    decode_attention.launches = 0
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
 
 
-def check_counts(engine, n_layers: int) -> dict:
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+def check_counts(engine, n_layers: int, per_prefill: str,
+                 per_decode: str = None) -> dict:
+    """Every kernel's launches since ``reset_counts``: ``per_prefill`` once
+    per layer and prefill, ``per_decode`` once per layer and decode
+    iteration, every other kernel never."""
     n_pre = sum(l.kind == "prefill" for l in engine.logs)
     n_dec = sum(l.kind == "decode" for l in engine.logs)
-    got = {"flash_attention": flash_attention.launches,
-           "decode_attention": decode_attention.launches}
-    want = {"flash_attention": n_layers * n_pre,
-            "decode_attention": n_layers * n_dec}
+    got = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    want = dict.fromkeys(got, 0)
+    want[per_prefill] = n_layers * n_pre
+    if per_decode:
+        want[per_decode] = n_layers * n_dec
     print(f"launches {got}; expected {want} ({n_layers} layers x {n_pre} "
           f"prefills, x {n_dec} decode iterations)")
-    if got != want or min(got.values()) == 0:
+    if got != want or min(got[per_prefill], got.get(per_decode, 1)) == 0:
         fail(f"launch counts {got} != expected {want}")
     return got
 
@@ -304,18 +388,20 @@ def phase_launcher():
     out = serve.main(argv, device="cuda")
     cfg = get_config(ARCH)
     check_done(out["engine"].done, 16, 32, cfg.vocab_size)
-    check_counts(out["engine"], cfg.n_layers)
+    check_counts(out["engine"], cfg.n_layers, "flash_attention",
+                 "decode_attention")
     del out
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def phase_engine(model, params) -> dict:
+def phase_engine(model, params, phase: int, per_prefill: str,
+                 per_decode: str = None) -> dict:
     from repro_torch.launch.serve import energy_report
     from repro_torch.serve.engine import ServeRequest, ServingEngine
     cfg = model.cfg
-    print("== phase 5: full-width ServingEngine, 16 prompts of 256-2048 "
-          "tokens, 32 new tokens each, 8 slots, max_len 4096")
+    print(f"== phase {phase}: full-width {cfg.name} ServingEngine, 16 prompts "
+          "of 256-2048 tokens, 32 new tokens each, 8 slots, max_len 4096")
     engine = ServingEngine(model, params, max_slots=8, max_len=4096,
                            device="cuda")
     rng = np.random.default_rng(0)
@@ -331,7 +417,7 @@ def phase_engine(model, params) -> dict:
     reset_counts()
     done = engine.run()
     torch.cuda.synchronize()
-    counts = check_counts(engine, cfg.n_layers)
+    counts = check_counts(engine, cfg.n_layers, per_prefill, per_decode)
     print(f"after: nvidia-smi clocks.sm, power.draw: "
           f"{nvidia_smi('clocks.sm,power.draw')}")
     check_done(done, 16, 32, cfg.vocab_size)
@@ -351,11 +437,11 @@ def phase_engine(model, params) -> dict:
     return counts
 
 
-def phase_consistency(model, params):
+def phase_consistency(model, params, phase: int):
     from repro_torch.models import build_model
     from repro_torch.serve.engine import ServeRequest, ServingEngine
     cfg = model.cfg
-    print("== phase 6: full-width consistency")
+    print(f"== phase {phase}: full-width {cfg.name} consistency")
     prompt = np.random.default_rng(1).integers(1, cfg.vocab_size, 512)
     engine = ServingEngine(model, params, max_slots=8, max_len=4096,
                            device="cuda")
@@ -379,39 +465,108 @@ def phase_consistency(model, params):
     # step is 3.9e-3 relative) through 32 layers of random weights, and
     # round in different places (the einsum decode casts its softmax weights
     # to bf16 before P.V; the kernels keep them in float32); on an H100 the
-    # two differ by 1.5e-2 to 1.9e-2 of the scale. A fault in what the
-    # kernels attend to (wrong rows, positions or masks) moves logits by
-    # O(1) of their scale, and phase 3 holds each kernel at 2e-2 elementwise.
+    # two differ by 1.5e-2 to 2.1e-2 of the scale. A fault in what the
+    # kernels read (wrong rows, positions, masks or decays) moves logits by
+    # O(1) of their scale, and phase 3 holds each kernel to its plain
+    # version elementwise.
     models = {impl: build_model(cfg, attn_impl=impl) for impl in ("kernel", "einsum")}
-    state = {impl: m.prefill(params, {"tokens": tokens}, 4096)
-             for impl, m in models.items()}
-    worst = 0.0
-    for step in range(5):
-        a, b = (state[i][0].float() for i in ("kernel", "einsum"))
-        rel = float((a - b).abs().max() / b.abs().max())
-        worst = max(worst, rel)
-        print(f"step {step}: max|kernel - einsum| / max|einsum| = {rel:.3e}; "
-              f"argmax {int(a.argmax())} vs {int(b.argmax())}")
-        if not torch.isfinite(a).all() or rel > 5e-2:
-            fail(f"kernel and einsum logits differ by {rel:.3e} of their scale")
-        if step == 4:
+    if cfg.family != "ssm":
+        worst = max(logit_gap(params, tokens, models["kernel"], models["einsum"],
+                              "kernel", "einsum"))
+        print(f"kernel vs einsum worst relative logit difference {worst:.3e} "
+              "(tol 5e-2)")
+        if worst > 5e-2:
+            fail(f"kernel and einsum logits differ by {worst:.3e} of their scale")
+        return
+    # RWKV6: in bf16 the two paths differed by up to 5.2e-2 of the scale at
+    # full width on an H100, above the 5e-2 Llama is held to, and two plain
+    # paths that differ only in rounding (chunks of 16 and 32 tokens) by up
+    # to 5.7e-2: 24 layers of random weights amplify one bf16 rounding step
+    # that far (PERF.md). In float32 the kernel and plain paths agreed to
+    # 7.9e-6. So the kernel path is held to the plain path at 5e-2 in
+    # float32, and in bf16 to the larger of 5e-2 and twice the
+    # plain-vs-plain difference measured here.
+    worst = max(logit_gap(params, tokens, models["kernel"], models["einsum"],
+                          "kernel", "einsum"))
+    floor = max(logit_gap(params, tokens, Chunked(models["einsum"], 16),
+                          models["einsum"], "einsum chunk 16", "einsum chunk 32"))
+    print(f"bf16: kernel vs einsum worst {worst:.3e}; plain vs plain (chunk "
+          f"16 vs 32) worst {floor:.3e}; tol max(5e-2, 2 x plain vs plain)")
+    if worst > max(5e-2, 2 * floor):
+        fail(f"bf16 kernel and einsum logits differ by {worst:.3e} of their "
+             f"scale, plain paths by {floor:.3e}")
+    del models
+    cfg32 = cfg.replace(dtype="float32")
+    params32 = build_model(cfg32).init(0, device="cuda")
+    worst32 = max(logit_gap(params32, tokens, build_model(cfg32, attn_impl="kernel"),
+                            build_model(cfg32, attn_impl="einsum"), "kernel", "einsum"))
+    print(f"float32: kernel vs einsum worst relative logit difference "
+          f"{worst32:.3e} (tol 5e-2)")
+    if worst32 > 5e-2:
+        fail(f"float32 kernel and einsum logits differ by {worst32:.3e} of their scale")
+    del params32
+
+
+class Chunked:
+    """A model whose plain chunked scan (``gla_chunked``) uses ``chunk``
+    tokens per chunk instead of its default: a second plain path that
+    differs from the first only in rounding."""
+
+    def __init__(self, model, chunk: int):
+        self.model, self.chunk = model, chunk
+
+    def _call(self, fn, *args):
+        import functools
+        from repro_torch.models import linear_attention, rwkv
+        orig = rwkv.gla_chunked
+        rwkv.gla_chunked = functools.partial(linear_attention.gla_chunked,
+                                             chunk=self.chunk)
+        try:
+            return fn(*args)
+        finally:
+            rwkv.gla_chunked = orig
+
+    def prefill(self, *args):
+        return self._call(self.model.prefill, *args)
+
+    def decode_step(self, *args):
+        return self._call(self.model.decode_step, *args)
+
+
+def logit_gap(params, tokens, a, b, name_a: str, name_b: str, steps: int = 5):
+    """max|logits_a - logits_b| / max|logits_b| over one prefill and
+    ``steps - 1`` decode steps, both models fed ``a``'s greedy tokens."""
+    sa = a.prefill(params, {"tokens": tokens}, 4096)
+    sb = b.prefill(params, {"tokens": tokens}, 4096)
+    rels = []
+    for step in range(steps):
+        la, lb = sa[0].float(), sb[0].float()
+        if not (torch.isfinite(la).all() and torch.isfinite(lb).all()):
+            fail(f"{name_a} or {name_b} logits are not finite")
+        rels.append(float((la - lb).abs().max() / lb.abs().max()))
+        print(f"step {step}: max|{name_a} - {name_b}| / max|{name_b}| = "
+              f"{rels[-1]:.3e}; argmax {int(la.argmax())} vs {int(lb.argmax())}")
+        if step == steps - 1:
             break
-        nxt = torch.argmax(state["kernel"][0], -1)[:, None]
-        state = {impl: m.decode_step(params, {"tokens": nxt}, state[impl][1])
-                 for impl, m in models.items()}
-    print(f"kernel vs einsum worst relative logit difference {worst:.3e} (tol 5e-2)")
+        nxt = torch.argmax(sa[0], -1)[:, None]
+        sa = a.decode_step(params, {"tokens": nxt}, sa[1])
+        sb = b.decode_step(params, {"tokens": nxt}, sb[1])
+    return rels
 
 
-def phase_profile(model, params):
+def phase_profile(model, params, phase: int, kernel_group: str,
+                  kernel_names: tuple):
     """Device busy share and kernel time by name for one prefill and a few
     decode iterations: wall time from an untraced pass, device time from a
-    traced pass of the same work."""
+    traced pass of the same work. Kernels whose names contain one of
+    ``kernel_names`` form the group ``kernel_group``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import ServeRequest, ServingEngine
     cfg = model.cfg
-    print("== phase 7: where the time goes (torch.profiler): one prefill of "
-          "1024 tokens; 4 decode iterations over 8 active slots")
+    print(f"== phase {phase}: where the time goes in {cfg.name} "
+          "(torch.profiler): one prefill of 1024 tokens; 4 decode iterations "
+          "over 8 active slots")
     engine = ServingEngine(model, params, max_slots=8, max_len=4096,
                            device="cuda")
     rng = np.random.default_rng(2)
@@ -444,11 +599,11 @@ def phase_profile(model, params):
         for e in kernels:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
         busy = sum(by_name.values())
-        groups = {"attention kernels": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
+        groups = {kernel_group: 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
         for kname, ms in by_name.items():
             low = kname.lower()
-            if "flash_fwd" in low or "decode_split" in low or "decode_combine" in low:
-                groups["attention kernels"] += ms
+            if any(n in low for n in kernel_names):
+                groups[kernel_group] += ms
             elif any(t in low for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
                 groups["matmul (cuBLAS)"] += ms
             else:
@@ -462,9 +617,29 @@ def phase_profile(model, params):
             print(f"  {ms:8.3f} ms  {kname[:90]}")
 
 
+def full_width(name: str):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    model = build_model(get_config(name))
+    t = time.perf_counter()
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"full-width {name} weights: "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
+          f"parameters drawn in {time.perf_counter() - t:.1f} s")
+    return model, params
+
+
+def kernel_entry(name, source, replaces, launches, row) -> dict:
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches,
+                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -472,8 +647,6 @@ def main():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         sys.exit(2)
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
 
     t0 = time.perf_counter()
     device = phase_card()
@@ -482,34 +655,38 @@ def main():
     rows = phase_kernels() if 3 in phases else {}
     if 4 in phases:
         phase_launcher()
-    counts = {}
+    counts, rwkv_counts = {}, {}
     if phases & {5, 6, 7}:
-        model = build_model(get_config(ARCH))
-        t = time.perf_counter()
-        params = model.init(0, device="cuda")
-        torch.cuda.synchronize()
-        print(f"full-width {ARCH} weights: {sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
-              f"parameters drawn in {time.perf_counter() - t:.1f} s")
+        model, params = full_width(ARCH)
         if 5 in phases:
-            counts = phase_engine(model, params)
+            counts = phase_engine(model, params, 5, "flash_attention",
+                                  "decode_attention")
         if 6 in phases:
-            phase_consistency(model, params)
+            phase_consistency(model, params, 6)
         if 7 in phases:
-            phase_profile(model, params)
+            phase_profile(model, params, 7, "attention kernels",
+                          ("flash_fwd", "decode_split", "decode_combine"))
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if phases & {8, 9, 10}:
+        model, params = full_width(RWKV_ARCH)
+        if 8 in phases:
+            rwkv_counts = phase_engine(model, params, 8, "gla_scan")
+        if 9 in phases:
+            phase_consistency(model, params, 9)
+        if 10 in phases:
+            phase_profile(model, params, 10, "gla_scan kernel", ("gla_scan",))
     print(f"chip_smoke phases {sorted(phases)} passed in "
           f"{time.perf_counter() - t0:.1f} s")
-    if rows and counts:
+    if rows and counts and rwkv_counts:
         kernels = [
-            dict(name="flash_attention", route="cuda", source=FLASH_SOURCE,
-                 replaces=FLASH_REPLACES, launches=counts["flash_attention"],
-                 **{k: rows["flash_S2048"][k] for k in
-                    ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                     "library_ms")}),
-            dict(name="decode_attention", route="cuda", source=DECODE_SOURCE,
-                 replaces=DECODE_REPLACES, launches=counts["decode_attention"],
-                 **{k: rows["decode"][k] for k in
-                    ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                     "library_ms")}),
+            kernel_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,
+                         counts["flash_attention"], rows["flash_S2048"]),
+            kernel_entry("decode_attention", DECODE_SOURCE, DECODE_REPLACES,
+                         counts["decode_attention"], rows["decode"]),
+            kernel_entry("gla_scan", GLA_SOURCE, GLA_REPLACES,
+                         rwkv_counts["gla_scan"], rows["gla_T2048"]),
         ]
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))

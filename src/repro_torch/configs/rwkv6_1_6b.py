@@ -4,8 +4,9 @@
 [arXiv:2404.05892; unverified]
 
 Linear recurrence (O(1) state per channel) -> long_500k runs. The
-recurrence is computed by a chunked gated-linear-attention scan (not yet
-ported to this package).
+recurrence is computed by the ``gla_scan`` CUDA kernel on prefill
+(``repro_torch.kernels.gla_scan``) or its plain chunked version
+(``repro_torch.models.linear_attention``).
 """
 from repro_torch.configs.base import MLPConfig, ModelConfig, RWKVConfig
 

@@ -2,9 +2,12 @@
 
 ``params_from_numpy`` takes the JAX package's parameter pytree as nested
 dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) and
-returns a ``TransformerParams`` holding the same values in the same layouts,
-with the layers unstacked from the leading ``L`` axis. Matrices are stored
-in ``dtype`` (the compute dtype) once; norm scales and biases stay float32.
+returns the port's parameter modules holding the same values in the same
+layouts, with the layers unstacked from the leading ``L`` axis: a
+``TransformerParams`` for the dense family (``init_transformer``), an
+``RWKVParams`` for RWKV6 (``init_rwkv``). Matrices are stored in ``dtype``
+(the compute dtype) once; norms, biases and RWKV6's mixers, decay and bonus
+stay float32.
 """
 from __future__ import annotations
 
@@ -16,8 +19,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.layers import MLPParams, NormParams
+from repro_torch.models.lm import check_supported
+from repro_torch.models.rwkv import (RWKVBlockParams, RWKVLayerParams,
+                                     RWKVParams)
 from repro_torch.models.transformer import (LayerParams, TransformerParams,
-                                            check_supported, compute_dtype)
+                                            compute_dtype)
 
 
 def _norm(tree: Dict, device) -> NormParams:
@@ -27,9 +33,11 @@ def _norm(tree: Dict, device) -> NormParams:
 
 
 def params_from_numpy(tree: Dict, cfg: ModelConfig, device,
-                      dtype: Optional[torch.dtype] = None) -> TransformerParams:
+                      dtype: Optional[torch.dtype] = None):
     check_supported(cfg)
     dtype = compute_dtype(cfg) if dtype is None else dtype
+    if cfg.family == "ssm":
+        return _rwkv_from_numpy(tree, cfg, device, dtype)
     mat = lambda a: torch.tensor(np.asarray(a, np.float32), dtype=dtype,
                                  device=device)
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), dtype=torch.float32,
@@ -50,3 +58,26 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device,
     lm_head = None if cfg.tie_embeddings else mat(tree["lm_head"])
     return TransformerParams(mat(tree["embed"]), lm_head, layers,
                              _norm(tree["final_norm"], device))
+
+
+def _rwkv_from_numpy(tree: Dict, cfg: ModelConfig, device,
+                     dtype: torch.dtype) -> RWKVParams:
+    def t(a, matrix=False):
+        return torch.tensor(np.asarray(a, np.float32), device=device,
+                            dtype=dtype if matrix else torch.float32)
+
+    L = tree["layers"]
+    layers = []
+    for i in range(cfg.n_layers):
+        block = RWKVBlockParams(**{
+            k: t(v[i], k in RWKVBlockParams.MATRICES) for k, v in L.items()})
+        layers.append(RWKVLayerParams(
+            _norm({"scale": tree["ln1_scale"][i], "bias": tree["ln1_bias"][i]}, device),
+            _norm({"scale": tree["ln2_scale"][i], "bias": tree["ln2_bias"][i]}, device),
+            block))
+    return RWKVParams(
+        t(tree["embed"], True),
+        _norm({"scale": tree["ln0_scale"], "bias": tree["ln0_bias"]}, device),
+        layers,
+        _norm({"scale": tree["final_scale"], "bias": tree["final_bias"]}, device),
+        t(tree["lm_head"], True))

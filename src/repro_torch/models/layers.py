@@ -85,6 +85,8 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
         return F.silu(x)
     if kind == "gelu":  # jax.nn.gelu defaults to the tanh approximation
         return F.gelu(x, approximate="tanh")
+    if kind == "relu_sq":  # RWKV channel-mix
+        return torch.square(F.relu(x))
     raise ValueError(f"unknown activation {kind}")
 
 

@@ -1,0 +1,112 @@
+"""Generalized gated linear attention (GLA) recurrence.
+
+Counterpart of ``repro.models.linear_attention``. Covers RWKV6 (per-channel
+data-dependent decay + current-token bonus) and Mamba2/SSD (inclusive
+current token):
+
+    S_t = Diag(w_t) S_{t-1} + k_t v_t^T          state S: (K, V)
+    rwkv:  o_t = q_t^T (S_{t-1} + Diag(u) k_t v_t^T)
+    ssd:   o_t = q_t^T S_t
+
+``gla_chunked`` is the chunked formulation the ``gla_scan`` kernel
+implements (the plain ``"einsum"`` path of the model); ``gla_reference`` is
+the token-by-token oracle; ``gla_step`` is the single-token decode step,
+which has no kernel. The reference's ``lax.scan`` loops are Python loops.
+All state and products are float32.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def gla_step(q, k, v, log_w, state, u: Optional[torch.Tensor] = None,
+             mode: str = "ssd"):
+    """Single-token decode step.
+
+    q/k/log_w: (B, H, K); v: (B, H, V); state: (B, H, K, V) float32;
+    u: (H, K) bonus (rwkv) or None. Returns (o (B,H,V), new_state)."""
+    w = torch.exp(log_w.float())
+    kv = k.float()[..., :, None] * v.float()[..., None, :]
+    if mode == "rwkv":
+        if u is None:
+            raise ValueError("mode 'rwkv' needs the bonus u")
+        eff = state + u.float()[None, :, :, None] * kv
+        o = torch.einsum("bhk,bhkv->bhv", q.float(), eff)
+        new_state = w[..., None] * state + kv
+    else:
+        new_state = w[..., None] * state + kv
+        o = torch.einsum("bhk,bhkv->bhv", q.float(), new_state)
+    return o.to(v.dtype), new_state
+
+
+def gla_chunked(q, k, v, log_w, u: Optional[torch.Tensor] = None,
+                mode: str = "ssd", chunk: int = 32,
+                initial_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked parallel scan.
+
+    q/k/log_w: (B, T, H, K); v: (B, T, H, V); u: (H, K) or None.
+    Returns (o (B, T, H, V), final_state (B, H, K, V) float32).
+    """
+    B, T, H, K = q.shape
+    V = v.shape[-1]
+    chunk = min(chunk, T)
+    pad = (-T) % chunk
+    n = (T + pad) // chunk
+
+    def to_chunks(x):  # (B, T, H, ·) -> (n, B, H, c, ·), zero-padded
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+        return x.reshape(B, n, chunk, H, -1).permute(1, 0, 3, 2, 4)
+
+    # log w = 0 -> w = 1 for padding (no decay)
+    qc, kc, vc, lwc = map(to_chunks, (q, k, v, log_w))
+    t_idx = torch.arange(chunk, device=q.device)
+    mask = (t_idx[:, None] > t_idx[None, :]) if mode == "rwkv" \
+        else (t_idx[:, None] >= t_idx[None, :])
+    if mode == "rwkv" and u is None:
+        raise ValueError("mode 'rwkv' needs the bonus u")
+    state = (torch.zeros((B, H, K, V), dtype=torch.float32, device=q.device)
+             if initial_state is None else initial_state.float())
+    outs = []
+    for i in range(n):
+        qb, kb, vb, lwb = qc[i], kc[i], vc[i], lwc[i]       # (B, H, c, ·)
+        L = torch.cumsum(lwb, dim=2)          # cumulative log decay incl. t
+        Lc = L[:, :, -1:, :]                  # total chunk decay
+        # rwkv: decay applied to the state BEFORE reading at t (exclusive)
+        L_read = L - lwb if mode == "rwkv" else L
+        o_inter = torch.einsum("bhck,bhkv->bhcv", qb * torch.exp(L_read), state)
+        # intra-chunk pairwise log-difference exp(L_read_t - L_j), masked to
+        # -inf before exp so strong decay cannot overflow
+        diff = L_read[:, :, :, None, :] - L[:, :, None, :, :]   # (B,H,t,j,K)
+        diff = diff.masked_fill(~mask[None, None, :, :, None], float("-inf"))
+        att = torch.einsum("bhck,bhjk,bhcjk->bhcj", qb, kb, torch.exp(diff))
+        o_intra = torch.einsum("bhcj,bhjv->bhcv", att, vb)
+        if mode == "rwkv":
+            bonus = torch.einsum("bhck,bhck->bhc", qb * u.float()[None, :, None, :], kb)
+            o_intra = o_intra + bonus[..., None] * vb
+        # S_new = Diag(exp(Lc)) S + sum_j (k_j exp(Lc - L_j)) v_j
+        s_upd = torch.einsum("bhck,bhcv->bhkv", kb * torch.exp(Lc - L), vb)
+        state = torch.exp(Lc).transpose(2, 3) * state + s_upd
+        outs.append(o_inter + o_intra)
+    o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, T + pad, H, V)
+    return o[:, :T].to(v.dtype), state
+
+
+def gla_reference(q, k, v, log_w, u: Optional[torch.Tensor] = None,
+                  mode: str = "ssd",
+                  initial_state: Optional[torch.Tensor] = None):
+    """Token-by-token scan oracle (slow, exact).
+
+    Model layout (B, T, H, ·); returns (o (B, T, H, V), final_state)."""
+    B, T, H, K = q.shape
+    V = v.shape[-1]
+    state = (torch.zeros((B, H, K, V), dtype=torch.float32, device=q.device)
+             if initial_state is None else initial_state.float())
+    outs = []
+    for t in range(T):
+        o, state = gla_step(q[:, t], k[:, t], v[:, t], log_w[:, t], state,
+                            u=u, mode=mode)
+        outs.append(o)
+    return torch.stack(outs, dim=1), state

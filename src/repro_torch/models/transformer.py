@@ -3,7 +3,8 @@
 Counterpart of ``repro.models.transformer``. The reference stacks layers on
 a leading axis and runs them with ``lax.scan``; here the layers are an
 ``nn.ModuleList`` walked by a Python loop. The MoE, VLM and audio branches
-are not ported yet and raise ``NotImplementedError``. The reference's
+are not ported yet and raise ``NotImplementedError``; RWKV6 has its own
+stack (``repro_torch.models.rwkv``). The reference's
 sharding constraints (``distributed.axes.constrain``) have no counterpart on
 one card.
 """
@@ -29,8 +30,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family != "dense" or cfg.embed_stub or cfg.is_encoder_only \
             or cfg.attention.rope == "mrope":
         raise NotImplementedError(
-            f"{cfg.name}: only the dense decoder family (RoPE or none) is "
-            "ported")
+            f"{cfg.name}: the transformer stack ports only the dense decoder "
+            "family (RoPE or none); of the other families only RWKV6 (ssm, "
+            "repro_torch.models.rwkv) is ported")
 
 
 class LayerParams(nn.Module):

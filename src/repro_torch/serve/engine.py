@@ -4,8 +4,9 @@ Counterpart of ``repro.serve.engine``, with the same slot semantics:
 ``max_slots`` sequences share one decode cache; a free slot is refilled from
 the waiting queue by a single-sequence prefill whose K/V go into that slot;
 one decode step advances every slot by a token (inactive slots included, as
-in the reference, whose ``lengths`` advance for every row). Decoding is
-greedy.
+in the reference, whose ``lengths`` advance for every row). The cache is
+the family's: K/V rows for the dense family, the recurrent states
+(token-shift and wkv) for RWKV6. Decoding is greedy.
 
 Every iteration is logged (start, duration, token counts) so the served
 trace can be priced by Eq. 1 and Eq. 4. Each duration ends with the argmax
@@ -87,8 +88,9 @@ class ServingEngine:
             P = len(req.prompt)
             tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                      device=self.device)[None]
-            # the prompt's K/V are written into the slot's cache row in place
-            # (the reference rebuilds the whole shared cache on every insert)
+            # the prompt's K/V (or recurrent states) are written into the
+            # slot's cache row in place (the reference rebuilds the whole
+            # shared cache on every insert)
             logits, _ = self.model.prefill(self.params, {"tokens": tokens},
                                            self.max_len, cache=self.cache,
                                            slot=slot)
@@ -127,7 +129,11 @@ class ServingEngine:
             req.t_done = self.clock
             if req.slot >= 0:
                 self.slots[req.slot] = None
-                # only the length is reset: the stale K/V of a reused slot lie
-                # past its length and are masked
+                # only the length is reset. Stale K/V of a reused slot lie
+                # past its length and are masked; stale recurrent states
+                # (RWKV6) are overwritten, all three, by the next prefill into
+                # the slot. The reference zeroes them here, but decode goes on
+                # advancing every slot, free ones included, so a zeroed state
+                # would not stay zero either.
                 self.cache["lengths"][req.slot] = 0
             self.done.append(req)

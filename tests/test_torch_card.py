@@ -7,7 +7,8 @@ machine with the card and PyTorch only:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
 
 The shape sweeps are those of ``tests/test_kernels.py``; tolerances are the
-same (float32 2e-5, bfloat16 2e-2).
+same (attention: float32 2e-5, bfloat16 2e-2; gla_scan: float32 2e-4,
+bfloat16 5e-2).
 """
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_reference)
 from repro_torch.kernels.flash_attention import (attention_reference,
                                                  flash_attention)
+from repro_torch.kernels.gla_scan import gla_scan, gla_scan_reference
 from repro_torch.models import build_model
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -26,6 +28,7 @@ FLASH_SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 64),
                 (2, 64, 6, 3, 80)]    # odd heads / head_dim
 FLASH_MASKS = [(True, None), (True, 64), (False, None)]
 DECODE_SHAPES = [(2, 512, 8, 2, 64), (1, 1024, 4, 4, 128), (3, 300, 6, 3, 80)]
+GLA_SHAPES = [(1, 64, 2, 32, 32), (2, 130, 2, 64, 64), (1, 256, 4, 16, 64)]
 
 
 def _cuda_or_skip():
@@ -109,3 +112,117 @@ def test_engine_kernels_match_einsum_on_card():
                             else (0, 0))
     torch.testing.assert_close(outs["kernel"], outs["einsum"], rtol=1e-4,
                                atol=1e-4)
+
+
+def _gla_inputs(seed, dtype, B, T, H, K, V, mode, lw_dtype=None):
+    """q/k/v normal; log w = -exp(U(-6, 2.5)), the sweep's strong decay
+    (|log w| up to 12 per token); u for rwkv. All on the card."""
+    rng = np.random.default_rng(seed)
+    q, k, v = _inputs(rng, dtype, (B, T, H, K), (B, T, H, K), (B, T, H, V))
+    lw = torch.from_numpy(-np.exp(rng.uniform(-6.0, 2.5, (B, T, H, K)))
+                          .astype(np.float32)).to(lw_dtype or DTYPES[dtype]).cuda()
+    u = _inputs(rng, dtype, (H, K))[0] * 0.3 if mode == "rwkv" else None
+    return q, k, v, lw, u
+
+
+def _gla_tol(dtype):
+    return dict(rtol=5e-2, atol=5e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,K,V", GLA_SHAPES)
+@pytest.mark.parametrize("mode", ["ssd", "rwkv"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_gla_kernel_matches_plain_on_card(B, T, H, K, V, mode, dtype):
+    _cuda_or_skip()
+    q, k, v, lw, u = _gla_inputs(3, dtype, B, T, H, K, V, mode)
+    n = gla_scan.launches
+    o, s = gla_scan(q, k, v, lw, u=u, mode=mode)
+    torch.cuda.synchronize()
+    assert gla_scan.launches == n + 1
+    assert o.dtype == v.dtype and s.dtype == torch.float32
+    tr = lambda x: x.transpose(1, 2)
+    ro, rs = gla_scan_reference(tr(q), tr(k), tr(v), tr(lw), u=u, mode=mode)
+    np.testing.assert_allclose(_np(o), _np(tr(ro)), **_gla_tol(dtype))
+    np.testing.assert_allclose(_np(s), _np(rs), **_gla_tol(dtype))
+
+
+# Decays per token: the sweep's strong range, |log w| up to 12, held at the
+# sweep's float32 tolerance; and an extreme one, |log w| up to 40, where
+# cumulative log decays reach ~1e3 within a 32-token chunk. A float32 ulp
+# there is 6e-5, so exp of a difference of two of them carries ~1e-4
+# relative error in any chunked form (the Pallas kernel's too): 1e-3.
+DECAYS = {"sweep": (lambda rng, shape: -np.exp(rng.uniform(-6.0, 2.5, shape)), 2e-4),
+          "extreme": (lambda rng, shape: -rng.uniform(0.0, 40.0, shape), 1e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ssd", "rwkv"])
+@pytest.mark.parametrize("decay", list(DECAYS))
+def test_gla_kernel_strong_decay_stays_finite(mode, decay):
+    """On the masked pairs exp(L_read[t] - L[j]) overflows to inf under
+    strong decay; the kernel must never take it (0 * inf = NaN)."""
+    _cuda_or_skip()
+    B, T, H, K, V = 1, 1000, 2, 64, 64
+    rng = np.random.default_rng(9)
+    q, k, v = _inputs(rng, "float32", (B, T, H, K), (B, T, H, K), (B, T, H, V))
+    draw, tol = DECAYS[decay]
+    lw = torch.from_numpy(draw(rng, (B, T, H, K)).astype(np.float32)).cuda()
+    u = 0.3 * torch.ones(H, K, device="cuda") if mode == "rwkv" else None
+    o, s = gla_scan(q, k, v, lw, u=u, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    tr = lambda x: x.transpose(1, 2)
+    ro, rs = gla_scan_reference(tr(q), tr(k), tr(v), tr(lw), u=u, mode=mode)
+    np.testing.assert_allclose(_np(o), _np(tr(ro)), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(s), _np(rs), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_gla_wrapper_raises_on_what_the_kernel_does_not_take():
+    _cuda_or_skip()
+    q = torch.zeros(1, 8, 2, 32, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        gla_scan(q, q, torch.zeros(1, 8, 2, 24, device="cuda"), q, mode="ssd")
+    with pytest.raises(ValueError, match="needs u"):
+        gla_scan(q, q, q, q, mode="rwkv")
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(1, 2, 8, 32, device="cuda").transpose(1, 2)
+        gla_scan(t, t, t, t, mode="ssd")
+
+
+@pytest.mark.cuda
+def test_rwkv_served_through_the_kernel_on_card():
+    """Reduced RWKV6 on the card: every prefill launches gla_scan once per
+    layer, and the kernel path agrees with the plain einsum path
+    (``gla_chunked``) in float32."""
+    _cuda_or_skip()
+    from repro_torch.serve.engine import ServeRequest, ServingEngine
+    cfg = reduced_config(get_config("rwkv6-1.6b")).replace(dtype="float32")
+    params = build_model(cfg).init(0, device="cuda")
+    prompt = torch.arange(1, 46, device="cuda")[None]
+    outs = {}
+    for impl in ("kernel", "einsum"):
+        model = build_model(cfg, attn_impl=impl)
+        n = gla_scan.launches
+        logits, cache = model.prefill(params, {"tokens": prompt}, 64)
+        for _ in range(3):
+            tok = torch.argmax(logits, -1)[:, None]
+            logits, cache = model.decode_step(params, {"tokens": tok}, cache)
+        outs[impl] = logits.float().cpu()
+        assert gla_scan.launches - n == (cfg.n_layers if impl == "kernel" else 0)
+    torch.testing.assert_close(outs["kernel"], outs["einsum"], rtol=1e-4,
+                               atol=1e-4)
+
+    model = build_model(cfg)
+    engine = ServingEngine(model, params, max_slots=2, max_len=64, device="cuda")
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        engine.submit(ServeRequest(rid=i, prompt=rng.integers(1, 256, 20 + 7 * i),
+                                   max_new_tokens=4))
+    n = gla_scan.launches
+    done = engine.run()
+    n_pre = sum(l.kind == "prefill" for l in engine.logs)
+    assert len(done) == 3 and n_pre == 3
+    assert gla_scan.launches - n == cfg.n_layers * n_pre
