@@ -8,13 +8,18 @@ result:
 
 1. card: name and power limit (nvidia-smi), device name and count; TF32 off;
 2. build: the three CUDA kernels with nvcc (``repro_torch.kernels._build``),
-   with ptxas' registers, shared memory and spills per kernel;
+   with ptxas' registers, shared memory and spills per kernel, and the
+   kernel (and dynamic shared memory) that ``flash_attention`` picks for
+   each (dtype, head_dim);
 3. kernels against their plain PyTorch versions on the card: the
    ``tests/test_kernels.py`` sweeps (attention: float32 at 2e-5, bfloat16 at
    2e-2; gla_scan: 2e-4 and 5e-2, strong decay) and the served models' own
    shapes, each timed with CUDA events beside its bound, its plain version
    and, for attention, ``scaled_dot_product_attention`` (a yardstick the
-   port never calls; no PyTorch call computes the GLA scan);
+   port never calls; no PyTorch call computes the GLA scan); every flash
+   case names the path that ran it (``wgmma``, ``mma.sync`` or ``fma``),
+   the wgmma path's own case list runs too, and the served flash shapes
+   are also timed from a CUDA graph (device time without launch cost);
 4. Llama-3-8B at full width served through the launcher
    (``repro_torch.launch.serve.main``);
 5. the main path: Llama-3-8B at full width served by ``ServingEngine`` with
@@ -61,6 +66,9 @@ FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 DECODE_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
 GLA_REPLACES = "src/repro/kernels/gla_scan/kernel.py:103"
 GLA_SOURCE = "src/repro_torch/kernels/gla_scan/csrc/gla_scan.cu"
+# the wgmma flash path's cases, as in tests/test_torch_card.py
+WGMMA_S = (1, 63, 64, 127, 128, 129, 1000, 2048)
+WGMMA_MASKS = ((True, None), (True, 64), (True, 1000), (False, None))
 GLA_CHUNK = 32              # the gla_scan kernel's chunk tile (csrc/gla_scan.cu)
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
 # gla_scan: the tolerances of tests/test_kernels.py::test_gla_scan_sweep
@@ -91,6 +99,23 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean milliseconds per call of ``fn`` replayed from a CUDA graph of
+    ``iters`` calls: the device's time without the host's cost of each
+    launch, which bounds ``time_ms`` for small kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return time_ms(graph.replay, 5, warmup=1) / iters
 
 
 def max_err(out, ref, dtype, tol=TOL) -> float:
@@ -137,6 +162,7 @@ def phase_card() -> dict:
 
 def phase_build():
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import kernel_route
     print("== phase 2: build (nvcc, one process per kernel, in parallel)")
     t = time.perf_counter()
     built = _build.build()
@@ -150,23 +176,53 @@ def phase_build():
                 fn = m.group(1)
             if "spill" in line:
                 spills = line.strip()
+            if "warning" in line.lower():
+                print(f"  {name}: {line.strip()}")
             m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
             if m and fn:
-                print(f"  {name}: {fn[:60]}: {m.group(1)} registers, "
+                print(f"  {name}: {kernel_label(fn)}: {m.group(1)} registers, "
                       f"{m.group(2) or 0} bytes static smem; {spills}")
         if "registers" not in b.log:
             print(f"  {name}: library reused from an earlier build, "
                   "ptxas output not recorded")
+    for dtype, D in [(torch.bfloat16, 128), (torch.bfloat16, 64),
+                     (torch.bfloat16, 80), (torch.bfloat16, 32),
+                     (torch.float32, 128)]:
+        path, smem = kernel_route(dtype, D)
+        print(f"  flash_attention route {dtype} D={D}: {path}, {smem} bytes "
+              "dynamic smem per CTA")
+
+
+def kernel_label(mangled: str) -> str:
+    """``_ZN<n>_GLOBAL__N_...22flash_fwd_wgmma_kernelILi128EE...`` ->
+    ``flash_fwd_wgmma_kernel<128>``: the last name of a mangled (possibly
+    nested) function name and its first integer template argument."""
+    i = mangled.find("_Z")
+    if i < 0:
+        return mangled[:60]
+    i += 3 if mangled[i + 2:i + 3] == "N" else 2
+    names = []
+    while (m := re.match(r"\d+", mangled[i:])):
+        start = i + m.end()
+        i = start + int(m.group())
+        names.append(mangled[start:i])
+    if not names:
+        return mangled[:60]
+    arg = re.match(r"ILi(\d+)E", mangled[i:])
+    return f"{names[-1]}<{arg.group(1)}>" if arg else names[-1]
 
 
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def flash_case(B, S, H, KV, D, dtype, causal, window, gen, timed=False):
+def flash_case(B, S, H, KV, D, dtype, causal, window, gen, timed=False,
+               amp=1):
+    """``amp`` scales q: at 8 the scores (standard deviation 8) reach ~+-60."""
     from repro_torch.kernels.flash_attention import (attention_reference,
                                                      flash_attention)
-    q = randn((B, S, H, D), dtype, gen)
+    from repro_torch.kernels.flash_attention.ops import kernel_route
+    q = randn((B, S, H, D), dtype, gen) * amp
     k, v = randn((B, S, KV, D), dtype, gen), randn((B, S, KV, D), dtype, gen)
     tr = lambda x: x.transpose(1, 2)
     plain = lambda: tr(attention_reference(tr(q), tr(k), tr(v), causal=causal,
@@ -174,7 +230,8 @@ def flash_case(B, S, H, KV, D, dtype, causal, window, gen, timed=False):
     kernel = lambda: flash_attention(q, k, v, causal=causal, window=window)
     out = kernel()
     torch.cuda.synchronize()
-    row = {"max_abs_err": max_err(out, plain(), dtype)}
+    row = {"max_abs_err": max_err(out, plain(), dtype),
+           "path": kernel_route(dtype, D)[0]}
     if timed:
         qt, kt, vt = (tr(x).contiguous() for x in (q, k, v))
         library = lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -186,7 +243,8 @@ def flash_case(B, S, H, KV, D, dtype, causal, window, gen, timed=False):
         flops = 4.0 * D * H * B * float(n_keys.sum())
         nbytes = (2 * B * S * H * D + 2 * B * S * KV * D) * q.element_size()
         row.update(ms=time_ms(kernel, 20), plain_ms=time_ms(plain, 5),
-                   library_ms=time_ms(library, 20))
+                   library_ms=time_ms(library, 20), graph_ms=graph_ms(kernel),
+                   library_graph_ms=graph_ms(library))
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
     return row
 
@@ -263,12 +321,18 @@ def gla_case(B, T, H, K, V, mode, dtype, gen, lw_dtype=None, timed=False):
 
 def fmt(row: dict) -> str:
     parts = [f"max_err={row['max_abs_err']:.3e}"]
+    if "path" in row:
+        parts.insert(0, f"path={row['path']}")
     if "ms" in row:
         lib = row["library_ms"]
         parts += [f"ms={row['ms']:.4f}", f"plain_ms={row['plain_ms']:.4f}",
                   f"library_ms={'none' if lib is None else f'{lib:.4f}'}",
                   f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})",
                   f"of_bound={row['bound_ms'] / row['ms']:.3f}"]
+    if "graph_ms" in row:
+        parts += [f"graph_ms={row['graph_ms']:.4f}",
+                  f"library_graph_ms={row['library_graph_ms']:.4f}",
+                  f"graph_of_bound={row['bound_ms'] / row['graph_ms']:.3f}"]
     return " ".join(parts)
 
 
@@ -289,6 +353,24 @@ def phase_kernels() -> dict:
             row = decode_case(B, W, H, KV, D, dtype, lengths, None, gen)
             print(f"decode sweep B={B} W={W} H={H} KV={KV} D={D} {dtype}: "
                   f"{fmt(row)}")
+    print("-- flash, the wgmma path's cases (tests/test_torch_card.py: bf16, "
+          "H=8, GQA groups 1/4/8, B 1 and 2, causal / window 64 / window 1000 "
+          "/ non-causal, q x1 and x8), max error per (D, S)")
+    for D in (64, 128):
+        for S in WGMMA_S:
+            worst, paths, n = 0.0, set(), 0
+            for B in (1, 2):
+                for group in (1, 4, 8):
+                    for causal, window in WGMMA_MASKS:
+                        for amp in (1, 8):
+                            row = flash_case(B, S, 8, 8 // group, D,
+                                             torch.bfloat16, causal, window,
+                                             gen, amp=amp)
+                            worst = max(worst, row["max_abs_err"])
+                            paths.add(row["path"])
+                            n += 1
+            print(f"flash wgmma cases D={D} S={S}: {n} cases, path="
+                  f"{'/'.join(sorted(paths))} max_err={worst:.3e}")
     row = decode_case(2, 256, 4, 4, 64, torch.float32,
                       torch.tensor([256 + 57, 100]), 256, gen)
     print(f"decode ring B=2 W=256 window=256 lengths=[313, 100]: {fmt(row)}")

@@ -9,8 +9,8 @@
 //
 // Translation. The TPU grid walks its KV axis in order and carries (m, l,
 // acc) in VMEM scratch from one grid step to the next. CUDA blocks run in
-// parallel in no order, so one CTA owns one (batch, head, 64-query tile) and
-// loops over KV tiles itself, with (m, l, acc) in registers. K/V are read
+// parallel in no order, so a CTA owns one (batch, head, query tile) at a
+// time and loops over its KV tiles itself, with (m, l, acc) in registers. K/V are read
 // straight from the model layout (B, S, KV, D) at head h / G: nothing is
 // repeated in memory. The scale 1/sqrt(D) is applied to the scores directly
 // (the TPU wrapper's pad-D-to-128-and-rescale-q trick is not needed). KV tiles
@@ -19,16 +19,47 @@
 // What bounds it on this card. Causal prefill does about 4 * S^2 * D * H / 2
 // FLOP on S * D * (2H + 2KV) elements of input and output: at S >= ~512 the
 // work is far above the H100's ~295 FLOP/byte ridge, so it is bound by
-// arithmetic, and only the tensor cores reach the card's rate. Two kernels:
-//   - bfloat16 (the served model): each warp owns 16 query rows and runs
-//     both products, S = Q K^T and O += P V, on the tensor cores with
+// operations, and only wgmma reaches the tensor cores' full rate. Three
+// kernels, chosen by (dtype, D) in flash_attention_fwd:
+//   - bfloat16 at D = 64 and 128 (Llama-3-8B and the other served D = 64/128
+//     models): flash_fwd_wgmma_kernel, Hopper's shape (FlashAttention-3's).
+//     It replaces, at these head dims, the mma.sync kernel below, and behind
+//     it flash_attention_pallas. A work item is one (batch, head, 128-query
+//     tile); the grid is persistent, one CTA per SM walking its items
+//     heaviest first, so the next item's loads overlap this item's last
+//     tiles instead of every CTA paying its load latency and pipeline fill
+//     alone. A CTA has three warpgroups. The producer warpgroup gives its
+//     registers up (setmaxnreg) and one of its threads loads Q (two
+//     buffers: this item's and the next's) and K/V tiles of 128 keys into
+//     a 2-stage ring in shared memory with TMA (cp.async.bulk.tensor over
+//     4-D maps (D, heads, S, B), 128-byte swizzle, so D = 128 is two
+//     64-column boxes per tile). Each stage has "full" and "empty" mbarriers
+//     for K and for V apart, so Q K^T starts before V lands and the next K
+//     loads as soon as Q K^T is done: loads run ahead of the tensor cores
+//     instead of fencing every tile with __syncthreads. Two consumer
+//     warpgroups of 64 query rows run both products on wgmma: S = Q K^T
+//     with Q and K from shared memory, O += P V with P kept in registers as
+//     the A operand (bf16, in the accumulator layout) and V as an MN-major
+//     B operand. While one group's softmax is on the CUDA cores, the
+//     other's products can be on the tensor cores. (Issuing Q K^T of tile
+//     i + 1 before the softmax of tile i, or making the groups take turns
+//     at the tensor cores, needs ~200 registers a thread; ptxas gave the
+//     consumers 168 whatever setmaxnreg asked, spilled, and ran no faster.)
+//     Softmax runs in exp2 on scores pre-scaled by scale * log2(e); the
+//     causal, window and kpos < S masks run only on tiles that cross a
+//     boundary (zero-filled keys past S score 0, so the last tile is
+//     masked). Output is stored from registers, rows past S unwritten.
+//     The tensor maps are built on the host for each call.
+//   - bfloat16 at the other head dims (16..112 in steps of 16, e.g. D = 80,
+//     D = 32): each warp owns 16 query rows and runs both products with
 //     mma.sync m16n8k16 (bf16 in, float32 accumulate); the score
 //     accumulators are reused in registers as the A operand of P V, as in
-//     FlashAttention-2, so P never touches shared memory. Loads are
-//     synchronous and single-buffered; wgmma, TMA and a load pipeline are
-//     the work of a later version.
+//     FlashAttention-2. Loads are synchronous and single-buffered.
 //   - float32 (tests and float32 models): float32 FMAs on shared-memory
 //     tiles, which keep full float32 precision (TF32 tensor cores would not).
+// A refused launch or a failed tensor-map encode returns its error; there is
+// no fallback from one kernel to another.
+#include <cuda.h>  // CUtensorMap and its enums; no link against libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -269,13 +300,12 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-template <int D>
-constexpr size_t mma_smem_bytes() {
+constexpr size_t mma_smem_bytes(int D) {
   return sizeof(__nv_bfloat16) * (size_t)(BQ + 2 * BK) * (D + PAD);
 }
 
 // q, o: (B, S, H, D); k, v: (B, S, KV, D); bf16, contiguous.
-// grid: (ceil(S / BQ), H, B); block: MMA_THREADS; dynamic smem: mma_smem_bytes<D>().
+// grid: (ceil(S / BQ), H, B); block: MMA_THREADS; dynamic smem: mma_smem_bytes(D).
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -438,7 +468,7 @@ template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int H, int KV, float scale, int causal,
                         int window, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<D>();
+  constexpr size_t smem = mma_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -457,12 +487,609 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
   switch (D) {
 #define REPRO_FLASH_CASE(DD) \
   case DD: return launch_bf16<DD>(q, k, v, o, B, S, H, KV, scale, causal, window, stream);
+    // D = 64 and 128 run flash_fwd_wgmma_kernel (see route)
     REPRO_FLASH_CASE(16) REPRO_FLASH_CASE(32) REPRO_FLASH_CASE(48)
-    REPRO_FLASH_CASE(64) REPRO_FLASH_CASE(80) REPRO_FLASH_CASE(96)
-    REPRO_FLASH_CASE(112) REPRO_FLASH_CASE(128)
+    REPRO_FLASH_CASE(80) REPRO_FLASH_CASE(96) REPRO_FLASH_CASE(112)
 #undef REPRO_FLASH_CASE
     default: return cudaErrorInvalidValue;
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// bfloat16 at head_dim 64 and 128: TMA ring, warp-specialised wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BQ = 128;           // query rows per CTA: two consumer warpgroups of 64
+constexpr int WG_BK = 128;           // keys per KV tile (the N of Q K^T's wgmma)
+constexpr int WG_STAGES = 2;         // K and V tiles each in the shared-memory ring
+constexpr int WG_CONSUMERS = 256;    // two consumer warpgroups; each thread arrives on "empty"
+constexpr int WG_THREADS = 384;      // and a producer warpgroup
+constexpr int BOX_COLS = 64;         // 128-byte swizzle: boxes of at most 64 bf16 columns
+constexpr int Q_BOX = WG_BQ * 128;   // bytes of one [WG_BQ rows][64 columns] box of Q
+constexpr int KV_BOX = WG_BK * 128;  // bytes of one [WG_BK rows][64 columns] box of K or V
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory: two Q tiles (this item's and the next's), then WG_STAGES x
+// (K tile, V tile), then the barriers. A tile is D / 64 boxes of
+// [rows][64 columns], each row 128 bytes, 128-byte swizzled by TMA in
+// 1024-byte atoms of 8 rows.
+template <int D>
+struct WgSmem {
+  static constexpr int Q_TILE = (D / BOX_COLS) * Q_BOX;
+  static constexpr int KV_TILE = (D / BOX_COLS) * KV_BOX;
+  static constexpr int DATA = 2 * Q_TILE + 2 * WG_STAGES * KV_TILE;
+  static constexpr int N_BARS = 4 + 4 * WG_STAGES;  // q_full/empty[2], k/v_full/empty[]
+  static constexpr int BYTES = 1024 + DATA + 8 * N_BARS;  // 1024: slack to align the base
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier's phase of parity `parity` has completed. A wait
+// that lasts ~2 s (2^32 cycles) is a lost arrival, not a slow tile: trap, so
+// that a fault ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 32)) __trap();
+}
+
+// One box of a 4-D tensor map (D, heads, S, B) at (col, head, row, batch)
+// into shared memory; completion is counted in bytes on `bar`. Rows past S
+// are zero-filled.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1). Byte
+// offsets: lbo between 64-column atoms along MN (MN-major operands only),
+// sbo between 8-row groups. The atoms start 1024-byte aligned, so the base
+// offset is 0.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// The descriptor `bytes` further on (the start address is its low bits, in
+// 16-byte units). The add runs here, at its use, so the compiler does not
+// hoist each k-step's descriptor of a loop into registers of its own.
+__device__ __forceinline__ uint64_t desc_plus(uint64_t desc, uint32_t bytes) {
+  uint64_t r;
+  asm volatile("add.s64 %0, %1, %2;\n" : "=l"(r) : "l"(desc), "l"((uint64_t)(bytes >> 4)));
+  return r;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma's registers
+// across the asynchronous issue and its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (64 x 128, float32) {=, +=} A (64 x 16) * B (16 x 128); A and B in shared
+// memory, both K-major. accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, float32) += A (64 x 16, registers) * B (16 x 128, shared memory,
+// MN-major: the last immediate, trans-b, is 1).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, float32) += A (64 x 16, registers) * B (16 x 64, shared memory,
+// MN-major: the last immediate, trans-b, is 1).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// S = Q K^T for one consumer warpgroup: 64 rows x WG_BK keys, D / 16 k-steps
+// of 16 columns; a k-step moves 32 bytes along a 128-byte swizzled row and
+// every 4 k-steps to the next 64-column box. Issued, not waited for.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sacc)[WG_BK / 2], uint32_t q_rows,
+                                         uint32_t k_tile) {
+  const uint64_t dq = sw128_desc(q_rows, 16, 1024), dk = sw128_desc(k_tile, 16, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss_n128(sacc, desc_plus(dq, (kk / 4) * Q_BOX + col),
+                  desc_plus(dk, (kk / 4) * KV_BOX + col), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V: P in registers, in the A layout of keys [16 kk, 16 kk + 16); V
+// the MN-major B operand, where a k-step of 16 keys is 2048 bytes of a box
+// and the second 64 columns lie one box (lbo) further. Issued, not waited
+// for.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
+                                         const uint32_t (&pa)[WG_BK / 16][4],
+                                         uint32_t v_tile) {
+  const uint64_t dv0 = sw128_desc(v_tile, KV_BOX, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < WG_BK / 16; ++kk) {
+    const uint64_t dv = desc_plus(dv0, kk * 2048);
+    if constexpr (D == 128) wgmma_rs_n128(oacc, pa[kk], dv);
+    else wgmma_rs_n64(oacc, pa[kk], dv);
+  }
+  wgmma_commit();
+}
+
+// One tile of the online softmax for rows row0 and row1 = row0 + 8 of a
+// thread (lane = 4 g + t holds keys k0 + 8 j + 2 t, + 1 of every n8 block
+// j). Masks only when `masked`; updates m (log2 units) and the per-lane
+// partial l; writes P as bf16 A fragments and returns the factors by which
+// the previous accumulator must be scaled. A row with no unmasked score
+// yet keeps m = -inf and takes 0 as its exp2 reference, so every exp2 is of
+// -inf or of a finite number, never of inf - inf.
+__device__ __forceinline__ void softmax_tile(float (&sacc)[WG_BK / 2],
+                                             uint32_t (&pa)[WG_BK / 16][4],
+                                             float& m0, float& m1, float& l0,
+                                             float& l1, float& alpha0, float& alpha1,
+                                             bool masked, int k0, int row0, int t,
+                                             int S, int causal, int window,
+                                             float scale_log2) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < WG_BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        const int qp = e < 2 ? row0 : row0 + 8;
+        const bool ok = key < S && (!causal || key <= qp) &&
+                        (window <= 0 || key > qp - window);
+        if (!ok) sacc[4 * j + e] = -INFINITY;
+      }
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < WG_BK / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+  }
+  // a row's WG_BK scores lie in the 4 lanes of its quad
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+  const float ref0 = mn0 == -INFINITY ? 0.f : mn0;
+  const float ref1 = mn1 == -INFINITY ? 0.f : mn1;
+  alpha0 = ex2(m0 - ref0);
+  alpha1 = ex2(m1 - ref1);
+  m0 = mn0;
+  m1 = mn1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < WG_BK / 8; ++j) {
+    sacc[4 * j] = ex2(fmaf(sacc[4 * j], scale_log2, -ref0));
+    sacc[4 * j + 1] = ex2(fmaf(sacc[4 * j + 1], scale_log2, -ref0));
+    sacc[4 * j + 2] = ex2(fmaf(sacc[4 * j + 2], scale_log2, -ref1));
+    sacc[4 * j + 3] = ex2(fmaf(sacc[4 * j + 3], scale_log2, -ref1));
+    rs0 += sacc[4 * j] + sacc[4 * j + 1];
+    rs1 += sacc[4 * j + 2] + sacc[4 * j + 3];
+  }
+  l0 = l0 * alpha0 + rs0;  // per-lane partial sums; the quad is summed at the end
+  l1 = l1 * alpha1 + rs1;
+#pragma unroll
+  for (int kk = 0; kk < WG_BK / 16; ++kk) {
+    pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+  }
+}
+
+// One work item: a (batch, query head, 128-query tile), and the KV tiles it
+// visits. Items are numbered heaviest first: the last query tiles of every
+// (batch, head) come first, since under a causal mask they visit the most
+// KV tiles.
+struct WorkItem {
+  int q0, h, b, kvh, k_begin, n_tiles;
+};
+
+__device__ __forceinline__ WorkItem work_item(int w, int S, int H, int KV, int HB,
+                                              int n_qt, int causal, int window) {
+  WorkItem it;
+  it.q0 = (n_qt - 1 - w / HB) * WG_BQ;
+  const int hb = w % HB;
+  it.h = hb % H;
+  it.b = hb / H;
+  it.kvh = it.h / (H / KV);
+  int k_begin = 0, k_end = S;
+  if (causal) k_end = min(S, it.q0 + WG_BQ);
+  if (window > 0) k_begin = max(0, it.q0 - window + 1);
+  it.k_begin = (k_begin / WG_BK) * WG_BK;
+  it.n_tiles = (k_end - it.k_begin + WG_BK - 1) / WG_BK;  // >= 1: k_begin <= q0 < k_end
+  return it;
+}
+
+// The r-th item of this CTA: rounds of gridDim.x items, walked forwards in
+// even rounds and backwards in odd ones, so that every CTA gets a like
+// share of heavy and light items.
+__device__ __forceinline__ int item_index(int r) {
+  const int c = (r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  return r * gridDim.x + c;
+}
+
+// q, k, v through tensor maps of (D, heads, S, B), boxes of (64, 1, rows, 1),
+// 128-byte swizzle; o: (B, S, H, D) bf16, contiguous. Persistent: grid of
+// min(items, SMs) CTAs, each walking its items (item_index); block:
+// WG_THREADS; dynamic smem: WgSmem<D>::BYTES. scale_log2 = scale * log2(e):
+// softmax runs in exp2 on pre-scaled scores.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                       __grid_constant__ const CUtensorMap tk,
+                       __grid_constant__ const CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ o, int B, int S, int H, int KV,
+                       float scale_log2, int causal, int window) {
+  using L = WgSmem<D>;
+  constexpr int NB = D / BOX_COLS;  // boxes per tile row
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t base = (smem_u32(wg_smem) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::DATA;
+  auto q_tile = [&](int qb) { return base + (uint32_t)(L::Q_TILE * qb); };
+  auto k_tile = [&](int s) { return base + (uint32_t)(2 * L::Q_TILE + L::KV_TILE * 2 * s); };
+  auto v_tile = [&](int s) { return base + (uint32_t)(2 * L::Q_TILE + L::KV_TILE * (2 * s + 1)); };
+  auto q_full = [&](int qb) { return bars + 8u * qb; };
+  auto q_empty = [&](int qb) { return bars + 8u * (2 + qb); };
+  auto k_full = [&](int s) { return bars + 8u * (4 + s); };
+  auto v_full = [&](int s) { return bars + 8u * (4 + WG_STAGES + s); };
+  auto k_empty = [&](int s) { return bars + 8u * (4 + 2 * WG_STAGES + s); };
+  auto v_empty = [&](int s) { return bars + 8u * (4 + 3 * WG_STAGES + s); };
+
+  const int HB = H * B;
+  const int n_qt = (S + WG_BQ - 1) / WG_BQ;
+  const int n_items = n_qt * HB;
+
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(q_full(qb), 1);
+      mbar_init(q_empty(qb), WG_CONSUMERS);
+    }
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), WG_CONSUMERS);
+      mbar_init(v_empty(s), WG_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread keeps the rings full, running ahead across
+    // items, so the next item's Q and first K/V tiles load while this
+    // item's last tiles are multiplied. The warpgroup hands its registers
+    // back (though ptxas still compiles the consumers for 168; see the
+    // note at the top).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int g = 0;  // KV tiles loaded so far, over all items
+      for (int r = 0; item_index(r) < n_items; ++r) {
+        const WorkItem it = work_item(item_index(r), S, H, KV, HB, n_qt, causal, window);
+        const int qb = r & 1;
+        if (r >= 2) mbar_wait(q_empty(qb), ((r - 2) >> 1) & 1);
+        mbar_expect_tx(q_full(qb), L::Q_TILE);
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          tma_load(q_tile(qb) + c * Q_BOX, &tq, q_full(qb), c * BOX_COLS, it.h, it.q0, it.b);
+        for (int j = 0; j < it.n_tiles; ++j, ++g) {
+          const int s = g % WG_STAGES, round = g / WG_STAGES;
+          const int k0 = it.k_begin + j * WG_BK;
+          if (round > 0) mbar_wait(k_empty(s), (round - 1) & 1);
+          mbar_expect_tx(k_full(s), L::KV_TILE);
+#pragma unroll
+          for (int c = 0; c < NB; ++c)
+            tma_load(k_tile(s) + c * KV_BOX, &tk, k_full(s), c * BOX_COLS, it.kvh, k0, it.b);
+          if (round > 0) mbar_wait(v_empty(s), (round - 1) & 1);
+          mbar_expect_tx(v_full(s), L::KV_TILE);
+#pragma unroll
+          for (int c = 0; c < NB; ++c)
+            tma_load(v_tile(s) + c * KV_BOX, &tv, v_full(s), c * BOX_COLS, it.kvh, k0, it.b);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup cw owns query rows q0 + 64 cw .. + 63 of each
+    // item. Thread (warp w of the group, lane = 4 g + t) holds rows
+    // 16 w + g and 16 w + g + 8 of them, and columns 8 j + 2 t, + 1 of every
+    // n8 block j (wgmma's accumulator layout). Per KV tile: Q K^T, softmax,
+    // P V; while one group's softmax is on the CUDA cores, the other's
+    // products can be on the tensor cores.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int lane = tid & 31, w = tid >> 5;
+    const int t = lane & 3;
+    int g = 0;  // KV tiles consumed so far, over all items
+    for (int r = 0; item_index(r) < n_items; ++r) {
+      const WorkItem it = work_item(item_index(r), S, H, KV, HB, n_qt, causal, window);
+      const int qb = r & 1;
+      const int qlo = it.q0 + 64 * cw;
+      const int row0 = qlo + 16 * w + (lane >> 2);
+      const uint32_t q_rows = q_tile(qb) + 64 * cw * 128;  // this group's 64 rows of each Q box
+
+      float oacc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // m in log2 units
+      mbar_wait(q_full(qb), (r >> 1) & 1);
+
+      for (int j = 0; j < it.n_tiles; ++j, ++g) {
+        const int s = g % WG_STAGES, parity = (g / WG_STAGES) & 1;
+        const int k0 = it.k_begin + j * WG_BK;
+        float sacc[WG_BK / 2];
+        mbar_wait(k_full(s), parity);
+        issue_qk<D>(sacc, q_rows, k_tile(s));
+        wgmma_wait<0>();
+        fence_regs(sacc);
+        mbar_arrive(k_empty(s));
+        if (j == it.n_tiles - 1) mbar_arrive(q_empty(qb));  // Q of this item is read
+
+        // a tile needs masks only where it crosses the diagonal, the
+        // window's edge or S; zero-filled keys past S score 0, not -inf, so
+        // the last tile is masked too
+        const bool masked = k0 + WG_BK > S || (causal && k0 + WG_BK - 1 > qlo) ||
+                            (window > 0 && k0 <= qlo + 63 - window);
+        float alpha0, alpha1;
+        uint32_t pa[WG_BK / 16][4];
+        softmax_tile(sacc, pa, m0, m1, l0, l1, alpha0, alpha1, masked, k0, row0, t,
+                     S, causal, window, scale_log2);
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          oacc[4 * jj] *= alpha0;
+          oacc[4 * jj + 1] *= alpha0;
+          oacc[4 * jj + 2] *= alpha1;
+          oacc[4 * jj + 3] *= alpha1;
+        }
+
+        mbar_wait(v_full(s), parity);
+        issue_pv<D>(oacc, pa, v_tile(s));
+        wgmma_wait<0>();
+        fence_regs(oacc);
+        mbar_arrive(v_empty(s));
+      }
+
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      const float inv0 = 1.f / fmaxf(l0, 1e-37f), inv1 = 1.f / fmaxf(l1, 1e-37f);
+      const size_t q_row = (size_t)H * D;
+      __nv_bfloat16* o0 =
+          o + ((size_t)it.b * S + row0) * q_row + (size_t)it.h * D + 2 * t;
+      __nv_bfloat16* o1 = o0 + 8 * q_row;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        if (row0 < S)
+          *reinterpret_cast<uint32_t*>(o0 + 8 * jj) =
+              pack_bf16(oacc[4 * jj] * inv0, oacc[4 * jj + 1] * inv0);
+        if (row0 + 8 < S)
+          *reinterpret_cast<uint32_t*>(o1 + 8 * jj) =
+              pack_bf16(oacc[4 * jj + 2] * inv1, oacc[4 * jj + 3] * inv1);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled is a driver-API call. It is reached through the
+// runtime's cudaGetDriverEntryPoint, so the library needs no -lcuda and
+// loads wherever the CUDA runtime does.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over a contiguous (B, S, heads, D) bf16 tensor, dimensions
+// innermost first: (D, heads, S, B). S stays its own dimension, so the zero
+// fill past S never reads the next sequence's rows.
+bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B,
+              int S, int heads, int D, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {BOX_COLS, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         int B, int S, int H, int KV, float scale, int causal,
+                         int window, cudaStream_t stream) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, encode, q, B, S, H, D, WG_BQ) ||
+      !make_map(&tk, encode, k, B, S, KV, D, WG_BK) ||
+      !make_map(&tv, encode, v, B, S, KV, D, WG_BK))
+    return cudaErrorInvalidValue;
+  constexpr int smem = WgSmem<D>::BYTES;
+  // Once per device and head dim (they cost host time on every call
+  // otherwise): the shared-memory opt-in and the SM count.
+  constexpr int MAX_DEVICES = 64;
+  static int sms_of[MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  int sms = sms_of[device];
+  if (sms == 0) {
+    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    sms_of[device] = sms;
+  }
+  const long long items = (long long)((S + WG_BQ - 1) / WG_BQ) * H * B;
+  const int grid = (int)(items < sms ? items : sms);  // one CTA per SM
+  flash_fwd_wgmma_kernel<D><<<grid, WG_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, H, KV, scale * LOG2E,
+      causal, window);
+  return cudaGetLastError();
+}
+
+// The kernel flash_attention_fwd runs for (dtype, D), and its dynamic
+// shared memory in bytes.
+enum Route { ROUTE_NONE, ROUTE_FMA, ROUTE_MMA, ROUTE_WGMMA };
+
+Route route(int dtype, int D, size_t* smem) {
+  if (D % 16 != 0 || D < 16 || D > DMAX) return ROUTE_NONE;
+  if (dtype == 0) {
+    *smem = smem_bytes(D);
+    return ROUTE_FMA;
+  }
+  if (dtype != 1) return ROUTE_NONE;
+  if (D == 64 || D == 128) {
+    *smem = D == 64 ? WgSmem<64>::BYTES : WgSmem<128>::BYTES;
+    return ROUTE_WGMMA;
+  }
+  *smem = mma_smem_bytes(D);
+  return ROUTE_MMA;
 }
 
 }  // namespace
@@ -474,16 +1101,33 @@ extern "C" {
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int H, int KV, int D, float scale,
                         int causal, int window, int dtype, void* stream) {
-  if (D % 16 != 0 || D > DMAX || H % KV != 0)
-    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  const Route r = route(dtype, D, &smem);
+  if (r == ROUTE_NONE || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_f32(q, k, v, o, B, S, H, KV, D, scale, causal, window,
-                              st);
-  if (dtype == 1)
-    return (int)dispatch_bf16(q, k, v, o, B, S, H, KV, D, scale, causal,
-                              window, st);
-  return (int)cudaErrorInvalidValue;
+  switch (r) {
+    case ROUTE_FMA:
+      return (int)launch_f32(q, k, v, o, B, S, H, KV, D, scale, causal, window, st);
+    case ROUTE_WGMMA:
+      return D == 128 ? (int)launch_wgmma<128>(q, k, v, o, B, S, H, KV, scale,
+                                               causal, window, st)
+                      : (int)launch_wgmma<64>(q, k, v, o, B, S, H, KV, scale,
+                                              causal, window, st);
+    default:
+      return (int)dispatch_bf16(q, k, v, o, B, S, H, KV, D, scale, causal,
+                                window, st);
+  }
+}
+
+// Name of the kernel flash_attention_fwd runs for (dtype, D): "wgmma",
+// "mma.sync" or "fma", or NULL where it refuses them; *smem_bytes is that
+// kernel's dynamic shared memory per CTA.
+const char* flash_attention_route(int dtype, int D, int* smem_bytes) {
+  size_t smem = 0;
+  const Route r = route(dtype, D, &smem);
+  *smem_bytes = (int)smem;
+  return r == ROUTE_WGMMA ? "wgmma" : r == ROUTE_MMA ? "mma.sync"
+         : r == ROUTE_FMA ? "fma" : nullptr;
 }
 
 const char* flash_attention_error_string(int code) {

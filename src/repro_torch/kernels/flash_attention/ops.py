@@ -3,7 +3,10 @@
 ``flash_attention`` takes the model layout (q (B, S, H, D), k/v (B, S, KV, D))
 and returns (B, S, H, D). On CPU tensors it runs the plain version
 (``ref.attention_reference``); on CUDA tensors it launches the kernel or
-raises. ``flash_attention.launches`` counts kernel launches.
+raises. The C entry point picks the kernel by (dtype, head_dim): bf16 at
+64 and 128 runs the TMA + wgmma kernel, other bf16 head dims the mma.sync
+kernel, float32 the FMA kernel. ``flash_attention.launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -28,10 +31,22 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i,
                                             ctypes.c_float, i, i, i, p]
         lib.flash_attention_fwd.restype = i
+        lib.flash_attention_route.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.flash_attention_route.restype = ctypes.c_char_p
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int):
+    """(name, dynamic shared memory in bytes) of the kernel the C entry point
+    runs for ``dtype`` and ``head_dim``: "wgmma", "mma.sync" or "fma"; name
+    None where it refuses them. Builds the library (card machine only)."""
+    smem = ctypes.c_int(0)
+    name = _lib().flash_attention_route(DTYPE_CODES[dtype], head_dim,
+                                        ctypes.byref(smem))
+    return (name.decode() if name else None), smem.value
 
 
 def _check(q, k, v, window):
@@ -48,6 +63,15 @@ def _check(q, k, v, window):
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one of "
                         "float32, bfloat16 for all three")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        # TMA (and the 16-byte loads of the mma.sync kernel) take only
+        # 16-byte aligned addresses and row strides
+        if x.data_ptr() % 16 or any(
+                st * x.element_size() % 16
+                for st, n in zip(x.stride()[:-1], x.shape[:-1]) if n > 1):
+            raise ValueError(f"{name}: data_ptr and strides must be multiples "
+                             f"of 16 bytes, got {x.data_ptr() % 16} bytes off "
+                             f"and strides {x.stride()}")
     if not (q.device == k.device == v.device) or q.device.type != "cuda":
         raise ValueError("q, k, v must lie on one CUDA device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

@@ -27,6 +27,22 @@ FLASH_SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 64),
                 (1, 200, 8, 1, 32),   # unpadded seq, MQA
                 (2, 64, 6, 3, 80)]    # odd heads / head_dim
 FLASH_MASKS = [(True, None), (True, 64), (False, None)]
+# The wgmma path (bf16 at head_dim 64 and 128): S on both sides of the 64-row
+# consumer and 128-row tiles, batch 1 and 2, GQA groups 1, 4 and 8 of H = 8,
+# causal, windows 64 and 1000, non-causal; q scaled x8 as well, so that
+# scores (standard deviation 8) reach about +-60 and exercise the exp2
+# rescaling.
+WGMMA_S = [1, 63, 64, 127, 128, 129, 1000, 2048]
+WGMMA_MASKS = [(True, None), (True, 64), (True, 1000), (False, None)]
+# (B, S, H, KV, D, dtype, causal, window, amp): amp scales q
+FLASH_CASES = (
+    [(B, S, H, KV, D, dtype, causal, window, 1)
+     for B, S, H, KV, D in FLASH_SHAPES for dtype in DTYPES
+     for causal, window in FLASH_MASKS]
+    + [(B, S, 8, 8 // group, D, "bfloat16", causal, window, amp)
+       for D in (64, 128) for S in WGMMA_S for B in (1, 2)
+       for group in (1, 4, 8) for causal, window in WGMMA_MASKS
+       for amp in (1, 8)])
 DECODE_SHAPES = [(2, 512, 8, 2, 64), (1, 1024, 4, 4, 128), (3, 300, 6, 3, 80)]
 GLA_SHAPES = [(1, 64, 2, 32, 32), (2, 130, 2, 64, 64), (1, 256, 4, 16, 64)]
 
@@ -51,15 +67,25 @@ def _np(x):
     return x.float().cpu().numpy()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,KV,D", FLASH_SHAPES)
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("causal,window", FLASH_MASKS)
-def test_flash_kernel_matches_plain_on_card(B, S, H, KV, D, dtype, causal,
-                                            window):
-    _cuda_or_skip()
-    q, k, v = _inputs(np.random.default_rng(0), dtype, (B, S, H, D),
+def _flash_id(case):
+    B, S, H, KV, D, dtype, causal, window, amp = case
+    return (f"B{B}-S{S}-H{H}-KV{KV}-D{D}-{dtype}-"
+            f"{'causal' if causal else 'full'}-w{window}-x{amp}")
+
+
+def _flash_inputs(seed, B, S, H, KV, D, dtype, amp=1):
+    q, k, v = _inputs(np.random.default_rng(seed), dtype, (B, S, H, D),
                       (B, S, KV, D), (B, S, KV, D))
+    return q * amp, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D,dtype,causal,window,amp", FLASH_CASES,
+                         ids=[_flash_id(c) for c in FLASH_CASES])
+def test_flash_kernel_matches_plain_on_card(B, S, H, KV, D, dtype, causal,
+                                            window, amp):
+    _cuda_or_skip()
+    q, k, v = _flash_inputs(0, B, S, H, KV, D, dtype, amp)
     n = flash_attention.launches
     out = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -68,6 +94,34 @@ def test_flash_kernel_matches_plain_on_card(B, S, H, KV, D, dtype, causal,
     ref = tr(attention_reference(tr(q), tr(k), tr(v), causal=causal,
                                  window=window))
     np.testing.assert_allclose(_np(out), _np(ref), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernel_is_deterministic_on_card(D):
+    """Two launches on the same input give the same bits."""
+    _cuda_or_skip()
+    q, k, v = _flash_inputs(4, 2, 1000, 8, 2, D, "bfloat16", 8)
+    a = flash_attention(q, k, v, causal=True, window=None)
+    b = flash_attention(q, k, v, causal=True, window=None)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_refuses_misaligned_views_on_card():
+    """A view 2 bytes into its storage is contiguous but not 16-byte
+    aligned, which TMA cannot take: the wrapper raises before any launch."""
+    _cuda_or_skip()
+    B, S, H, D = 1, 64, 2, 128
+    n = B * S * H * D
+    q = torch.zeros(n + 8, dtype=torch.bfloat16, device="cuda")[1:n + 1]
+    q = q.view(B, S, H, D)
+    k = torch.zeros(B, S, H, D, dtype=torch.bfloat16, device="cuda")
+    launches = flash_attention.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention(q, k, k)
+    assert flash_attention.launches == launches
 
 
 @pytest.mark.cuda

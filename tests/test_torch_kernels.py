@@ -102,3 +102,34 @@ def test_cpu_tensors_never_launch_a_kernel():
     flash_attention(q, q, q)
     decode_attention(q[:, :1], q, q, torch.tensor([5], dtype=torch.int32))
     assert (flash_attention.launches, decode_attention.launches) == before
+
+
+# Edges of the card's wgmma path (bf16, head_dim 128, 128-row tiles): S below,
+# at and past a tile, windows that end inside a tile, q scaled x8 (scores of standard deviation
+# 8, reaching about +-60). Here
+# the plain version runs; it is held to the JAX oracle in float32, so that
+# the card tests, which hold the kernel to the plain version, rest on it.
+@pytest.mark.parametrize("S", [1, 129])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64), (False, None)])
+def test_flash_plain_matches_oracle_at_wgmma_edges(S, causal, window):
+    (q, k, v), (jq, jk, jv) = _inputs(np.random.default_rng(5), "float32",
+                                      (2, S, 8, 128), (2, S, 2, 128),
+                                      (2, S, 2, 128))
+    out = flash_attention(8 * q, k, v, causal=causal, window=window)
+    tr = lambda x: x.transpose(0, 2, 1, 3)
+    oracle = tr(jax_flash_ref(tr(8 * jq), tr(jk), tr(jv), causal=causal,
+                              window=window))
+    np.testing.assert_allclose(_np(out), _np(oracle), **_tol("float32"))
+
+
+def test_flash_check_refuses_misaligned_views():
+    """TMA takes only 16-byte aligned addresses and strides: a contiguous
+    view 4 bytes into its storage is refused before any launch."""
+    from repro_torch.kernels.flash_attention.ops import _check
+    n = 1 * 64 * 2 * 64
+    q = torch.zeros(n + 4)[1:n + 1].view(1, 64, 2, 64)
+    k = torch.zeros(1, 64, 2, 64)
+    with pytest.raises(ValueError, match="16 bytes"):
+        _check(q, k, k, None)
+    with pytest.raises(ValueError, match="16 bytes"):
+        _check(k, q, k, None)
