@@ -9,17 +9,20 @@ result:
 1. card: name and power limit (nvidia-smi), device name and count; TF32 off;
 2. build: the three CUDA kernels with nvcc (``repro_torch.kernels._build``),
    with ptxas' registers, shared memory and spills per kernel, and the
-   kernel (and dynamic shared memory) that ``flash_attention`` picks for
-   each (dtype, head_dim);
+   kernel (and dynamic shared memory) that ``flash_attention`` and
+   ``decode_attention`` pick for each (dtype, head_dim);
 3. kernels against their plain PyTorch versions on the card: the
    ``tests/test_kernels.py`` sweeps (attention: float32 at 2e-5, bfloat16 at
    2e-2; gla_scan: 2e-4 and 5e-2, strong decay) and the served models' own
    shapes, each timed with CUDA events beside its bound, its plain version
    and, for attention, ``scaled_dot_product_attention`` (a yardstick the
    port never calls; no PyTorch call computes the GLA scan); every flash
-   case names the path that ran it (``wgmma``, ``mma.sync`` or ``fma``),
-   the wgmma path's own case list runs too, and the served flash shapes
-   are also timed from a CUDA graph (device time without launch cost);
+   and decode case names the path that ran it (``wgmma``, ``mma.sync`` or
+   ``fma``), the flash wgmma and decode mma.sync paths' own case lists run
+   too, and the served attention shapes are also timed from a CUDA graph
+   (device time without launch cost); each decode sequence is also held to
+   its own output's scale (``seq_err``), and the served decode shapes run
+   again with q x8;
 4. Llama-3-8B at full width served through the launcher
    (``repro_torch.launch.serve.main``);
 5. the main path: Llama-3-8B at full width served by ``ServingEngine`` with
@@ -69,8 +72,21 @@ GLA_SOURCE = "src/repro_torch/kernels/gla_scan/csrc/gla_scan.cu"
 # the wgmma flash path's cases, as in tests/test_torch_card.py
 WGMMA_S = (1, 63, 64, 127, 128, 129, 1000, 2048)
 WGMMA_MASKS = ((True, None), (True, 64), (True, 1000), (False, None))
+# the decode mma.sync path's cases, as in tests/test_torch_card.py: W = 1024,
+# KV = 2, lengths on both sides of a warp tile (16), a CTA pass (64) and a
+# split (128 at W = 1024 on 132 SMs), W itself, and wrapped rings
+DECODE_W = 1024
+DECODE_LENGTHS = ((1, None), (15, None), (17, None), (63, None), (65, None),
+                  (127, None), (129, None), (1024, None), (1324, 1024),
+                  (900, 500))
+# the other head dims the mma.sync path takes, as in tests/test_torch_card.py
+DECODE_OTHER_D = (16, 32, 48, 80, 96, 112)
+DECODE_OTHER_LENGTHS = ((1, None), (17, None), (129, None), (1024, None),
+                        (1324, 1024))
 GLA_CHUNK = 32              # the gla_scan kernel's chunk tile (csrc/gla_scan.cu)
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+# decode: each sequence's worst error over its largest |output| (seq_err)
+SEQ_TOL = 2e-2
 # gla_scan: the tolerances of tests/test_kernels.py::test_gla_scan_sweep
 GLA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (5e-2, 5e-2)}
 
@@ -130,6 +146,20 @@ def max_err(out, ref, dtype, tol=TOL) -> float:
     return float(diff.max())
 
 
+def seq_err(out, ref) -> float:
+    """Worst over the sequences of max |out - ref| / max |ref| in that
+    sequence; fails above SEQ_TOL. A decode output is a softmax-weighted
+    mean of up to thousands of V rows, so at q x1 its values (~0.02 at 4096
+    slots) lie below max_err's atol: this holds each sequence to its own
+    scale, where a dropped split or a combine without its rescale shows."""
+    a, b = out.float().flatten(1), ref.float().flatten(1)
+    err = float(((a - b).abs().amax(1) / b.abs().amax(1)).max())
+    if not err <= SEQ_TOL:
+        fail(f"decode kernel disagrees with its plain version at its "
+             f"sequence's scale: {err:.3e} of max |ref|")
+    return err
+
+
 def bound(flops: float, nbytes: float, dtype) -> tuple:
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
@@ -162,6 +192,8 @@ def phase_card() -> dict:
 
 def phase_build():
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention.ops import \
+        kernel_route as decode_route
     from repro_torch.kernels.flash_attention.ops import kernel_route
     print("== phase 2: build (nvcc, one process per kernel, in parallel)")
     t = time.perf_counter()
@@ -191,6 +223,15 @@ def phase_build():
         path, smem = kernel_route(dtype, D)
         print(f"  flash_attention route {dtype} D={D}: {path}, {smem} bytes "
               "dynamic smem per CTA")
+    for qdt, cdt, D in [(torch.bfloat16, torch.bfloat16, 128),
+                        (torch.bfloat16, torch.bfloat16, 64),
+                        (torch.bfloat16, torch.bfloat16, 80),
+                        (torch.bfloat16, torch.bfloat16, 32),
+                        (torch.float32, torch.bfloat16, 128),
+                        (torch.float32, torch.float32, 128)]:
+        path, smem = decode_route(qdt, cdt, D)
+        print(f"  decode_attention route q {qdt} cache {cdt} D={D}: {path}, "
+              f"{smem} bytes dynamic smem per CTA")
 
 
 def kernel_label(mangled: str) -> str:
@@ -249,10 +290,13 @@ def flash_case(B, S, H, KV, D, dtype, causal, window, gen, timed=False,
     return row
 
 
-def decode_case(B, W, H, KV, D, dtype, lengths, window, gen, timed=False):
+def decode_case(B, W, H, KV, D, dtype, lengths, window, gen, timed=False,
+                amp=1):
+    """``amp`` scales q: at 8 the scores reach about +-40."""
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_reference)
-    q = randn((B, 1, H, D), dtype, gen)
+    from repro_torch.kernels.decode_attention.ops import kernel_route
+    q = randn((B, 1, H, D), dtype, gen) * amp
     kc, vc = randn((B, W, KV, D), dtype, gen), randn((B, W, KV, D), dtype, gen)
     lengths = lengths.to(device="cuda", dtype=torch.int32)
     plain = lambda: decode_attention_reference(
@@ -261,20 +305,34 @@ def decode_case(B, W, H, KV, D, dtype, lengths, window, gen, timed=False):
     kernel = lambda: decode_attention(q, kc, vc, lengths, window=window)
     out = kernel()
     torch.cuda.synchronize()
-    row = {"max_abs_err": max_err(out, plain(), dtype)}
+    ref = plain()
+    row = {"max_abs_err": max_err(out, ref, dtype),
+           "seq_err": seq_err(out, ref),
+           "path": kernel_route(dtype, dtype, D)[0]}
     if timed:
-        n_valid = torch.clamp(lengths, max=min(W, window or W)).long()
-        qt, kt, vt = q.transpose(1, 2).contiguous(), kc.transpose(1, 2).contiguous(), \
-            vc.transpose(1, 2).contiguous()
-        mask = (torch.arange(W, device="cuda")[None, :] < n_valid[:, None])[:, None, None]
-        library = lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)
-        slots = float(n_valid.sum())
-        flops = 4.0 * D * H * slots
-        nbytes = (2 * KV * D * slots + 2 * B * H * D) * q.element_size() + 4 * B
-        row.update(ms=time_ms(kernel, 50), plain_ms=time_ms(plain, 10),
-                   library_ms=time_ms(library, 50))
-        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
+        row.update(decode_times(kernel, q, kc, vc, lengths, window))
+        row["plain_ms"] = time_ms(plain, 10)
+    return row
+
+
+def decode_times(kernel, q, kc, vc, lengths, window) -> dict:
+    """``kernel()``'s time eager (CUDA events over 50 calls) and from a CUDA
+    graph, SDPA's both ways on the same inputs, and the bound of the bytes
+    and operations of this call's valid slots. Model layout: q (B, 1, H, D),
+    caches (B, W, KV, D)."""
+    B, _, H, D = q.shape
+    W, KV = kc.shape[1], kc.shape[2]
+    n_valid = torch.clamp(lengths, max=min(W, window or W)).long()
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
+    mask = (torch.arange(W, device="cuda")[None, :] < n_valid[:, None])[:, None, None]
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    slots = float(n_valid.sum())
+    flops = 4.0 * D * H * slots
+    nbytes = (2 * KV * D * slots + 2 * B * H * D) * q.element_size() + 4 * B
+    row = dict(ms=time_ms(kernel, 50), library_ms=time_ms(library, 50),
+               graph_ms=graph_ms(kernel), library_graph_ms=graph_ms(library))
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, q.dtype)
     return row
 
 
@@ -321,6 +379,8 @@ def gla_case(B, T, H, K, V, mode, dtype, gen, lw_dtype=None, timed=False):
 
 def fmt(row: dict) -> str:
     parts = [f"max_err={row['max_abs_err']:.3e}"]
+    if "seq_err" in row:
+        parts.append(f"seq_err={row['seq_err']:.3e}")
     if "path" in row:
         parts.insert(0, f"path={row['path']}")
     if "ms" in row:
@@ -371,6 +431,32 @@ def phase_kernels() -> dict:
                             n += 1
             print(f"flash wgmma cases D={D} S={S}: {n} cases, path="
                   f"{'/'.join(sorted(paths))} max_err={worst:.3e}")
+    print("-- decode, the mma.sync path's cases (tests/test_torch_card.py: "
+          f"bf16, W={DECODE_W}, KV=2, B 1 and 8, q x1 and x8, G 1/2/4/8 at D "
+          f"64/128 and G 1/8 at D {'/'.join(map(str, DECODE_OTHER_D))}; the "
+          "first sequence at each length, the others at random), max error "
+          f"per (D, length, window); seq_err held at {SEQ_TOL}")
+    cases = [(D, length, window, (1, 2, 4, 8)) for D in (64, 128)
+             for length, window in DECODE_LENGTHS]
+    cases += [(D, length, window, (1, 8)) for D in DECODE_OTHER_D
+              for length, window in DECODE_OTHER_LENGTHS]
+    for D, length, window, groups in cases:
+        worst, worst_seq, paths, n = 0.0, 0.0, set(), 0
+        for G in groups:
+            for B in (1, 8):
+                for amp in (1, 8):
+                    lengths = torch.randint(1, DECODE_W + 1, (B,),
+                                            generator=gen, device="cuda")
+                    lengths[0] = length
+                    row = decode_case(B, DECODE_W, 2 * G, 2, D, torch.bfloat16,
+                                      lengths, window, gen, amp=amp)
+                    worst = max(worst, row["max_abs_err"])
+                    worst_seq = max(worst_seq, row["seq_err"])
+                    paths.add(row["path"])
+                    n += 1
+        print(f"decode mma.sync cases D={D} length={length} window={window}: "
+              f"{n} cases, path={'/'.join(sorted(paths))} max_err={worst:.3e} "
+              f"seq_err={worst_seq:.3e}")
     row = decode_case(2, 256, 4, 4, 64, torch.float32,
                       torch.tensor([256 + 57, 100]), 256, gen)
     print(f"decode ring B=2 W=256 window=256 lengths=[313, 100]: {fmt(row)}")
@@ -383,13 +469,19 @@ def phase_kernels() -> dict:
         print(f"flash B=1 S={S} causal: {fmt(row)}")
         rows[f"flash_S{S}"] = row
     ragged = torch.linspace(1, 4096, 8).round().int()
-    row = decode_case(8, 4096, 32, 8, 128, bf16, ragged, None, gen, timed=True)
-    print(f"decode B=8 W=4096 lengths={ragged.tolist()}: {fmt(row)}")
-    rows["decode"] = row
     wrapped = torch.linspace(1, 8000, 8).round().int()
-    row = decode_case(8, 4096, 32, 8, 128, bf16, wrapped, 4096, gen, timed=True)
-    print(f"decode B=8 W=4096 window=4096 lengths={wrapped.tolist()}: {fmt(row)}")
-    rows["decode_window"] = row
+    for key, lengths, window in (("decode", ragged, None),
+                                 ("decode_window", wrapped, 4096)):
+        label = f"decode B=8 W=4096 window={window} lengths={lengths.tolist()}"
+        row = decode_case(8, 4096, 32, 8, 128, bf16, lengths, window, gen,
+                          timed=True)
+        print(f"{label}: {fmt(row)}")
+        rows[key] = row
+        # scores ~8x larger: partials of different splits far apart in m, so
+        # a combine that skipped a split or its rescale would show here
+        row = decode_case(8, 4096, 32, 8, 128, bf16, lengths, window, gen,
+                          amp=8)
+        print(f"{label} q x8: {fmt(row)}")
 
     print("-- gla_scan: the tests/test_kernels.py sweep (float32 tol 2e-4, "
           "bfloat16 tol 5e-2; log_w in the input dtype, strong decay)")
@@ -747,7 +839,8 @@ def main():
             phase_consistency(model, params, 6)
         if 7 in phases:
             phase_profile(model, params, 7, "attention kernels",
-                          ("flash_fwd", "decode_split", "decode_combine"))
+                          ("flash_fwd", "decode_mma", "decode_split",
+                           "decode_combine"))
         del model, params
         gc.collect()
         torch.cuda.empty_cache()

@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_reference)
+from repro_torch.kernels.decode_attention.ops import kernel_route, split_plan
 from repro_torch.kernels.flash_attention import (attention_reference,
                                                  flash_attention)
 from repro_torch.kernels.gla_scan import gla_scan, gla_scan_reference
@@ -44,6 +45,21 @@ FLASH_CASES = (
        for group in (1, 4, 8) for causal, window in WGMMA_MASKS
        for amp in (1, 8)])
 DECODE_SHAPES = [(2, 512, 8, 2, 64), (1, 1024, 4, 4, 128), (3, 300, 6, 3, 80)]
+# The decode mma.sync path (bf16 q and cache; the served head dims 64 and 128
+# here, the others below): W = 1024, KV = 2, G = H / KV of 1, 2, 4 and 8,
+# B 1 and 8. The first sequence's length sits on both sides of a warp tile
+# (16 slots), a CTA pass (64) and a split (128 slots at W = 1024), at W, past
+# W in a ring of window W, and past a window of 500 inside W; the other
+# sequences take random lengths. q is scaled x8 as well, so that scores reach
+# about +-40 and exercise the rescaling across tiles, warps and splits.
+DECODE_W = 1024
+DECODE_LENGTHS = [(1, None), (15, None), (17, None), (63, None), (65, None),
+                  (127, None), (129, None), (1024, None), (1324, 1024),
+                  (900, 500)]
+# the other bf16 head dims, which take the same kernel
+DECODE_OTHER_D = [16, 32, 48, 80, 96, 112]
+DECODE_OTHER_LENGTHS = [(1, None), (17, None), (129, None), (1024, None),
+                        (1324, 1024)]
 GLA_SHAPES = [(1, 64, 2, 32, 32), (2, 130, 2, 64, 64), (1, 256, 4, 16, 64)]
 
 
@@ -141,6 +157,160 @@ def test_decode_kernel_matches_plain_on_card(B, W, H, KV, D, dtype, window):
         q.reshape(B, KV, H // KV, D), kc.transpose(1, 2), vc.transpose(1, 2),
         lengths, window=window).reshape(B, 1, H, D)
     np.testing.assert_allclose(_np(out), _np(ref), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("length,window", DECODE_LENGTHS)
+@pytest.mark.parametrize("amp", [1, 8])
+def test_decode_mma_kernel_matches_plain_on_card(D, G, B, length, window, amp):
+    _check_decode_mma(D, G, B, length, window, amp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", DECODE_OTHER_D)
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("length,window", DECODE_OTHER_LENGTHS)
+@pytest.mark.parametrize("amp", [1, 8])
+def test_decode_mma_kernel_other_head_dims_on_card(D, G, B, length, window,
+                                                   amp):
+    """Every bf16 head dim (a multiple of 16 up to 128) takes the mma.sync
+    kernel, not only the served 64 and 128."""
+    _check_decode_mma(D, G, B, length, window, amp)
+
+
+def _check_decode_mma(D, G, B, length, window, amp):
+    _cuda_or_skip()
+    assert kernel_route(torch.bfloat16, torch.bfloat16, D)[0] == "mma.sync"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert split_plan(DECODE_W, 2, sms)[0] == 128  # the split edge above
+    rng = np.random.default_rng(length + 7 * G + B)
+    H, KV = 2 * G, 2
+    q, kc, vc = _inputs(rng, "bfloat16", (B, 1, H, D), (B, DECODE_W, KV, D),
+                        (B, DECODE_W, KV, D))
+    q = q * amp
+    lengths = rng.integers(1, DECODE_W + 1, B).astype(np.int32)
+    lengths[0] = length
+    lengths = torch.from_numpy(lengths).cuda()
+    n = decode_attention.launches
+    out = decode_attention(q, kc, vc, lengths, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n + 1
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    ref = decode_attention_reference(
+        q.reshape(B, KV, G, D), kc.transpose(1, 2), vc.transpose(1, 2),
+        lengths, window=window).reshape(B, 1, H, D)
+    np.testing.assert_allclose(_np(out), _np(ref), **_tol("bfloat16"))
+    _assert_within_sequence_scale(out, ref)
+
+
+def _assert_within_sequence_scale(out, ref, tol=2e-2):
+    """Each sequence's worst error within ``tol`` of its largest |output|.
+    A decode output averages up to thousands of V rows, so at q x1 its
+    values fall below bf16's atol of 2e-2: this holds them to their own
+    scale, where a dropped split or an unrescaled partial shows."""
+    a, b = out.float().flatten(1), ref.float().flatten(1)
+    err = (a - b).abs().amax(1) / b.abs().amax(1)
+    assert float(err.max()) <= tol, err.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,top", [(None, 4096), (4096, 8000)])
+@pytest.mark.parametrize("amp", [1, 8])
+def test_decode_mma_kernel_matches_plain_at_the_served_shape_on_card(
+        window, top, amp):
+    """Llama-3-8B's decode shape (8 sequences, W = 4096, H = 32, KV = 8,
+    D = 128), lengths 1..4096 or a wrapped ring up to 8000: eight 512-slot
+    splits per sequence, combined by the last to arrive."""
+    _cuda_or_skip()
+    B, W, H, KV, D = 8, 4096, 32, 8, 128
+    q, kc, vc = _inputs(np.random.default_rng(12 + amp), "bfloat16",
+                        (B, 1, H, D), (B, W, KV, D), (B, W, KV, D))
+    q = q * amp
+    lengths = torch.linspace(1, top, B).round().int().cuda()
+    out = decode_attention(q, kc, vc, lengths, window=window)
+    ref = decode_attention_reference(
+        q.reshape(B, KV, H // KV, D), kc.transpose(1, 2), vc.transpose(1, 2),
+        lengths, window=window).reshape(B, 1, H, D)
+    np.testing.assert_allclose(_np(out), _np(ref), **_tol("bfloat16"))
+    _assert_within_sequence_scale(out, ref)
+
+
+@pytest.mark.cuda
+def test_decode_mma_kernel_is_deterministic_on_card():
+    """Splits combine in split order, whichever finishes last: two launches
+    on the same input give the same bits (Llama-3-8B's decode shape)."""
+    _cuda_or_skip()
+    B, W, H, KV, D = 8, 4096, 32, 8, 128
+    q, kc, vc = _inputs(np.random.default_rng(6), "bfloat16", (B, 1, H, D),
+                        (B, W, KV, D), (B, W, KV, D))
+    lengths = torch.linspace(1, W, B).round().int().cuda()
+    a = decode_attention(q, kc, vc, lengths)
+    b = decode_attention(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_mma_kernel_is_batch_invariant_on_card(D):
+    """A sequence's output does not depend on the batch it shares a launch
+    with: the serving engine decodes every slot, and its tokens must equal a
+    loop over one sequence (chip_smoke.py phase 6)."""
+    _cuda_or_skip()
+    B, W, H, KV = 8, 4096, 32, 8
+    q, kc, vc = _inputs(np.random.default_rng(8), "bfloat16", (B, 1, H, D),
+                        (B, W, KV, D), (B, W, KV, D))
+    lengths = torch.tensor([513, 1, 1, 1, 2000, 1, 1, 4096],
+                           dtype=torch.int32).cuda()
+    full = decode_attention(q, kc, vc, lengths)
+    for b in (0, 4, 7):
+        one = decode_attention(q[b:b + 1].contiguous(), kc[b:b + 1].contiguous(),
+                               vc[b:b + 1].contiguous(), lengths[b:b + 1].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(one, full[b:b + 1])
+
+
+@pytest.mark.cuda
+def test_decode_mma_kernel_replays_from_a_cuda_graph_on_card():
+    """The combine's tickets are left at zero by every launch, so replays of
+    a captured call give the eager result each time."""
+    _cuda_or_skip()
+    B, W, H, KV, D = 8, 2048, 32, 8, 128
+    q, kc, vc = _inputs(np.random.default_rng(10), "bfloat16", (B, 1, H, D),
+                        (B, W, KV, D), (B, W, KV, D))
+    lengths = torch.linspace(1, W, B).round().int().cuda()
+    eager = decode_attention(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, kc, vc, lengths)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_decode_wrapper_refuses_misaligned_views_on_card():
+    """A cache view 2 bytes into its storage is contiguous but not 16-byte
+    aligned, which cp.async cannot take: the wrapper raises before any
+    launch."""
+    _cuda_or_skip()
+    B, W, KV, D = 1, 64, 2, 128
+    n = B * W * KV * D
+    kc = torch.zeros(n + 8, dtype=torch.bfloat16, device="cuda")[1:n + 1]
+    kc = kc.view(B, W, KV, D)
+    vc = torch.zeros(B, W, KV, D, dtype=torch.bfloat16, device="cuda")
+    q = torch.zeros(B, 1, 2 * KV, D, dtype=torch.bfloat16, device="cuda")
+    lengths = torch.full((B,), 10, dtype=torch.int32, device="cuda")
+    launches = decode_attention.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        decode_attention(q, kc, vc, lengths)
+    assert decode_attention.launches == launches
 
 
 @pytest.mark.cuda

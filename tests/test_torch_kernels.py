@@ -133,3 +133,40 @@ def test_flash_check_refuses_misaligned_views():
         _check(q, k, k, None)
     with pytest.raises(ValueError, match="16 bytes"):
         _check(k, q, k, None)
+
+
+@pytest.mark.parametrize("KV", [1, 2, 8])
+@pytest.mark.parametrize("W", [1, 64, 300, 1024, 4096, 131072])
+@pytest.mark.parametrize("sms", [66, 132])
+def test_decode_split_plan_covers_the_cache(KV, W, sms):
+    """The mma.sync kernel's splits cover the W slots with no split wholly
+    past W, in whole 64-slot CTA passes, within the combine's 256 splits."""
+    from repro_torch.kernels.decode_attention.ops import (MAX_SPLIT, PASS,
+                                                          split_plan)
+    chunk, n_split = split_plan(W, KV, sms)
+    assert chunk % PASS == 0 and 1 <= n_split <= MAX_SPLIT
+    assert (n_split - 1) * chunk < W <= n_split * chunk
+
+
+def test_decode_split_plan_fills_the_card():
+    """At Llama-3-8B's decode shape (8 slots, KV=8, W=4096) the grid gives
+    every one of the H100's 132 SMs work even if only half the splits hold
+    valid slots."""
+    from repro_torch.kernels.decode_attention.ops import split_plan
+    n_split = split_plan(4096, 8, sms=132)[1]
+    assert 8 * 8 * n_split // 2 >= 132
+
+
+def test_decode_check_refuses_misaligned_views():
+    """cp.async takes only 16-byte aligned rows: a contiguous view 4 bytes
+    into its storage is refused before any launch."""
+    from repro_torch.kernels.decode_attention.ops import _check
+    n = 1 * 64 * 2 * 64
+    kc = torch.zeros(n + 4)[1:n + 1].view(1, 64, 2, 64)
+    ok = torch.zeros(1, 64, 2, 64)
+    q = torch.zeros(1, 1, 4, 64)
+    lengths = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="16 bytes"):
+        _check(q, kc, ok, lengths, None)
+    with pytest.raises(ValueError, match="16 bytes"):
+        _check(q, ok, kc, lengths, None)
