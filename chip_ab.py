@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Time ``decode_attention`` of several checkouts on one card, at
-Llama-3-8B's served decode shapes, with ``chip_smoke.py``'s clocks.
+"""Time kernels of several checkouts on one card, at the served shapes,
+with ``chip_smoke.py``'s clocks.
 
     python3 chip_ab.py <parent checkout>/src src src <parent checkout>/src
 
 Each argument is a directory that holds a ``repro_torch`` package. Each runs
-in a process of its own: its kernel is built, held against its plain
-version (``chip_smoke.max_err`` and ``seq_err``), and timed eager and from a
-CUDA graph beside SDPA, both ways, and the bytes bound
-(``chip_smoke.decode_times``). Listing the trees as parent, change, change,
-parent shows the card's drift within the call. One JSON line per (tree,
-shape); a kernel that disagrees with its plain version exits non-zero.
+in a process of its own: its kernels are built, held against their plain
+versions, and timed eager and from a CUDA graph beside their bound:
+``decode_attention`` at Llama-3-8B's decode shapes
+(``chip_smoke.max_err``, ``seq_err`` and ``decode_times``, SDPA both ways),
+and ``gla_scan`` at RWKV6-1.6B's prefill shapes (rwkv, H=32, T 128,
+1000 and 2048) and Zamba2's widths (ssd, H=64, T=2048), bf16 q/k/v,
+float32 log_w and u (``chip_smoke.GLA_TOL`` and ``gla_times``). Listing
+the trees as parent, change, change, parent shows the card's drift within
+the call. One JSON line per (tree, shape); a kernel that disagrees with
+its plain version exits non-zero.
 """
 from __future__ import annotations
 
@@ -21,17 +25,24 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SHAPES = ((None, 4096), (4096, 8000))  # (window, longest length) at W = 4096
+GLA_SHAPES = (("rwkv", 32, 128), ("rwkv", 32, 1000), ("rwkv", 32, 2048),
+              ("ssd", 64, 2048))       # (mode, H, T) at B = 1, K = V = 64
 
 
 def one(src: Path):
     import chip_smoke as cs  # puts this checkout's src first on sys.path
     sys.path.insert(0, str(src))
-    import torch
     import repro_torch
-    from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_reference)
     if not Path(repro_torch.__file__).resolve().is_relative_to(src):
         cs.fail(f"imported {repro_torch.__file__}, not the package under {src}")
+    decode(cs, src)
+    gla(cs, src)
+
+
+def decode(cs, src: Path):
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_reference)
     gen = torch.Generator(device="cuda").manual_seed(0)
     B, W, H, KV, D, bf16 = 8, 4096, 32, 8, 128, torch.bfloat16
     for window, top in SHAPES:
@@ -50,17 +61,42 @@ def one(src: Path):
         print(json.dumps(row), flush=True)
 
 
-def main():
-    if len(sys.argv) > 2 and sys.argv[1] == "--one":
-        return one(Path(sys.argv[2]).resolve())
+def gla(cs, src: Path):
     import torch
-    if len(sys.argv) < 2 or not torch.cuda.is_available():
+    from repro_torch.kernels.gla_scan import gla_scan, gla_scan_reference
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16 = torch.bfloat16
+    tr = lambda x: x.transpose(1, 2)
+    for mode, H, T in GLA_SHAPES:
+        q, k = cs.randn((1, T, H, 64), bf16, gen), cs.randn((1, T, H, 64), bf16, gen)
+        v = cs.randn((1, T, H, 64), bf16, gen)
+        log_w = cs.GLA_DECAYS["strong"](
+            torch.rand((1, T, H, 64), generator=gen, device="cuda"))
+        u = 0.3 * cs.randn((H, 64), torch.float32, gen) if mode == "rwkv" else None
+        kernel = lambda: gla_scan(q, k, v, log_w, u=u, mode=mode)
+        out, state = kernel()
+        ref_o, ref_s = gla_scan_reference(tr(q), tr(k), tr(v), tr(log_w), u=u,
+                                          mode=mode)
+        row = dict(src=str(src), kernel="gla_scan", mode=mode, B=1, T=T, H=H,
+                   K=64, V=64,
+                   max_abs_err=max(cs.max_err(out, tr(ref_o), bf16, cs.GLA_TOL),
+                                   cs.max_err(state, ref_s, bf16, cs.GLA_TOL)))
+        row.update(cs.gla_times(kernel, q, k, v, log_w, u, mode))
+        print(json.dumps(row), flush=True)
+
+
+def main():
+    args = sys.argv[1:]
+    if args[:1] == ["--one"]:
+        return one(Path(args[1]).resolve())
+    import torch
+    if not args or not torch.cuda.is_available():
         sys.exit("usage: chip_ab.py SRC [SRC ...] (on a machine with a card)")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     code = 0
-    for src in sys.argv[1:]:
+    for src in args:
         res = subprocess.run([sys.executable, __file__, "--one", src], cwd=ROOT)
         code = code or res.returncode
     sys.exit(code)

@@ -9,8 +9,8 @@ result:
 1. card: name and power limit (nvidia-smi), device name and count; TF32 off;
 2. build: the three CUDA kernels with nvcc (``repro_torch.kernels._build``),
    with ptxas' registers, shared memory and spills per kernel, and the
-   kernel (and dynamic shared memory) that ``flash_attention`` and
-   ``decode_attention`` pick for each (dtype, head_dim);
+   kernel (and dynamic shared memory) that ``flash_attention``,
+   ``decode_attention`` and ``gla_scan`` pick for each dtype and width;
 3. kernels against their plain PyTorch versions on the card: the
    ``tests/test_kernels.py`` sweeps (attention: float32 at 2e-5, bfloat16 at
    2e-2; gla_scan: 2e-4 and 5e-2, strong decay) and the served models' own
@@ -18,18 +18,23 @@ result:
    and, for attention, ``scaled_dot_product_attention`` (a yardstick the
    port never calls; no PyTorch call computes the GLA scan); every flash
    and decode case names the path that ran it (``wgmma``, ``mma.sync`` or
-   ``fma``), the flash wgmma and decode mma.sync paths' own case lists run
-   too, and the served attention shapes are also timed from a CUDA graph
-   (device time without launch cost); each decode sequence is also held to
-   its own output's scale (``seq_err``), and the served decode shapes run
-   again with q x8;
+   ``fma``) and every gla_scan case its route (``mma`` or ``fma``); the
+   flash wgmma, decode mma.sync and gla_scan mma paths' own case lists run
+   too (gla: strong, extreme and RWKV6-floor decays); the served attention
+   and gla_scan shapes are also timed from a CUDA graph (device time
+   without launch cost), every (K, V) that gla_scan instantiates for bf16
+   runs once, and each gla_scan row counts the exps its route
+   takes and its device time by kernel (``torch.profiler``); each decode sequence is also held to its own output's scale
+   (``seq_err``), and the served decode shapes run again with q x8;
 4. Llama-3-8B at full width served through the launcher
    (``repro_torch.launch.serve.main``);
 5. the main path: Llama-3-8B at full width served by ``ServingEngine`` with
    16 prompts of 256-2048 tokens; launch counts must equal layers x prefills
    and layers x decode iterations;
-6. full-width consistency: engine against a hand-rolled prefill + decode
-   loop, and the kernel path's logits against the plain einsum path's;
+6. full-width consistency: the engine's tokens against a hand-rolled
+   prefill + decode loop at the engine's 8 rows, that loop's logits against
+   the same decode at one row (``ROW_TOL``), and the kernel path's logits
+   against the plain einsum path's;
 7. where the time goes: device busy share and kernel time by name
    (``torch.profiler``) for one prefill and four decode iterations;
 8-10. phases 5-7 for RWKV6-1.6B at full width: every prefill scan goes
@@ -83,10 +88,21 @@ DECODE_LENGTHS = ((1, None), (15, None), (17, None), (63, None), (65, None),
 DECODE_OTHER_D = (16, 32, 48, 80, 96, 112)
 DECODE_OTHER_LENGTHS = ((1, None), (17, None), (129, None), (1024, None),
                         (1324, 1024))
-GLA_CHUNK = 32              # the gla_scan kernel's chunk tile (csrc/gla_scan.cu)
+# the gla_scan bf16 (mma) path's cases, as in tests/test_torch_card.py
+GLA_MMA_T = (1, 15, 16, 63, 64, 65, 1000, 2048)
+GLA_MMA_KV = ((16, 16), (64, 64), (32, 64))
+GLA_WIDTHS = (16, 32, 48, 64)   # K and V the library instantiates for bf16
+# the chunk of the chunked form whose products gla_scan's operations bound
+# counts: a definition of the work, the same for every kernel version (the
+# kernels' own tiles come from the library, ops.chunk_tokens)
+GLA_BOUND_CHUNK = 64
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
 # decode: each sequence's worst error over its largest |output| (seq_err)
 SEQ_TOL = 2e-2
+# phases 6 and 9: one-row against 8-row decode logits, max|diff| over
+# max|logit|. On an H100 the two row counts' first decode steps differed by
+# 1.0e-2 (RWKV6; 1.2e-2 with the PR 12 gla_scan kernel) and 0 (Llama-3-8B)
+ROW_TOL = 3e-2
 # gla_scan: the tolerances of tests/test_kernels.py::test_gla_scan_sweep
 GLA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (5e-2, 5e-2)}
 
@@ -195,6 +211,7 @@ def phase_build():
     from repro_torch.kernels.decode_attention.ops import \
         kernel_route as decode_route
     from repro_torch.kernels.flash_attention.ops import kernel_route
+    from repro_torch.kernels.gla_scan.ops import kernel_route as gla_route
     print("== phase 2: build (nvcc, one process per kernel, in parallel)")
     t = time.perf_counter()
     built = _build.build()
@@ -232,12 +249,17 @@ def phase_build():
         path, smem = decode_route(qdt, cdt, D)
         print(f"  decode_attention route q {qdt} cache {cdt} D={D}: {path}, "
               f"{smem} bytes dynamic smem per CTA")
+    for dtype, K, V in [(torch.bfloat16, 64, 64), (torch.bfloat16, 32, 64),
+                        (torch.bfloat16, 16, 16), (torch.float32, 64, 64)]:
+        path, smem = gla_route(dtype, K, V)
+        print(f"  gla_scan route {dtype} K={K} V={V}: {path}, {smem} bytes "
+              "dynamic smem in its largest CTA")
 
 
 def kernel_label(mangled: str) -> str:
     """``_ZN<n>_GLOBAL__N_...22flash_fwd_wgmma_kernelILi128EE...`` ->
     ``flash_fwd_wgmma_kernel<128>``: the last name of a mangled (possibly
-    nested) function name and its first integer template argument."""
+    nested) function name and its integer template arguments."""
     i = mangled.find("_Z")
     if i < 0:
         return mangled[:60]
@@ -249,8 +271,11 @@ def kernel_label(mangled: str) -> str:
         names.append(mangled[start:i])
     if not names:
         return mangled[:60]
-    arg = re.match(r"ILi(\d+)E", mangled[i:])
-    return f"{names[-1]}<{arg.group(1)}>" if arg else names[-1]
+    args = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
+    if not args:
+        return names[-1]
+    ints = re.findall(r"Li(\d+)E", args.group(1))
+    return f"{names[-1]}<{', '.join(ints)}>"
 
 
 # ---------------------------------------------------------------------------
@@ -336,17 +361,30 @@ def decode_times(kernel, q, kc, vc, lengths, window) -> dict:
     return row
 
 
-def gla_case(B, T, H, K, V, mode, dtype, gen, lw_dtype=None, timed=False):
-    """gla_scan against its plain version (the token-by-token scan) in the
-    sweep's strong-decay range, log w = -exp(U(-6, 2.5)), |log w| up to 12
-    per token. ``lw_dtype``: log_w's dtype (the sweep rounds it to
-    ``dtype``; the model makes it in float32)."""
+# gla_scan decays per token, drawn on the card: the sweep's strong range
+# (|log w| up to 12), an extreme one (up to 40), and RWKV6's floor of -22026
+# (log w = -exp(10)) beside weak decays at random per token and channel
+GLA_DECAYS = {
+    "strong": lambda unif: -torch.exp(unif * 8.5 - 6.0),
+    "extreme": lambda unif: -40.0 * unif,
+    "floor": lambda unif: torch.where(unif < 0.5, -float(np.exp(10.0)),
+                                      -torch.exp(unif * 12.0 - 12.0)),
+}
+
+
+def gla_case(B, T, H, K, V, mode, dtype, gen, lw_dtype=None, timed=False,
+             decay="strong"):
+    """gla_scan against its plain version (the token-by-token scan).
+    ``lw_dtype``: the dtype of log_w and u (the sweep rounds them to
+    ``dtype``; the model keeps them in float32). ``decay``: a key of
+    GLA_DECAYS."""
     from repro_torch.kernels.gla_scan import gla_scan, gla_scan_reference
+    from repro_torch.kernels.gla_scan.ops import kernel_route
     q, k = randn((B, T, H, K), dtype, gen), randn((B, T, H, K), dtype, gen)
     v = randn((B, T, H, V), dtype, gen)
     unif = torch.rand((B, T, H, K), generator=gen, device="cuda")
-    log_w = (-torch.exp(unif * 8.5 - 6.0)).to(lw_dtype or dtype)
-    u = 0.3 * randn((H, K), dtype, gen) if mode == "rwkv" else None
+    log_w = GLA_DECAYS[decay](unif).to(lw_dtype or dtype)
+    u = 0.3 * randn((H, K), lw_dtype or dtype, gen) if mode == "rwkv" else None
     tr = lambda x: x.transpose(1, 2)
 
     def plain():
@@ -357,23 +395,76 @@ def gla_case(B, T, H, K, V, mode, dtype, gen, lw_dtype=None, timed=False):
     out, state = kernel()
     torch.cuda.synchronize()
     ref_o, ref_s = plain()
+    path = kernel_route(dtype, K, V)[0]
     row = {"max_abs_err": max(max_err(out, ref_o, dtype, GLA_TOL),
-                              max_err(state, ref_s, dtype, GLA_TOL))}
+                              max_err(state, ref_s, dtype, GLA_TOL)),
+           "path": path}
     if timed:
-        # work of this run's shapes at the kernel's chunk tile: pairs the
-        # causal mask keeps, exps of the intra term
-        n_chunk = -(-T // GLA_CHUNK)
-        c = GLA_CHUNK
+        row.update(gla_times(kernel, q, k, v, log_w, u, mode))
+        row["plain_ms"] = time_ms(plain, 1, warmup=1)
+        row["exps"] = gla_exps(B, T, H, K, V, mode, path)
+        row["by_kernel"] = device_ms_by_kernel(kernel)
+    return row
+
+
+def device_ms_by_kernel(fn, iters: int = 10) -> dict:
+    """Device milliseconds per call of ``fn`` by kernel name
+    (``torch.profiler`` over ``iters`` calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"(\w+)(?:<[^(]*>)?\(", e.name)
+            name = m.group(1) if m else e.name[:40]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    return out
+
+
+def gla_exps(B, T, H, K, V, mode, path) -> int:
+    """Exps one gla_scan call takes on ``path``. fma (the float32 kernel,
+    32-token chunks): expf on the intra pairs its causal mask keeps, times
+    K, plus q * exp(L_read) and k * exp(Lc - L) (2 * 32 * K) and the state's
+    decay (K * V) per chunk. mma (64-token chunks): ex2 for the decayed k of
+    the chunk state and of the off-diagonal sub-blocks and the decayed q
+    (3 * 64 * K), the chunk decay (K), the run-of-sub-chunk factors (10
+    sets of 32 lanes x K / 4) and 6 pairs per lane of each warp's diagonal
+    sub-block (4 x 32 x 6 x K) per chunk. Chunk tiles as the library
+    reports them."""
+    from repro_torch.kernels.gla_scan.ops import chunk_tokens
+    if path == "fma":
+        c = chunk_tokens(torch.float32)
         pairs = c * (c - 1) // 2 if mode == "rwkv" else c * (c + 1) // 2
-        per_chunk = 2 * c * K * V * 2 + 2 * pairs * (K + V)
-        flops = float(B * H * n_chunk * per_chunk)
-        nbytes = ((2 * K + V) * q.element_size() + K * log_w.element_size()
-                  + V * out.element_size()) * B * T * H + 4 * B * H * K * V
-        if u is not None:
-            nbytes += u.numel() * u.element_size()
-        row.update(ms=time_ms(kernel, 20), plain_ms=time_ms(plain, 1, warmup=1),
-                   library_ms=None, exps=B * H * n_chunk * pairs * K)
-        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
+        per_chunk = pairs * K + 2 * c * K + K * V
+    else:
+        c = chunk_tokens(torch.bfloat16)
+        per_chunk = 3 * c * K + K + 10 * 32 * K // 4 + 4 * 32 * 6 * K
+    return B * H * -(-T // c) * per_chunk
+
+
+def gla_times(kernel, q, k, v, log_w, u, mode) -> dict:
+    """``kernel()``'s time eager (CUDA events over 20 calls) and from a CUDA
+    graph, and the bound of this call's bytes (q, k, v, log_w and u read
+    once, o and the final state written once) and operations (the chunked
+    form's products at GLA_BOUND_CHUNK). Model layout. Needs nothing of the
+    package, so that chip_ab.py can time older checkouts with it."""
+    B, T, H, K = q.shape
+    V = v.shape[3]
+    c = GLA_BOUND_CHUNK
+    pairs = c * (c - 1) // 2 if mode == "rwkv" else c * (c + 1) // 2
+    flops = float(B * H * -(-T // c) * (2 * c * K * V * 2 + 2 * pairs * (K + V)))
+    nbytes = ((2 * K + V) * q.element_size() + K * log_w.element_size()
+              + V * v.element_size()) * B * T * H + 4 * B * H * K * V
+    if u is not None:
+        nbytes += u.numel() * u.element_size()
+    row = dict(ms=time_ms(kernel, 20), library_ms=None, graph_ms=graph_ms(kernel))
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, q.dtype)
     return row
 
 
@@ -390,9 +481,15 @@ def fmt(row: dict) -> str:
                   f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})",
                   f"of_bound={row['bound_ms'] / row['ms']:.3f}"]
     if "graph_ms" in row:
-        parts += [f"graph_ms={row['graph_ms']:.4f}",
-                  f"library_graph_ms={row['library_graph_ms']:.4f}",
-                  f"graph_of_bound={row['bound_ms'] / row['graph_ms']:.3f}"]
+        parts.append(f"graph_ms={row['graph_ms']:.4f}")
+        if "library_graph_ms" in row:
+            parts.append(f"library_graph_ms={row['library_graph_ms']:.4f}")
+        parts.append(f"graph_of_bound={row['bound_ms'] / row['graph_ms']:.3f}")
+    if "exps" in row:
+        parts.append(f"exps={row['exps']}")
+    if "by_kernel" in row:
+        parts.append("by_kernel=" + ",".join(
+            f"{name}:{ms:.4f}" for name, ms in row["by_kernel"].items()))
     return " ".join(parts)
 
 
@@ -492,18 +589,45 @@ def phase_kernels() -> dict:
                 row = gla_case(B, T, H, K, V, mode, dtype, gen)
                 print(f"gla sweep B={B} T={T} H={H} K={K} V={V} {mode} "
                       f"{dtype}: {fmt(row)}")
+    print("-- gla_scan, the mma path's cases (tests/test_torch_card.py: bf16 "
+          "q/k/v, H=2, B 1 and 2, both modes, float32 and bf16 log_w, strong / "
+          "extreme / floor decays; tol 5e-2), max error per (T, K, V)")
+    for T in GLA_MMA_T:
+        for K, V in GLA_MMA_KV:
+            worst, paths, n = 0.0, set(), 0
+            for B in (1, 2):
+                for mode in ("ssd", "rwkv"):
+                    for lw_dtype in (torch.float32, bf16):
+                        for decay in GLA_DECAYS:
+                            row = gla_case(B, T, 2, K, V, mode, bf16, gen,
+                                           lw_dtype=lw_dtype, decay=decay)
+                            worst = max(worst, row["max_abs_err"])
+                            paths.add(row["path"])
+                            n += 1
+            print(f"gla mma cases T={T} K={K} V={V}: {n} cases, path="
+                  f"{'/'.join(sorted(paths))} max_err={worst:.3e}")
+    print("-- gla_scan, every (K, V) the library instantiates for bf16 "
+          "(tests/test_torch_card.py: T=65, B=2, H=2, both modes, float32 and "
+          "bf16 log_w, strong decay; tol 5e-2), max error per (K, V)")
+    for K in GLA_WIDTHS:
+        for V in GLA_WIDTHS:
+            rows_kv = [gla_case(2, 65, 2, K, V, mode, bf16, gen, lw_dtype=lw)
+                       for mode in ("ssd", "rwkv")
+                       for lw in (torch.float32, bf16)]
+            print(f"gla width K={K} V={V}: path="
+                  f"{'/'.join(sorted({r['path'] for r in rows_kv}))} max_err="
+                  f"{max(r['max_abs_err'] for r in rows_kv):.3e}")
     print("-- gla_scan at the served shapes (RWKV6-1.6B: H=32 K=V=64, bf16 "
-          "q/k/v, float32 log_w; Zamba2 widths for ssd); no PyTorch call "
+          "q/k/v, float32 log_w and u; Zamba2 widths for ssd); no PyTorch call "
           "computes this scan, so library_ms is none")
     for T in (128, 1000, 2048):
         row = gla_case(1, T, 32, 64, 64, "rwkv", bf16, gen,
                        lw_dtype=torch.float32, timed=True)
-        print(f"gla rwkv B=1 T={T} H=32 K=V=64: {fmt(row)} "
-              f"intra_exps={row['exps']}")
+        print(f"gla rwkv B=1 T={T} H=32 K=V=64: {fmt(row)}")
         rows[f"gla_T{T}"] = row
     row = gla_case(1, 2048, 64, 64, 64, "ssd", bf16, gen,
                    lw_dtype=torch.float32, timed=True)
-    print(f"gla ssd B=1 T=2048 H=64 K=V=64: {fmt(row)} intra_exps={row['exps']}")
+    print(f"gla ssd B=1 T=2048 H=64 K=V=64: {fmt(row)}")
     return rows
 
 
@@ -621,17 +745,45 @@ def phase_consistency(model, params, phase: int):
                            device="cuda")
     engine.submit(ServeRequest(rid=0, prompt=prompt, max_new_tokens=8))
     engine_tokens = engine.run()[0].generated
+    # The hand-rolled loop prefills the prompt alone (a fresh cache of one
+    # row), places that cache in row 0 of a cache of the engine's 8 slots
+    # and decodes all 8 rows as the engine does (the others idle, token 0):
+    # its greedy tokens must equal the engine's. Beside it the same cache of
+    # one row decodes alone, fed the 8-row loop's tokens, and its logits are
+    # held to the 8-row loop's at every step: max|diff| / max|logit| at most
+    # ROW_TOL. The plain bf16 decode does not round alike at 1 and 8 rows
+    # (cuBLAS picks other kernels), so a random model's greedy argmax can
+    # turn on a one-ulp tie and the tokens are not compared across row
+    # counts (PERF.md); a fault that mixes or misplaces rows moves logits by
+    # O(1) of their scale.
     tokens = torch.as_tensor(prompt, device="cuda")[None]
-    logits, cache = model.prefill(params, {"tokens": tokens}, 4096)
+    logits, solo_cache = model.prefill(params, {"tokens": tokens}, 4096)
+    cache = model.init_cache(8, 4096, device="cuda")
+    for key, x in solo_cache.items():
+        (cache[key][0:1] if key == "lengths" else cache[key][:, 0:1]).copy_(x)
     ref = [int(torch.argmax(logits[0]))]
+    gaps, solo = [], []
     for _ in range(7):
-        logits, cache = model.decode_step(
-            params, {"tokens": torch.tensor([[ref[-1]]], device="cuda")}, cache)
-        ref.append(int(torch.argmax(logits[0])))
-    print(f"engine tokens {engine_tokens}; hand-rolled {ref}")
+        batch = torch.zeros((8, 1), dtype=torch.long, device="cuda")
+        batch[0, 0] = ref[-1]
+        logits, cache = model.decode_step(params, {"tokens": batch}, cache)
+        solo_logits, solo_cache = model.decode_step(
+            params, {"tokens": torch.tensor([[ref[-1]]], device="cuda")},
+            solo_cache)
+        a, b = logits[0].float(), solo_logits[0].float()
+        gaps.append(float((a - b).abs().max() / a.abs().max()))
+        ref.append(int(torch.argmax(a)))
+        solo.append(int(torch.argmax(b)))
+    print(f"engine tokens {engine_tokens}; hand-rolled at 8 rows {ref}")
+    print(f"one row vs 8 rows, fed the same tokens: max|diff| / max|logit| "
+          f"per step {', '.join(f'{g:.3e}' for g in gaps)} (tol {ROW_TOL:.0e}); "
+          f"argmax at one row {solo} (not held)")
     if engine_tokens != ref:
         fail("engine tokens differ from the hand-rolled prefill + decode loop")
-    del engine, cache
+    if max(gaps) > ROW_TOL:
+        fail(f"decode logits at one row and at 8 rows differ by "
+             f"{max(gaps):.3e} of their scale")
+    del engine, cache, solo_cache
 
     # Kernel path against the plain einsum path over one prefill and four
     # decode steps, both fed the kernel path's greedy tokens. Tolerance: 5e-2

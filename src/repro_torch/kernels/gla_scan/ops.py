@@ -5,12 +5,19 @@
 u (H, K) or None) and returns (o (B, T, H, V) in v's dtype, final state
 (B, H, K, V) float32), scanning from a zero state. On CPU tensors it runs
 the plain version (``ref.gla_scan_reference``); on CUDA tensors it launches
-the kernel or raises. ``gla_scan.launches`` counts kernel launches.
+the kernels or raises. The C entry point picks them by dtype: bf16 q, k and
+v run three launches on tensor cores (chunk-local states, a prefix over
+chunks, chunk outputs; ``csrc/gla_scan.cu``) with a float32 scratch of
+chunk states that this wrapper allocates at the size the library reports,
+float32 q, k and v the first port's one-launch FMA kernel.
+``gla_scan.launches`` counts calls that launched (one per call, whichever
+kernels ran).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,12 +34,49 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("gla_scan")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gla_scan_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.gla_scan_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                     i, p]
         lib.gla_scan_fwd.restype = i
+        lib.gla_scan_route.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.gla_scan_route.restype = ctypes.c_char_p
+        lib.gla_scan_chunk_tokens.argtypes = [i]
+        lib.gla_scan_chunk_tokens.restype = i
+        lib.gla_scan_scratch_floats.argtypes = [i, i, i, i, i, i]
+        lib.gla_scan_scratch_floats.restype = ctypes.c_longlong
         lib.gla_scan_error_string.argtypes = [i]
         lib.gla_scan_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_route(dtype: torch.dtype, K: int, V: int) -> Tuple[Optional[str], int]:
+    """(name, dynamic shared memory of its largest CTA in bytes) of the
+    kernels the C entry point runs for q/k/v of ``dtype`` and widths K, V:
+    "mma" (bf16) or "fma" (float32); name None where it refuses them. Builds
+    the library (card machine only)."""
+    smem = ctypes.c_int(0)
+    name = _lib().gla_scan_route(DTYPE_CODES[dtype], K, V, ctypes.byref(smem))
+    return (name.decode() if name else None), smem.value
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_tokens(dtype: torch.dtype) -> int:
+    """Tokens per chunk tile of the kernels that q/k/v of ``dtype`` run, as
+    the library reports it (64 for bf16, 32 for float32). Builds the library
+    (card machine only)."""
+    return _lib().gla_scan_chunk_tokens(DTYPE_CODES[dtype])
+
+
+def scratch_floats(dtype: torch.dtype, B: int, T: int, H: int, K: int,
+                   V: int) -> int:
+    """Floats of the scratch the kernels for q/k/v of ``dtype`` need, as the
+    library reports it: for bf16 a (K, V) state and K decays per (batch,
+    head, chunk), none for float32. Builds the library (card machine only)."""
+    n = _lib().gla_scan_scratch_floats(DTYPE_CODES[dtype], B, T, H, K, V)
+    if n < 0:
+        raise ValueError(f"no gla_scan kernel for {dtype} K={K} V={V}")
+    return n
 
 
 def _check(q, k, v, log_w, u, mode):
@@ -57,6 +101,11 @@ def _check(q, k, v, log_w, u, mode):
         if u is None or u.shape != (H, K) or u.dtype not in DTYPE_CODES:
             raise ValueError(f"mode 'rwkv' needs u of shape {(H, K)} in "
                              "float32 or bfloat16")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        # the bf16 kernels copy rows with 16-byte cp.async
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: data_ptr must be a multiple of 16 "
+                             f"bytes, got {x.data_ptr() % 16} bytes off")
     tensors = [q, k, v, log_w] + ([u] if u is not None else [])
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError("q, k, v, log_w and u must lie on one CUDA device")
@@ -69,9 +118,9 @@ def gla_scan(q, k, v, log_w, u: Optional[torch.Tensor] = None,
     """Model layout q/k/log_w: (B, T, H, K); v: (B, T, H, V).
     Returns (o (B, T, H, V), final_state (B, H, K, V)).
 
-    ``chunk`` is kept for the reference's signature: the kernel uses its own
-    chunk tile (``csrc/gla_scan.cu``), and the plain version scans token by
-    token; the chunk changes rounding only."""
+    ``chunk`` is kept for the reference's signature: the kernels use their
+    own chunk tiles (``csrc/gla_scan.cu``), and the plain version scans token
+    by token; the chunk changes rounding only."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     if q.device.type == "cpu":
@@ -82,20 +131,28 @@ def gla_scan(q, k, v, log_w, u: Optional[torch.Tensor] = None,
     _check(q, k, v, log_w, u, mode)
     B, T, H, K = q.shape
     V = v.shape[3]
+    dev = q.device
     # float32 decay and bonus: a bf16 log_w or u upcasts exactly
     lw = log_w.float()
     uf = u.float() if u is not None else None
     o = torch.empty_like(v)
-    state = torch.empty((B, H, K, V), dtype=torch.float32, device=q.device)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        code = lib.gla_scan_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+    state = torch.empty((B, H, K, V), dtype=torch.float32, device=dev)
+    n_scratch = scratch_floats(q.dtype, B, T, H, K, V)
+    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=dev)
+               if n_scratch else None)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
             uf.data_ptr() if uf is not None else None, o.data_ptr(),
-            state.data_ptr(), B, T, H, K, V, int(mode == "rwkv"),
-            DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(code, "gla_scan", lib.gla_scan_error_string(code))
+            state.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+            B, T, H, K, V, int(mode == "rwkv"), DTYPE_CODES[q.dtype],
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    lib = _lib()
+    if dev.index == torch.cuda.current_device():
+        code = lib.gla_scan_fwd(*args)
+    else:
+        with torch.cuda.device(dev):
+            code = lib.gla_scan_fwd(*args)
+    if code:
+        _build.check(code, "gla_scan", lib.gla_scan_error_string(code))
     gla_scan.launches += 1
     return o, state
 

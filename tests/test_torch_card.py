@@ -21,6 +21,8 @@ from repro_torch.kernels.decode_attention.ops import kernel_route, split_plan
 from repro_torch.kernels.flash_attention import (attention_reference,
                                                  flash_attention)
 from repro_torch.kernels.gla_scan import gla_scan, gla_scan_reference
+from repro_torch.kernels.gla_scan import ops as gla_ops
+from repro_torch.kernels.gla_scan.ops import kernel_route as gla_route
 from repro_torch.models import build_model
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -61,6 +63,11 @@ DECODE_OTHER_D = [16, 32, 48, 80, 96, 112]
 DECODE_OTHER_LENGTHS = [(1, None), (17, None), (129, None), (1024, None),
                         (1324, 1024)]
 GLA_SHAPES = [(1, 64, 2, 32, 32), (2, 130, 2, 64, 64), (1, 256, 4, 16, 64)]
+# The bf16 gla_scan path (tensor cores, 64-token chunks of four 16-token
+# sub-chunks): T on both sides of a sub-chunk and a chunk, and the served
+# lengths; K = V = 16 and 64, and K = 32 with V = 64; B 1 and 2.
+GLA_MMA_T = [1, 15, 16, 63, 64, 65, 1000, 2048]
+GLA_MMA_KV = [(16, 16), (64, 64), (32, 64)]
 
 
 def _cuda_or_skip():
@@ -401,6 +408,132 @@ def test_gla_kernel_strong_decay_stays_finite(mode, decay):
     ro, rs = gla_scan_reference(tr(q), tr(k), tr(v), tr(lw), u=u, mode=mode)
     np.testing.assert_allclose(_np(o), _np(tr(ro)), rtol=tol, atol=tol)
     np.testing.assert_allclose(_np(s), _np(rs), rtol=tol, atol=tol)
+
+
+# bf16 path decays per token: the sweep's strong range; the extreme one; and
+# RWKV6's floor of -22026 (log w = -exp(10)) beside weak decays, at random
+# per token and channel, where cumulative sums that span the floor cancel.
+GLA_MMA_DECAYS = {
+    "strong": lambda rng, shape: -np.exp(rng.uniform(-6.0, 2.5, shape)),
+    "extreme": lambda rng, shape: -rng.uniform(0.0, 40.0, shape),
+    "floor": lambda rng, shape: np.where(rng.uniform(size=shape) < 0.5,
+                                         -np.exp(10.0),
+                                         -np.exp(rng.uniform(-6.0, 0.0, shape))),
+}
+
+
+def _gla_mma_inputs(seed, B, T, H, K, V, mode, lw_dtype, decay):
+    rng = np.random.default_rng(seed)
+    q, k, v = _inputs(rng, "bfloat16", (B, T, H, K), (B, T, H, K), (B, T, H, V))
+    lw = torch.from_numpy(GLA_MMA_DECAYS[decay](rng, (B, T, H, K))
+                          .astype(np.float32)).to(DTYPES[lw_dtype]).cuda()
+    u = _inputs(rng, "float32", (H, K))[0] * 0.3 if mode == "rwkv" else None
+    return q, k, v, lw, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", GLA_MMA_T)
+@pytest.mark.parametrize("K,V", GLA_MMA_KV)
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("mode", ["ssd", "rwkv"])
+@pytest.mark.parametrize("lw_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decay", list(GLA_MMA_DECAYS))
+def test_gla_mma_kernel_matches_plain_on_card(T, K, V, B, mode, lw_dtype, decay):
+    """bf16 q/k/v take the tensor-core path; held at the bf16 tolerance
+    (5e-2) against the token-by-token scan of the same inputs, finite."""
+    _cuda_or_skip()
+    assert gla_route(torch.bfloat16, K, V)[0] == "mma"
+    q, k, v, lw, u = _gla_mma_inputs(11, B, T, 2, K, V, mode, lw_dtype, decay)
+    n = gla_scan.launches
+    o, s = gla_scan(q, k, v, lw, u=u, mode=mode)
+    torch.cuda.synchronize()
+    assert gla_scan.launches == n + 1
+    assert o.dtype == torch.bfloat16 and s.dtype == torch.float32
+    assert torch.isfinite(o.float()).all() and torch.isfinite(s).all()
+    tr = lambda x: x.transpose(1, 2)
+    ro, rs = gla_scan_reference(tr(q), tr(k), tr(v), tr(lw), u=u, mode=mode)
+    np.testing.assert_allclose(_np(o), _np(tr(ro)), **_gla_tol("bfloat16"))
+    np.testing.assert_allclose(_np(s), _np(rs), **_gla_tol("bfloat16"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,H", [("rwkv", 32), ("ssd", 64)])
+def test_gla_mma_kernel_matches_plain_at_the_served_shape_on_card(mode, H):
+    """RWKV6-1.6B's prefill (H = 32) and Zamba2's widths (H = 64) at T = 2048,
+    K = V = 64, bf16 q/k/v, float32 log w: bf16 tolerance, and a second call
+    on the same inputs is bit-equal (no atomics, a fixed order of sums)."""
+    _cuda_or_skip()
+    q, k, v, lw, u = _gla_mma_inputs(12, 1, 2048, H, 64, 64, mode, "float32",
+                                     "strong")
+    o, s = gla_scan(q, k, v, lw, u=u, mode=mode)
+    o2, s2 = gla_scan(q, k, v, lw, u=u, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(s, s2)
+    tr = lambda x: x.transpose(1, 2)
+    ro, rs = gla_scan_reference(tr(q), tr(k), tr(v), tr(lw), u=u, mode=mode)
+    np.testing.assert_allclose(_np(o), _np(tr(ro)), **_gla_tol("bfloat16"))
+    np.testing.assert_allclose(_np(s), _np(rs), **_gla_tol("bfloat16"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [16, 32, 48, 64])
+@pytest.mark.parametrize("V", [16, 32, 48, 64])
+@pytest.mark.parametrize("mode", ["ssd", "rwkv"])
+def test_gla_mma_kernel_every_width_on_card(K, V, mode):
+    """Every (K, V) the library instantiates for bf16 runs and holds the bf16
+    tolerance: T = 65 (a full chunk and one token), B = 2, both log_w
+    dtypes."""
+    _cuda_or_skip()
+    assert gla_route(torch.bfloat16, K, V)[0] == "mma"
+    for lw_dtype in ("float32", "bfloat16"):
+        q, k, v, lw, u = _gla_mma_inputs(13, 2, 65, 2, K, V, mode, lw_dtype,
+                                         "strong")
+        o, s = gla_scan(q, k, v, lw, u=u, mode=mode)
+        torch.cuda.synchronize()
+        assert torch.isfinite(o.float()).all() and torch.isfinite(s).all()
+        tr = lambda x: x.transpose(1, 2)
+        ro, rs = gla_scan_reference(tr(q), tr(k), tr(v), tr(lw), u=u, mode=mode)
+        np.testing.assert_allclose(_np(o), _np(tr(ro)), **_gla_tol("bfloat16"))
+        np.testing.assert_allclose(_np(s), _np(rs), **_gla_tol("bfloat16"))
+
+
+@pytest.mark.cuda
+def test_gla_scratch_is_the_designs_on_card():
+    """The library's chunk tiles and scratch size are those of the design
+    that tests/test_torch_gla_design.py mirrors: 64-token chunks and, per
+    (batch, head, chunk), a (K, V) state and K decays for bf16; the float32
+    kernel's 32-token chunks and no scratch."""
+    _cuda_or_skip()
+    assert gla_ops.chunk_tokens(torch.bfloat16) == 64
+    assert gla_ops.chunk_tokens(torch.float32) == 32
+    for B, T, H, K, V in [(2, 130, 3, 32, 48), (1, 2048, 32, 64, 64), (1, 1, 1, 16, 16)]:
+        n = B * H * -(-T // 64) * (K * V + K)
+        assert gla_ops.scratch_floats(torch.bfloat16, B, T, H, K, V) == n
+        assert gla_ops.scratch_floats(torch.float32, B, T, H, K, V) == 0
+    with pytest.raises(ValueError, match="no gla_scan kernel"):
+        gla_ops.scratch_floats(torch.bfloat16, 1, 8, 1, 80, 64)
+
+
+@pytest.mark.cuda
+def test_gla_routes_by_dtype_on_card():
+    """bf16 q/k/v run the tensor-core kernels at every K, V the wrapper takes;
+    float32 keeps the FMA kernel; the library refuses other widths."""
+    _cuda_or_skip()
+    for K in (16, 32, 48, 64):
+        for V in (16, 32, 48, 64):
+            assert gla_route(torch.bfloat16, K, V)[0] == "mma"
+            assert gla_route(torch.float32, K, V)[0] == "fma"
+    assert gla_route(torch.bfloat16, 80, 64)[0] is None
+
+
+@pytest.mark.cuda
+def test_gla_wrapper_refuses_misaligned_views_on_card():
+    _cuda_or_skip()
+    q = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16, device="cuda")
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    bad = flat[1:].view(q.shape)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        gla_scan(bad, q, q, q.float(), mode="ssd")
 
 
 @pytest.mark.cuda
