@@ -11,7 +11,8 @@ versions, and timed eager and from a CUDA graph beside their bound:
 (``chip_smoke.max_err``, ``seq_err`` and ``decode_times``, SDPA both ways),
 and ``gla_scan`` at RWKV6-1.6B's prefill shapes (rwkv, H=32, T 128,
 1000 and 2048) and Zamba2's widths (ssd, H=64, T=2048), bf16 q/k/v,
-float32 log_w and u (``chip_smoke.GLA_TOL`` and ``gla_times``). Listing
+float32 log_w and u, and the float32 kernel at RWKV6's T=2048 with
+float32 q/k/v (``chip_smoke.GLA_TOL`` and ``gla_times``). Listing
 the trees as parent, change, change, parent shows the card's drift within
 the call. One JSON line per (tree, shape); a kernel that disagrees with
 its plain version exits non-zero.
@@ -25,8 +26,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SHAPES = ((None, 4096), (4096, 8000))  # (window, longest length) at W = 4096
-GLA_SHAPES = (("rwkv", 32, 128), ("rwkv", 32, 1000), ("rwkv", 32, 2048),
-              ("ssd", 64, 2048))       # (mode, H, T) at B = 1, K = V = 64
+GLA_SHAPES = (("rwkv", 32, 128, "bfloat16"), ("rwkv", 32, 1000, "bfloat16"),
+              ("rwkv", 32, 2048, "bfloat16"), ("ssd", 64, 2048, "bfloat16"),
+              ("rwkv", 32, 2048, "float32"))  # (mode, H, T, q/k/v) at B = 1, K = V = 64
 
 
 def one(src: Path):
@@ -65,11 +67,11 @@ def gla(cs, src: Path):
     import torch
     from repro_torch.kernels.gla_scan import gla_scan, gla_scan_reference
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bf16 = torch.bfloat16
     tr = lambda x: x.transpose(1, 2)
-    for mode, H, T in GLA_SHAPES:
-        q, k = cs.randn((1, T, H, 64), bf16, gen), cs.randn((1, T, H, 64), bf16, gen)
-        v = cs.randn((1, T, H, 64), bf16, gen)
+    for mode, H, T, dtype_name in GLA_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        q, k = cs.randn((1, T, H, 64), dtype, gen), cs.randn((1, T, H, 64), dtype, gen)
+        v = cs.randn((1, T, H, 64), dtype, gen)
         log_w = cs.GLA_DECAYS["strong"](
             torch.rand((1, T, H, 64), generator=gen, device="cuda"))
         u = 0.3 * cs.randn((H, 64), torch.float32, gen) if mode == "rwkv" else None
@@ -78,9 +80,9 @@ def gla(cs, src: Path):
         ref_o, ref_s = gla_scan_reference(tr(q), tr(k), tr(v), tr(log_w), u=u,
                                           mode=mode)
         row = dict(src=str(src), kernel="gla_scan", mode=mode, B=1, T=T, H=H,
-                   K=64, V=64,
-                   max_abs_err=max(cs.max_err(out, tr(ref_o), bf16, cs.GLA_TOL),
-                                   cs.max_err(state, ref_s, bf16, cs.GLA_TOL)))
+                   K=64, V=64, dtype=dtype_name,
+                   max_abs_err=max(cs.max_err(out, tr(ref_o), dtype, cs.GLA_TOL),
+                                   cs.max_err(state, ref_s, dtype, cs.GLA_TOL)))
         row.update(cs.gla_times(kernel, q, k, v, log_w, u, mode))
         print(json.dumps(row), flush=True)
 

@@ -25,7 +25,11 @@ result:
    without launch cost), every (K, V) that gla_scan instantiates for bf16
    runs once, and each gla_scan row counts the exps its route
    takes and its device time by kernel (``torch.profiler``); each decode sequence is also held to its own output's scale
-   (``seq_err``), and the served decode shapes run again with q x8;
+   (``seq_err``), and the served decode shapes run again with q x8; the
+   float32 gla_scan kernel runs at RWKV6's decay floor too (``clamp``: every
+   token at -exp(10); ``floor``: the floor or a weak decay per token and
+   channel) against the token-by-token scan at 1e-3, and is timed at
+   RWKV6's served shape;
 4. Llama-3-8B at full width served through the launcher
    (``repro_torch.launch.serve.main``);
 5. the main path: Llama-3-8B at full width served by ``ServingEngine`` with
@@ -40,7 +44,17 @@ result:
 8-10. phases 5-7 for RWKV6-1.6B at full width: every prefill scan goes
    through ``gla_scan`` (24 launches per prefill), decode through the plain
    single-token step; phase 9 holds the kernel path against the plain
-   chunked scan (``gla_chunked``).
+   chunked scan (``gla_chunked``);
+11. the paper's simulated pipeline with its tensor work on the card:
+   ``run_simulation(PAPER_DEFAULT)`` (Table 1a, host code), ``energy_report``
+   (Eqs. 1-3), the Table 2 co-sim (the stage log's Eq. 5 load placed from
+   hour 8 of a 30 h, 60 s window with idle fill; 600 W solar, seed 3,
+   cloudiness 0.12; CI seed 4; the 100 Wh battery at SoC 20-80 %), a
+   two-site fleet, and the roofline's torch backend over the trace's
+   stages, each held against the same call on the CPU in this process
+   (Eq. 1 quantities at 5e-6, the roofline at 1e-5, host columns bitwise);
+   it prints the Table 2 metrics, wall times on the card and on the CPU,
+   and the launches of the microgrid loop on the card.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Weights are random, drawn
@@ -369,11 +383,15 @@ GLA_DECAYS = {
     "extreme": lambda unif: -40.0 * unif,
     "floor": lambda unif: torch.where(unif < 0.5, -float(np.exp(10.0)),
                                       -torch.exp(unif * 12.0 - 12.0)),
+    "clamp": lambda unif: torch.full_like(unif, -float(np.exp(10.0))),
 }
+# the float32 kernel at RWKV6's floor: the exact scan's tolerance there
+# (tests/test_torch_gla_design.py::TOL), above the sweep's 2e-4
+GLA_FLOOR_TOL = {torch.float32: (1e-3, 1e-3)}
 
 
 def gla_case(B, T, H, K, V, mode, dtype, gen, lw_dtype=None, timed=False,
-             decay="strong"):
+             decay="strong", tol=GLA_TOL):
     """gla_scan against its plain version (the token-by-token scan).
     ``lw_dtype``: the dtype of log_w and u (the sweep rounds them to
     ``dtype``; the model keeps them in float32). ``decay``: a key of
@@ -396,8 +414,8 @@ def gla_case(B, T, H, K, V, mode, dtype, gen, lw_dtype=None, timed=False,
     torch.cuda.synchronize()
     ref_o, ref_s = plain()
     path = kernel_route(dtype, K, V)[0]
-    row = {"max_abs_err": max(max_err(out, ref_o, dtype, GLA_TOL),
-                              max_err(state, ref_s, dtype, GLA_TOL)),
+    row = {"max_abs_err": max(max_err(out, ref_o, dtype, tol),
+                              max_err(state, ref_s, dtype, tol)),
            "path": path}
     if timed:
         row.update(gla_times(kernel, q, k, v, log_w, u, mode))
@@ -430,8 +448,8 @@ def device_ms_by_kernel(fn, iters: int = 10) -> dict:
 def gla_exps(B, T, H, K, V, mode, path) -> int:
     """Exps one gla_scan call takes on ``path``. fma (the float32 kernel,
     32-token chunks): expf on the intra pairs its causal mask keeps, times
-    K, plus q * exp(L_read) and k * exp(Lc - L) (2 * 32 * K) and the state's
-    decay (K * V) per chunk. mma (64-token chunks): ex2 for the decayed k of
+    K, plus the decayed q and k (2 * 32 * K) and the state's decay (K * V)
+    per chunk. mma (64-token chunks): ex2 for the decayed k of
     the chunk state and of the off-diagonal sub-blocks and the decayed q
     (3 * 64 * K), the chunk decay (K), the run-of-sub-chunk factors (10
     sets of 32 lanes x K / 4) and 6 pairs per lane of each warp's diagonal
@@ -589,6 +607,20 @@ def phase_kernels() -> dict:
                 row = gla_case(B, T, H, K, V, mode, dtype, gen)
                 print(f"gla sweep B={B} T={T} H={H} K={K} V={V} {mode} "
                       f"{dtype}: {fmt(row)}")
+    print("-- gla_scan float32 (fma) at RWKV6's floor, clamp and floor decays "
+          "(tests/test_torch_card.py; tol 1e-3 against the token-by-token "
+          "scan)")
+    for B, T, H, K, V in [(1, 64, 2, 32, 32), (2, 130, 2, 64, 64),
+                          (1, 256, 4, 16, 64), (1, 1000, 2, 64, 64)]:
+        for mode in ("ssd", "rwkv"):
+            for decay in ("clamp", "floor"):
+                row = gla_case(B, T, H, K, V, mode, torch.float32, gen,
+                               decay=decay, tol=GLA_FLOOR_TOL)
+                print(f"gla float32 {decay} B={B} T={T} H={H} K={K} V={V} "
+                      f"{mode}: {fmt(row)}")
+    row = gla_case(1, 2048, 32, 64, 64, "rwkv", torch.float32, gen, timed=True)
+    print(f"gla float32 rwkv B=1 T=2048 H=32 K=V=64 (strong decay): {fmt(row)}")
+    rows["gla_f32_T2048"] = row
     print("-- gla_scan, the mma path's cases (tests/test_torch_card.py: bf16 "
           "q/k/v, H=2, B 1 and 2, both modes, float32 and bf16 log_w, strong / "
           "extreme / floor decays; tol 5e-2), max error per (T, K, V)")
@@ -598,7 +630,7 @@ def phase_kernels() -> dict:
             for B in (1, 2):
                 for mode in ("ssd", "rwkv"):
                     for lw_dtype in (torch.float32, bf16):
-                        for decay in GLA_DECAYS:
+                        for decay in ("strong", "extreme", "floor"):
                             row = gla_case(B, T, 2, K, V, mode, bf16, gen,
                                            lw_dtype=lw_dtype, decay=decay)
                             worst = max(worst, row["max_abs_err"])
@@ -943,6 +975,183 @@ def phase_profile(model, params, phase: int, kernel_group: str,
             print(f"  {ms:8.3f} ms  {kname[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the paper's simulated pipeline
+# ---------------------------------------------------------------------------
+
+def timed(fn):
+    """(fn(), wall seconds of a second, warm call), the card drained
+    before the clock stops: the first call also loads the CUDA modules of
+    the operations it meets."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def device_ops(fn) -> tuple:
+    """(device operations, their summed device ms, wall ms) of one call of
+    ``fn``, from a ``torch.profiler`` trace of it: kernels and copies."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(ops), sum(e.time_range.elapsed_us() for e in ops) / 1e3, wall
+
+
+def close(got, want, rtol: float, what: str, atol: float = 0.0):
+    """Fail unless |got - want| <= atol + rtol |want|, elementwise."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"{what}: shape {got.shape} against {want.shape}, or not finite")
+    err = np.abs(got - want)
+    if bool((err > atol + rtol * np.abs(want)).any()):
+        fail(f"{what}: card and CPU differ by {float(err.max()):.3e}")
+    return float(err.max(initial=0.0))
+
+
+def table2_cosim(res, torch_device):
+    """Table 2's co-sim recipe, as the reference's
+    ``sweep/runner.py::_post_microgrid_cosim`` runs it at its defaults."""
+    from repro_torch import core
+    from repro_torch.core import datasets
+    pm = core.PowerModel(res.cfg.device, torch_device=torch_device)
+    load = core.stages_to_load_signal(
+        res.stages.start_s, res.stages.dur_s, res.stages.mfu, pm,
+        n_devices=res.cfg.n_devices, pue=1.2, resolution_s=60.0)
+    n_bins, start = int(30 * 3600 / 60), int(8 * 3600 / 60)
+    vals = np.full(n_bins, pm.dev.p_idle * res.cfg.n_devices * 1.2)
+    n = min(len(load.values), n_bins - start)
+    vals[start:start + n] = load.values[:n]
+    grid = core.MicrogridConfig(battery=core.BatteryConfig(
+        capacity_wh=100.0, soc_init=0.5, soc_min=0.2, soc_max=0.8))
+    return core.run_cosim(
+        core.Signal(np.arange(n_bins) * 60.0, vals, interp="previous"),
+        datasets.solar_signal(30.0, capacity_w=600.0, seed=3, cloudiness=0.12),
+        datasets.carbon_intensity_signal(30.0, seed=4), grid,
+        torch_device=torch_device)
+
+
+def two_site_fleet():
+    """``tests/test_fleet.py``'s two-region fleet (Llama-3-8B, 48 requests
+    at 5 QPS, batch cap 16), carbon-greedy routing, and the Table 1b
+    microgrid (600 W solar, 100 Wh battery) at the hydro site."""
+    from repro_torch import fleet, sim
+    from repro_torch.configs.paper_models import LLAMA3_8B
+    sites = tuple(fleet.SiteConfig(
+        name=f"s{i}-{t}", device="a100", ci_trace=t,
+        scheduler=sim.SchedulerConfig(batch_cap=16),
+        solar_capacity_w=600.0 if i == 0 else 0.0,
+        battery_capacity_wh=100.0 if i == 0 else 0.0)
+        for i, t in enumerate(("hydro", "coal")))
+    return fleet.FleetConfig(model=LLAMA3_8B, sites=sites,
+                             workload=sim.WorkloadConfig(
+                                 n_requests=48, qps=5.0, min_len=64,
+                                 max_len=512, seed=0),
+                             router="carbon_greedy")
+
+
+def phase_simulated():
+    import dataclasses
+
+    from repro_torch import fleet, sim
+    from repro_torch.core.power import DEVICE_MODE_RTOL
+    from repro_torch.sim.execmodel import (TORCH_BACKEND_RTOL, StageBatch,
+                                           cached_execution_model)
+    print("== phase 11: the paper's simulated pipeline (Table 1a, Eqs. 1-5, "
+          "Table 2, a two-site fleet), card against CPU")
+    reset_counts()
+    cfg = sim.PAPER_DEFAULT
+    res, t_sim = timed(lambda: sim.run_simulation(cfg))
+    stages = res.stages
+    done = sum(1 for r in res.requests if r.t_done >= 0)
+    if not (len(stages) and done == cfg.workload.n_requests
+            and np.isfinite(stages.dur_s).all()):
+        fail(f"run_simulation: {len(stages)} stages, {done} requests done")
+    print(f"run_simulation(PAPER_DEFAULT): {cfg.model.name} on {cfg.device}, "
+          f"{done} requests at {cfg.workload.qps} QPS, {len(stages)} stages "
+          f"over {stages.total_duration():.3f} simulated s, host {t_sim:.3f} s")
+
+    times = {}
+    reports = {}
+    for dev in ("cuda", "cpu"):
+        reports[dev], times[f"energy_{dev}"] = timed(
+            lambda: sim.energy_report(res, sim.PAPER_PUE, torch_device=dev))
+    want = dataclasses.asdict(reports["cpu"])
+    for k, v in dataclasses.asdict(reports["cuda"]).items():
+        close(v, want[k], DEVICE_MODE_RTOL, f"energy_report {k}")
+    print(f"energy_report (Eqs. 1-3, PUE {sim.PAPER_PUE}): energy_wh="
+          f"{reports['cuda'].energy_wh!r} avg_power_w="
+          f"{reports['cuda'].avg_power_w!r} avg_mfu={reports['cuda'].avg_mfu!r}"
+          f" (CPU: {want['energy_wh']!r}, {want['avg_power_w']!r})")
+
+    cosim = {}
+    for dev in ("cuda", "cpu"):
+        cosim[dev], times[f"table2_{dev}"] = timed(lambda: table2_cosim(res, dev))
+    for k, v in cosim["cpu"].traces.items():
+        close(cosim["cuda"].traces[k], v, 0.0, f"microgrid trace {k}",
+              atol=1e-5 * float(np.abs(v).max(initial=0.0)))
+    for k, v in cosim["cpu"].metrics.items():
+        close(cosim["cuda"].metrics[k], v, DEVICE_MODE_RTOL, f"Table 2 {k}")
+    steps = len(cosim["cuda"].load.times)
+    ops, busy_ms, wall_ms = device_ops(lambda: table2_cosim(res, "cuda"))
+    m = cosim["cuda"].metrics
+    print("Table 2 co-sim (30 h at 60 s, 600 W solar, 100 Wh battery): "
+          + " ".join(f"{k}={float(m[k])!r}" for k in (
+              "carbon_offset_pct", "renewable_share_pct", "net_emissions_kg",
+              "total_energy_kwh", "grid_dependency_pct")))
+    print(f"microgrid loop on the card: {steps} steps, {ops} device "
+          f"operations in the co-sim call ({ops / steps:.1f} per step), "
+          f"device busy {busy_ms:.2f} ms of {wall_ms:.1f} ms traced wall "
+          f"(idle {1 - busy_ms / wall_ms:.1%})")
+
+    fleets = {}
+    for dev in ("cuda", "cpu"):
+        fleets[dev], times[f"fleet_{dev}"] = timed(
+            lambda: fleet.run_fleet_simulation(two_site_fleet(), torch_device=dev))
+    if not np.array_equal(fleets["cuda"].assignments, fleets["cpu"].assignments):
+        fail("fleet: site assignments differ between card and CPU runs")
+    want = fleets["cpu"].summary()
+    got = fleets["cuda"].summary()
+    for k, v in want.items():
+        close(got[k], v, DEVICE_MODE_RTOL, f"fleet {k}",
+              atol=DEVICE_MODE_RTOL * 100.0 if k.endswith("_pct") else 0.0)
+    if got["n_requests_done"] != 48:
+        fail(f"fleet served {got['n_requests_done']} of 48 requests")
+    print(f"two-site fleet (carbon_greedy, hydro with solar + battery, coal): "
+          f"energy_wh={got['energy_wh']!r} carbon_total_g="
+          f"{got['carbon_total_g']!r} carbon_offset_pct="
+          f"{got['carbon_offset_pct']!r} requests per site "
+          f"{[len(s.requests) for s in fleets['cuda'].sites]}")
+
+    em = cached_execution_model(cfg.model, cfg.device, cfg.tp, cfg.pp,
+                                cfg.execmodel)
+    batch = StageBatch.from_trace(stages)
+    plain = em.stage_cost_batch(batch)
+    if not np.array_equal(plain.t_total, stages.dur_s):
+        fail("roofline: the batched numpy path differs from the event loop's")
+    on_card, times["roofline_cuda"] = timed(
+        lambda: em.stage_cost_batch(batch, backend="torch", torch_device="cuda"))
+    worst = max(close(getattr(on_card, f.name), getattr(plain, f.name),
+                      TORCH_BACKEND_RTOL, f"roofline {f.name}")
+                for f in dataclasses.fields(plain))
+    print(f"roofline backend=torch on the card over {len(batch)} stages: max "
+          f"|diff| {worst:.3e} against numpy")
+
+    launched = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    if any(launched.values()):
+        fail(f"the simulated path launched kernels: {launched}")
+    print("wall s, card vs CPU: " + " ".join(
+        f"{k}={v:.4f}" for k, v in sorted(times.items())))
+    print(f"kernel launches in phase 11: {launched} (no kernel on this path)")
+
+
 def full_width(name: str):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -965,7 +1174,7 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1004,6 +1213,11 @@ def main():
             phase_consistency(model, params, 9)
         if 10 in phases:
             phase_profile(model, params, 10, "gla_scan kernel", ("gla_scan",))
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 11 in phases:
+        phase_simulated()
     print(f"chip_smoke phases {sorted(phases)} passed in "
           f"{time.perf_counter() - t0:.1f} s")
     if rows and counts and rwkv_counts:

@@ -5,7 +5,11 @@
 Counterpart of ``repro.core.power``: the device profiles are copied verbatim
 and ``power`` repeats the reference's float32 operations one for one, so the
 two packages agree to float32 rounding (``pow`` may differ by an ulp between
-libraries).
+libraries, hence ``DEVICE_MODE_RTOL``).
+
+``device`` names the simulated accelerator's profile here, as in the
+reference; the torch device that evaluates Eq. 1 is ``PowerModel``'s
+``torch_device`` (``None``: the CUDA card, see ``repro_torch.device``).
 """
 from __future__ import annotations
 
@@ -14,6 +18,12 @@ from typing import Dict
 
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
+
+#: relative tolerance of every quantity that passes through Eq. 1 between
+#: two float32 ``pow`` implementations (torch CPU or CUDA against XLA's);
+#: the port's copy of ``repro.sweep.device.DEVICE_MODE_RTOL``
+DEVICE_MODE_RTOL = 5e-6
 
 @dataclasses.dataclass(frozen=True)
 class DeviceProfile:
@@ -74,10 +84,25 @@ def power(mfu, dev: DeviceProfile) -> torch.Tensor:
 
 
 class PowerModel:
-    """Object facade used by the serving launcher's energy accounting."""
+    """Object facade used by the simulator, the co-simulation bridge and
+    the serving launcher. ``device`` is the profile; Eq. 1 runs on
+    ``torch_device``, resolved at each call (``None``: the card, raising
+    without one), and returns float32 tensors there."""
 
-    def __init__(self, device: str | DeviceProfile = "a100"):
+    def __init__(self, device: str | DeviceProfile = "a100",
+                 torch_device: DeviceLike = None):
         self.dev = DEVICES[device] if isinstance(device, str) else device
+        self.torch_device = torch_device
 
     def power(self, mfu) -> torch.Tensor:
-        return power(mfu, self.dev)
+        dev = resolve_device(self.torch_device)
+        return power(torch.as_tensor(mfu, dtype=torch.float32, device=dev),
+                     self.dev)
+
+    def energy_wh(self, mfu, duration_s, n_devices: int = 1,
+                  pue: float = 1.0) -> torch.Tensor:
+        """Energy in Wh for stages with given MFU and duration (Eq. 3), a
+        float32 scalar tensor (the reference's x64-off jnp arithmetic)."""
+        p = self.power(mfu)
+        dur = torch.as_tensor(duration_s, dtype=torch.float32, device=p.device)
+        return torch.sum(p * dur / 3600.0) * n_devices * pue

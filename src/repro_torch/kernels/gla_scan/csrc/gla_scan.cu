@@ -88,6 +88,16 @@
 // term are one thread's loop over k each, exp (expf) taken only on the
 // pairs the causal mask keeps. Held back: B * H CTAs, no tensor cores,
 // full-precision expf.
+//   Stability, as in the bf16 path: each token's log decay is clamped at
+// LW_FLOOR (2^-64 as a factor), and a chunk is two sub-chunks of SUB = 16
+// tokens whose cumulative sums start afresh. The read decay of rwkv is the
+// sum before the token's own decay is added, not L - log_w; the decays
+// across the sub-chunk boundary and to the chunk's end are sums of the
+// tokens they span (the suffix inside a sub-chunk, the sub-chunk totals).
+// Only the diagonal pairs of a sub-chunk take a difference of two sums,
+// each at most 16 * 44.4 in size. The form it replaces took differences of
+// 32-token sums, which reach ~7e5 under RWKV6's floor of -22026 per token,
+// where a float32 ulp is 0.06: outputs were off by whole units.
 //
 // Inputs and outputs stay in the model layout (B, T, H, .): both paths read
 // a head's rows with strides, so the wrapper copies nothing. A ragged last
@@ -110,16 +120,19 @@ namespace {
 // THREADS >= K + CHUNK (step b).
 constexpr int THREADS = 1024;
 constexpr int CHUNK = 32;         // tokens per chunk tile
+constexpr int SUB32 = 16;         // tokens per sub-chunk of local sums
 constexpr int CP = CHUNK + 1;     // padded row of the transposed k and L tiles
 constexpr int KMAX = 64;          // K, V: multiples of 16 up to 64
+constexpr float LW_FLOOR = -44.36141955583650f;  // -64 * ln 2
 
 size_t smem_floats(int K, int V) {
   return 2 * (size_t)CHUNK * K        // q (later q * exp(L_read)), L_read: [t][k]
-         + 2 * (size_t)K * CP         // k (later k * exp(Lc - L)), L: [k][t]
+         + 3 * (size_t)K * CP         // k (later decayed), L, suffix: [k][t]
          + (size_t)CHUNK * V          // v: [t][v]
          + (size_t)K * V              // state S: [k][v]
          + (size_t)CHUNK * CHUNK      // att: [t][j]
-         + CHUNK;                     // bonus: [t]
+         + CHUNK                      // bonus: [t]
+         + 2 * (size_t)K;             // sub-chunk totals: [2][k]
 }
 
 // q, k, log_w: (B, T, H, K); v, o: (B, T, H, V); u: (H, K) float32 or null;
@@ -134,11 +147,13 @@ gla_scan_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* q_s = smem;                       // [CHUNK][K]
   float* lr_s = q_s + CHUNK * K;           // [CHUNK][K]
   float* kt_s = lr_s + CHUNK * K;          // [K][CP]
-  float* lt_s = kt_s + K * CP;             // [K][CP]
-  float* v_s = lt_s + K * CP;              // [CHUNK][V]
+  float* lt_s = kt_s + K * CP;             // [K][CP] local inclusive sums
+  float* sf_s = lt_s + K * CP;             // [K][CP] log_w, then suffixes
+  float* v_s = sf_s + K * CP;              // [CHUNK][V]
   float* s_s = v_s + CHUNK * V;            // [K][V]
   float* att_s = s_s + K * V;              // [CHUNK][CHUNK]
   float* bonus_s = att_s + CHUNK * CHUNK;  // [CHUNK]
+  float* tot_s = bonus_s + CHUNK;          // [2][K] sub-chunk totals
 
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const bool has_u = rwkv && u != nullptr;
@@ -153,11 +168,11 @@ gla_scan_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const size_t g = (((size_t)b * T + t0 + t) * H + h) * K + kk;
         qx = q[g];
         kx = k[g];
-        lw = log_w[g];
+        lw = fmaxf(log_w[g], LW_FLOOR);
       }
       q_s[t * K + kk] = qx;
       kt_s[kk * CP + t] = kx;
-      lt_s[kk * CP + t] = lw;
+      sf_s[kk * CP + t] = lw;
     }
     for (int i = tid; i < CHUNK * V; i += THREADS) {
       const int t = i / V, vv = i - t * V;
@@ -165,15 +180,27 @@ gla_scan_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    // b. cumulative log decay per channel (threads < K) and the bonus
+    // b. per channel (threads < K), inside each sub-chunk: the inclusive
+    //    cumulative log decay, the read decay (before the token's own for
+    //    rwkv), the exclusive suffix, and the sub-chunk's total; the bonus
     //    sum_k q u k per token (threads K .. K + CHUNK)
     if (tid < K) {
-      float acc = 0.f;
-      for (int t = 0; t < CHUNK; ++t) {
-        const float lw = lt_s[tid * CP + t];
-        acc += lw;
-        lt_s[tid * CP + t] = acc;
-        lr_s[t * K + tid] = rwkv ? acc - lw : acc;
+      float* lw = sf_s + tid * CP;
+      for (int s = 0; s < CHUNK; s += SUB32) {
+        float acc = 0.f;
+        for (int t = s; t < s + SUB32; ++t) {
+          const float before = acc;
+          acc += lw[t];
+          lt_s[tid * CP + t] = acc;
+          lr_s[t * K + tid] = rwkv ? before : acc;
+        }
+        tot_s[(s / SUB32) * K + tid] = acc;
+        float suf = 0.f;
+        for (int t = s + SUB32 - 1; t >= s; --t) {
+          const float x = lw[t];
+          lw[t] = suf;
+          suf += x;
+        }
       }
     } else if (tid < K + CHUNK) {
       const int t = tid - K;
@@ -185,27 +212,34 @@ gla_scan_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    // c. intra-chunk attention, exp only on the pairs the mask keeps
+    // c. intra-chunk attention, exp only on the pairs the mask keeps: in one
+    //    sub-chunk the read sum less the inclusive sum at j; from the first
+    //    sub-chunk to the second the suffix after j plus the read sum
     for (int i = tid; i < CHUNK * CHUNK; i += THREADS) {
       const int t = i / CHUNK, j = i - t * CHUNK;
       float acc = 0.f;
       if (rwkv ? j < t : j <= t) {
         const float* qr = q_s + t * K;
         const float* lr = lr_s + t * K;
+        const float* lj = (j < SUB32 && t >= SUB32 ? sf_s : lt_s) + j;
+        const float sign = j < SUB32 && t >= SUB32 ? 1.f : -1.f;
 #pragma unroll 8
         for (int kk = 0; kk < K; ++kk)
           acc = fmaf(qr[kk] * kt_s[kk * CP + j],
-                     expf(lr[kk] - lt_s[kk * CP + j]), acc);
+                     expf(fmaf(sign, lj[kk * CP], lr[kk])), acc);
       }
       att_s[i] = acc;
     }
     __syncthreads();
 
-    // d. q * exp(L_read) for the inter term; k * exp(Lc - L) for the update
+    // d. q * exp(L_read) for the inter term, L_read the read sum plus the
+    //    first sub-chunk's total past it; k * exp(decay after the token to
+    //    the chunk's end) for the update
     for (int i = tid; i < CHUNK * K; i += THREADS) {
-      q_s[i] *= expf(lr_s[i]);
+      const int tq = i / K, kq = i - tq * K;
+      q_s[i] *= expf(lr_s[i] + (tq >= SUB32 ? tot_s[kq] : 0.f));
       const int kk = i / CHUNK, t = i - kk * CHUNK;
-      kt_s[kk * CP + t] *= expf(lt_s[kk * CP + CHUNK - 1] - lt_s[kk * CP + t]);
+      kt_s[kk * CP + t] *= expf(sf_s[kk * CP + t] + (t < SUB32 ? tot_s[K + kk] : 0.f));
     }
     __syncthreads();
 
@@ -225,7 +259,7 @@ gla_scan_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // f. S = exp(Lc)^T * S + k_dec^T @ v
     for (int i = tid; i < K * V; i += THREADS) {
       const int kk = i / V, vv = i - kk * V;
-      float acc = expf(lt_s[kk * CP + CHUNK - 1]) * s_s[i];
+      float acc = expf(tot_s[kk] + tot_s[K + kk]) * s_s[i];
       for (int j = 0; j < CHUNK; ++j) acc = fmaf(kt_s[kk * CP + j], v_s[j * V + vv], acc);
       s_s[i] = acc;
     }

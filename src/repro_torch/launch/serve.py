@@ -30,7 +30,8 @@ def energy_report(engine: ServingEngine, cfg, device_profile: str, ci: float):
     flops = np.array([2.0 * cfg.param_count() * l.n_tokens
                       for l in engine.logs])
     mfu = np.clip(flops / (np.maximum(durs, 1e-9) * dev.peak_flops), 0, 1)
-    watts = PowerModel(dev).power(mfu).numpy()
+    # the served trace is priced on the host, one float32 Eq. 1 per iteration
+    watts = PowerModel(dev, torch_device="cpu").power(mfu).numpy()
     wh = float(np.sum(watts * durs)) / 3600.0
     return wh, emissions(wh, engine.clock / 3600.0, dev, ci=ci), dev
 

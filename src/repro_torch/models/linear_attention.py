@@ -69,25 +69,40 @@ def gla_chunked(q, k, v, log_w, u: Optional[torch.Tensor] = None,
         raise ValueError("mode 'rwkv' needs the bonus u")
     state = (torch.zeros((B, H, K, V), dtype=torch.float32, device=q.device)
              if initial_state is None else initial_state.float())
+    # causal pairs (t, j) and their decay exponents: every exponent is a sum
+    # of log decays over the tokens it spans, formed directly, never as the
+    # difference of two chunk-wide cumulative sums. Under RWKV6's floor
+    # (-exp(10) per token) such sums reach ~1e6 within a chunk, where a
+    # float32 ulp is 0.06, so a difference of two of them is off by whole
+    # percents; a sum of same-signed terms keeps its relative accuracy.
+    after = (t_idx[:, None] > t_idx[None, :])[None, None, :, :, None]
     outs = []
     for i in range(n):
         qb, kb, vb, lwb = qc[i], kc[i], vc[i], lwc[i]       # (B, H, c, ·)
         L = torch.cumsum(lwb, dim=2)          # cumulative log decay incl. t
         Lc = L[:, :, -1:, :]                  # total chunk decay
-        # rwkv: decay applied to the state BEFORE reading at t (exclusive)
-        L_read = L - lwb if mode == "rwkv" else L
+        # rwkv: decay applied to the state BEFORE reading at t, the
+        # exclusive prefix as a shifted cumsum
+        L_read = (torch.nn.functional.pad(L[:, :, :-1], (0, 0, 1, 0))
+                  if mode == "rwkv" else L)
         o_inter = torch.einsum("bhck,bhkv->bhcv", qb * torch.exp(L_read), state)
-        # intra-chunk pairwise log-difference exp(L_read_t - L_j), masked to
-        # -inf before exp so strong decay cannot overflow
-        diff = L_read[:, :, :, None, :] - L[:, :, None, :, :]   # (B,H,t,j,K)
-        diff = diff.masked_fill(~mask[None, None, :, :, None], float("-inf"))
+        # intra-chunk: D[t, j] = sum of log w over j < i <= t, a cumsum along
+        # t of the decays past j; rwkv reads D[t - 1, j]. Masked pairs are
+        # -inf before exp.
+        span = torch.cumsum(torch.where(after, lwb[:, :, :, None, :], 0.0), dim=2)
+        if mode == "rwkv":
+            span = torch.nn.functional.pad(span[:, :, :-1], (0, 0, 0, 0, 1, 0))
+        diff = span.masked_fill(~mask[None, None, :, :, None], float("-inf"))
         att = torch.einsum("bhck,bhjk,bhcjk->bhcj", qb, kb, torch.exp(diff))
         o_intra = torch.einsum("bhcj,bhjv->bhcv", att, vb)
         if mode == "rwkv":
             bonus = torch.einsum("bhck,bhck->bhc", qb * u.float()[None, :, None, :], kb)
             o_intra = o_intra + bonus[..., None] * vb
-        # S_new = Diag(exp(Lc)) S + sum_j (k_j exp(Lc - L_j)) v_j
-        s_upd = torch.einsum("bhck,bhcv->bhkv", kb * torch.exp(Lc - L), vb)
+        # S_new = Diag(exp(Lc)) S + sum_j (k_j exp(sum of log w past j)) v_j,
+        # the exclusive suffix sum again a sum, not Lc - L_j
+        suffix = torch.flip(torch.cumsum(torch.flip(lwb, [2]), dim=2), [2])
+        suffix = torch.nn.functional.pad(suffix[:, :, 1:], (0, 0, 0, 1))
+        s_upd = torch.einsum("bhck,bhcv->bhkv", kb * torch.exp(suffix), vb)
         state = torch.exp(Lc).transpose(2, 3) * state + s_upd
         outs.append(o_inter + o_intra)
     o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, T + pad, H, V)

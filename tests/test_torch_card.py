@@ -384,8 +384,16 @@ def test_gla_kernel_matches_plain_on_card(B, T, H, K, V, mode, dtype):
 # cumulative log decays reach ~1e3 within a 32-token chunk. A float32 ulp
 # there is 6e-5, so exp of a difference of two of them carries ~1e-4
 # relative error in any chunked form (the Pallas kernel's too): 1e-3.
+# RWKV6's floor, -exp(10) = -22026 per token: every token there (clamp), and
+# the floor or a weak decay per token and channel (mixed), where chunk-wide
+# cumulative sums reach ~7e5; held at the extreme tolerance
+# (tests/test_torch_gla_design.py::TOL).
 DECAYS = {"sweep": (lambda rng, shape: -np.exp(rng.uniform(-6.0, 2.5, shape)), 2e-4),
-          "extreme": (lambda rng, shape: -rng.uniform(0.0, 40.0, shape), 1e-3)}
+          "extreme": (lambda rng, shape: -rng.uniform(0.0, 40.0, shape), 1e-3),
+          "clamp": (lambda rng, shape: np.full(shape, -np.exp(10.0)), 1e-3),
+          "mixed": (lambda rng, shape: np.where(
+              rng.uniform(size=shape) < 0.5, -np.exp(10.0),
+              -np.exp(rng.uniform(-6.0, 0.0, shape))), 1e-3)}
 
 
 @pytest.mark.cuda
@@ -401,6 +409,31 @@ def test_gla_kernel_strong_decay_stays_finite(mode, decay):
     draw, tol = DECAYS[decay]
     lw = torch.from_numpy(draw(rng, (B, T, H, K)).astype(np.float32)).cuda()
     u = 0.3 * torch.ones(H, K, device="cuda") if mode == "rwkv" else None
+    o, s = gla_scan(q, k, v, lw, u=u, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    tr = lambda x: x.transpose(1, 2)
+    ro, rs = gla_scan_reference(tr(q), tr(k), tr(v), tr(lw), u=u, mode=mode)
+    np.testing.assert_allclose(_np(o), _np(tr(ro)), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(s), _np(rs), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,K,V", GLA_SHAPES)
+@pytest.mark.parametrize("mode", ["ssd", "rwkv"])
+@pytest.mark.parametrize("decay", list(DECAYS))
+def test_gla_f32_kernel_holds_the_exact_scan_at_every_decay_on_card(
+        B, T, H, K, V, mode, decay):
+    """The float32 kernel against the token-by-token scan at the sweep
+    shapes, at every decay including RWKV6's floor (sub-chunk-local
+    cumulative sums, the read decay formed before the token's own)."""
+    _cuda_or_skip()
+    assert gla_route(torch.float32, K, V)[0] == "fma"
+    rng = np.random.default_rng(13)
+    q, k, v = _inputs(rng, "float32", (B, T, H, K), (B, T, H, K), (B, T, H, V))
+    draw, tol = DECAYS[decay]
+    lw = torch.from_numpy(draw(rng, (B, T, H, K)).astype(np.float32)).cuda()
+    u = _inputs(rng, "float32", (H, K))[0] * 0.3 if mode == "rwkv" else None
     o, s = gla_scan(q, k, v, lw, u=u, mode=mode)
     torch.cuda.synchronize()
     assert torch.isfinite(o).all() and torch.isfinite(s).all()
@@ -583,3 +616,111 @@ def test_rwkv_served_through_the_kernel_on_card():
     n_pre = sum(l.kind == "prefill" for l in engine.logs)
     assert len(done) == 3 and n_pre == 3
     assert gla_scan.launches - n == cfg.n_layers * n_pre
+
+
+# ---------------------------------------------------------------------------
+# the simulated path's tensor work on the card, against the CPU
+# ---------------------------------------------------------------------------
+
+EQ1_RTOL = 5e-6     # repro_torch.core.power.DEVICE_MODE_RTOL
+
+
+def _on_card_and_cpu(fn):
+    return fn("cuda"), fn("cpu")
+
+
+@pytest.mark.cuda
+def test_simulated_path_eq1_to_eq3_on_card():
+    """Eq. 1 power and the Eq. 2-3 report of Table 1a's run: the card's
+    float32 pow within 5e-6 of the CPU's, float32 on the card."""
+    _cuda_or_skip()
+    from repro_torch import core, sim
+    res = sim.run_simulation(sim.PAPER_DEFAULT)
+    p = core.PowerModel("a100", torch_device="cuda").power(res.stages.mfu)
+    assert p.device.type == "cuda" and p.dtype == torch.float32
+    want = core.PowerModel("a100", torch_device="cpu").power(res.stages.mfu)
+    np.testing.assert_allclose(p.cpu().numpy(), want.numpy(), rtol=EQ1_RTOL)
+    card, cpu = _on_card_and_cpu(
+        lambda dev: sim.energy_report(res, sim.PAPER_PUE, torch_device=dev))
+    for k, v in vars(cpu).items():
+        np.testing.assert_allclose(vars(card)[k], v, rtol=EQ1_RTOL, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_microgrid_loop_on_card_matches_cpu(seed):
+    """The float32 step loop on the card against the CPU's: every operation
+    is an IEEE float32 add, multiply, min or max, so the traces agree bit for
+    bit."""
+    _cuda_or_skip()
+    from repro_torch import core
+    rng = np.random.default_rng(seed)
+    load, solar, ci = (rng.uniform(0, s, 600) for s in (600.0, 800.0, 800.0))
+    cfg = core.MicrogridConfig(battery=core.BatteryConfig(
+        capacity_wh=100.0, soc_init=0.5, soc_min=0.2, soc_max=0.8))
+    card, cpu = _on_card_and_cpu(
+        lambda dev: core.simulate(load, solar, ci, cfg, torch_device=dev))
+    for k, v in cpu.items():
+        assert card[k].device.type == "cuda" and card[k].dtype == torch.float32
+        np.testing.assert_array_equal(card[k].cpu().numpy(), v.numpy(), err_msg=k)
+
+
+@pytest.mark.cuda
+def test_table2_cosim_and_fleet_on_card_match_cpu():
+    """A co-sim over Table 1a's load and a two-site fleet with a microgrid,
+    card against CPU: metrics within 5e-6, assignments bitwise."""
+    _cuda_or_skip()
+    from repro_torch import core, fleet, sim
+    from repro_torch.configs.paper_models import LLAMA3_8B
+    from repro_torch.core import datasets
+    res = sim.run_simulation(sim.PAPER_DEFAULT)
+
+    def cosim(dev):
+        pm = core.PowerModel("a100", torch_device=dev)
+        load = core.trace_to_load_signal(res.stages, pm, pue=1.2)
+        hours = load.times[-1] / 3600.0 + 1.0
+        return core.run_cosim(load, datasets.solar_signal(hours, seed=3),
+                              datasets.carbon_intensity_signal(hours, seed=4),
+                              torch_device=dev)
+
+    card, cpu = _on_card_and_cpu(cosim)
+    for k, v in cpu.metrics.items():
+        np.testing.assert_allclose(float(card.metrics[k]), float(v),
+                                   rtol=EQ1_RTOL, err_msg=k)
+    cfg = fleet.FleetConfig(model=LLAMA3_8B, sites=tuple(
+        fleet.SiteConfig(name=t, ci_trace=t,
+                         scheduler=sim.SchedulerConfig(batch_cap=16),
+                         solar_capacity_w=600.0 * (t == "hydro"),
+                         battery_capacity_wh=100.0 * (t == "hydro"))
+        for t in ("hydro", "coal")), router="carbon_greedy",
+        workload=sim.WorkloadConfig(n_requests=48, qps=5.0, min_len=64,
+                                    max_len=512))
+    card, cpu = _on_card_and_cpu(
+        lambda dev: fleet.run_fleet_simulation(cfg, torch_device=dev))
+    np.testing.assert_array_equal(card.assignments, cpu.assignments)
+    got = card.summary()
+    for k, v in cpu.summary().items():
+        np.testing.assert_allclose(got[k], v, rtol=EQ1_RTOL,
+                                   atol=EQ1_RTOL * 100 * k.endswith("_pct"),
+                                   err_msg=k)
+
+
+@pytest.mark.cuda
+def test_roofline_torch_backend_on_card():
+    """The roofline in float64 on the card, over Table 1a's stages: within
+    1e-5 of the numpy path (``TORCH_BACKEND_RTOL``)."""
+    _cuda_or_skip()
+    import dataclasses
+
+    from repro_torch import sim
+    from repro_torch.sim.execmodel import (TORCH_BACKEND_RTOL, StageBatch,
+                                           cached_execution_model)
+    cfg = sim.PAPER_DEFAULT
+    res = sim.run_simulation(cfg)
+    em = cached_execution_model(cfg.model, cfg.device, 1, 1, cfg.execmodel)
+    batch = StageBatch.from_trace(res.stages)
+    want = em.stage_cost_batch(batch)
+    got = em.stage_cost_batch(batch, backend="torch", torch_device="cuda")
+    for f in dataclasses.fields(want):
+        np.testing.assert_allclose(getattr(got, f.name), getattr(want, f.name),
+                                   rtol=TORCH_BACKEND_RTOL, err_msg=f.name)

@@ -42,8 +42,15 @@ cumulative sums loses digits where the floor sits beside weak decays; the
 mirror against the exact scan, and assert that the Pallas kernel's output
 leaves the tolerance there.
 
-The mirror lives here only: nothing on the port's main path calls it.
+The float32 kernel (``gla_scan_kernel``: 32-token chunks, each two
+sub-chunks of 16 whose cumulative sums start afresh, natural-log decays
+clamped at -64 ln 2) has its own mirror, ``f32_kernel_scan``. Both it and
+the plain chunked scan ``gla_chunked`` are held against the exact scan at
+every decay; neither subtracts chunk-wide cumulative sums any more.
+
+The mirrors live here only: nothing on the port's main path calls them.
 """
+import math
 import re
 from pathlib import Path
 
@@ -54,7 +61,7 @@ import torch
 
 from repro.kernels.gla_scan import gla_scan as jax_gla_scan
 from repro_torch.kernels.gla_scan import ops as gla_ops
-from repro_torch.models.linear_attention import gla_reference
+from repro_torch.models.linear_attention import gla_chunked, gla_reference
 
 LOG2E = 1.4426950408889634
 C = 64      # tokens per chunk of the bf16 kernel
@@ -184,6 +191,59 @@ def design_scan(q, k, v, log_w, u=None, mode="ssd", bf16=False, split=True):
     return rnd(o), s, top[0]
 
 
+F32_CHUNK, F32_SUB = 32, 16       # the float32 kernel's chunk and sub-chunk
+LW_FLOOR = -64.0 * math.log(2.0)  # its per-token clamp, in natural log
+
+
+def f32_kernel_scan(q, k, v, log_w, u=None, mode="ssd"):
+    """The float32 kernel's arithmetic in plain torch, model layout. Per
+    chunk: local inclusive sums ``ll``, read sums ``lr`` (the sum before the
+    token's own decay for rwkv), exclusive suffixes ``suf`` and totals
+    ``tot`` of each sub-chunk; pairs inside a sub-chunk take ``lr - ll``,
+    pairs from the first to the second ``lr + suf``."""
+    B, T, H, K = q.shape
+    V = v.shape[-1]
+    nc = -(-T // F32_CHUNK)
+    pad = nc * F32_CHUNK - T
+
+    def chunks(x):  # (B, T, H, .) -> (B, H, nc, C, .); past T: 0
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+        return x.reshape(B, nc, F32_CHUNK, H, -1).permute(0, 3, 1, 2, 4)
+
+    qc, kc, vc, lc = map(chunks, (q, k, v, log_w))
+    lc = torch.clamp(lc, min=LW_FLOOR)
+    sub = torch.arange(F32_CHUNK) // F32_SUB
+    t_idx = torch.arange(F32_CHUNK)
+    keep = (t_idx[:, None] > t_idx[None, :]) if mode == "rwkv" \
+        else (t_idx[:, None] >= t_idx[None, :])
+    cross = (sub[:, None] == 1) & (sub[None, :] == 0)
+    s, outs = torch.zeros(B, H, K, V), []
+    for c in range(nc):
+        qb, kb, vb = qc[:, :, c], kc[:, :, c], vc[:, :, c]
+        ls = lc[:, :, c].reshape(B, H, 2, F32_SUB, K)
+        ll = torch.cumsum(ls, 3)
+        lr = torch.nn.functional.pad(ll[..., :-1, :], (0, 0, 1, 0)) \
+            if mode == "rwkv" else ll
+        tot = ll[..., -1, :]                                   # (B, H, 2, K)
+        suf = torch.flip(torch.cumsum(torch.flip(ls, [3]), 3), [3])
+        suf = torch.nn.functional.pad(suf[..., 1:, :], (0, 0, 0, 1))
+        ll, lr, suf = (x.reshape(B, H, F32_CHUNK, K) for x in (ll, lr, suf))
+        e = torch.where(cross[:, :, None], lr[:, :, :, None] + suf[:, :, None],
+                        lr[:, :, :, None] - ll[:, :, None])
+        e = torch.where(keep[:, :, None], e, -float("inf"))
+        att = torch.einsum("bhtk,bhjk,bhtjk->bhtj", qb, kb, torch.exp(e))
+        o = att @ vb
+        if mode == "rwkv":
+            o = o + torch.einsum("bhtk,hk,bhtk->bht", qb, u, kb)[..., None] * vb
+        lread = lr + torch.where(sub[:, None] == 1, tot[:, :, :1], 0.0)
+        o = o + (qb * torch.exp(lread)) @ s
+        k_dec = kb * torch.exp(suf + torch.where(sub[:, None] == 0, tot[:, :, 1:], 0.0))
+        s = torch.exp(tot.sum(2))[..., None] * s + k_dec.transpose(2, 3) @ vb
+        outs.append(o)
+    o = torch.stack(outs, 2).reshape(B, H, nc * F32_CHUNK, V)[:, :, :T]
+    return o.transpose(1, 2), s
+
+
 def _inputs(seed, B, T, H, K, V, mode, decay, dtype=torch.float32):
     """numpy draws: normal q/k/v rounded to ``dtype``, float32 log w, a
     bonus u for rwkv."""
@@ -279,3 +339,32 @@ def test_design_single_bf16_roundings_miss_the_bf16_tolerance(mode):
         o, _, _ = design_scan(q, k, v, lw, u=u, mode=mode, bf16=True, split=split)
         excess[split] = float(((o - ro).abs() - 5e-2 * ro.abs()).max())
     assert excess[True] <= 5e-2 < excess[False]
+
+
+@pytest.mark.parametrize("B,T,H,K,V", SHAPES)
+@pytest.mark.parametrize("mode", ["ssd", "rwkv"])
+@pytest.mark.parametrize("decay", list(TOL))
+def test_chunked_scans_match_the_exact_scan(B, T, H, K, V, mode, decay):
+    """``gla_chunked`` (RWKV6's einsum prefill) and the float32 kernel's
+    mirror hold the exact scan at every decay, RWKV6's floor included,
+    outputs and final state. The reference's ``gla_chunked`` misses it at
+    ``clamp`` (rwkv: max |do| 3.55 at T = 130) and ``mixed``; the port's
+    agrees with the reference's at ``sweep`` decays
+    (``tests/test_torch_rwkv.py``)."""
+    q, k, v, lw, u = _inputs(5, B, T, H, K, V, mode, decay)
+    tol = dict(rtol=TOL[decay], atol=TOL[decay])
+    ro, rs = gla_reference(q, k, v, lw, u=u, mode=mode)
+    for o, s in (gla_chunked(q, k, v, lw, u=u, mode=mode),
+                 f32_kernel_scan(q, k, v, lw, u=u, mode=mode)):
+        assert torch.isfinite(o).all() and torch.isfinite(s).all()
+        np.testing.assert_allclose(o.numpy(), ro.numpy(), **tol)
+        np.testing.assert_allclose(s.numpy(), rs.numpy(), **tol)
+
+
+def test_f32_mirror_tiles_are_the_kernels():
+    """The float32 mirror's chunk, sub-chunk and clamp are the kernel's."""
+    src = (Path(gla_ops.__file__).parent / "csrc" / "gla_scan.cu").read_text()
+    tile = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert (tile("CHUNK"), tile("SUB32")) == (F32_CHUNK, F32_SUB)
+    floor = float(re.search(r"LW_FLOOR = (-[\d.]+)f;", src)[1])
+    assert floor == pytest.approx(LW_FLOOR, rel=1e-12)

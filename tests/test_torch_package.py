@@ -77,3 +77,54 @@ def test_power_matches_reference(name):
     got = power(mfu, DEVICES[name]).numpy()
     assert got.dtype == want.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=5e-6, atol=0)
+
+
+def _simulated_path_calls():
+    """Each public function of the simulated path that computes with torch,
+    called with its ``torch_device`` left at ``None`` (the card)."""
+    import types
+
+    from repro_torch import core, fleet, sim
+    from repro_torch.configs.paper_models import LLAMA3_8B
+    trace = types.SimpleNamespace(start_s=np.zeros(2), dur_s=np.ones(2),
+                                  mfu=np.full(2, 0.3))
+    ci = core.datasets.ci_trace_signal("caiso", 1.0)
+    em = sim.ExecutionModel(LLAMA3_8B, core.DEVICES["a100"])
+    res = sim.SimResult(stages=sim.StageTraceBuilder().build(), requests=[],
+                        cfg=sim.PAPER_DEFAULT)
+    fleet_cfg = fleet.FleetConfig(model=LLAMA3_8B, sites=(
+        fleet.SiteConfig(name="a"), fleet.SiteConfig(name="b")),
+        workload=sim.WorkloadConfig(n_requests=4))
+    return {
+        "PowerModel.power": lambda: core.PowerModel("a100").power([0.1]),
+        "PowerModel.energy_wh": lambda: core.PowerModel("h100").energy_wh([0.1], [1.0]),
+        "energy_report": lambda: sim.energy_report(res),
+        "stage_attributed_carbon": lambda: core.stage_attributed_carbon(
+            trace, core.PowerModel("a100"), 1, 1.2, ci),
+        "trace_to_load_signal": lambda: core.trace_to_load_signal(
+            trace, core.PowerModel("a100")),
+        "microgrid.simulate": lambda: core.simulate(
+            np.ones(3), np.ones(3), np.ones(3), core.MicrogridConfig()),
+        "run_cosim": lambda: core.run_cosim(ci, ci, ci),
+        "run_fleet_simulation": lambda: fleet.run_fleet_simulation(fleet_cfg),
+        "stage_cost_batch(torch)": lambda: em.stage_cost_batch(
+            sim.StageBatch(*np.ones((4, 2))), backend="torch"),
+    }
+
+
+SIMULATED_PATH = ["PowerModel.power", "PowerModel.energy_wh", "energy_report",
+                  "stage_attributed_carbon", "trace_to_load_signal",
+                  "microgrid.simulate", "run_cosim", "run_fleet_simulation",
+                  "stage_cost_batch(torch)"]
+
+
+@pytest.mark.parametrize("name", SIMULATED_PATH)
+def test_simulated_path_raises_without_a_card(monkeypatch, name):
+    """The simulated path's torch work runs on the card unless the caller
+    passes ``torch_device="cpu"``; without a card it raises, never falls
+    back to the host. ``run_simulation`` itself is host code."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = _simulated_path_calls()
+    assert sorted(calls) == sorted(SIMULATED_PATH)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[name]()
