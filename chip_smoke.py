@@ -7,7 +7,7 @@ Phases, each printing its lines; any failure exits non-zero and prints no
 result:
 
 1. card: name and power limit (nvidia-smi), device name and count; TF32 off;
-2. build: the three CUDA kernels with nvcc (``repro_torch.kernels._build``),
+2. build: the four CUDA kernels with nvcc (``repro_torch.kernels._build``),
    with ptxas' registers, shared memory and spills per kernel, and the
    kernel (and dynamic shared memory) that ``flash_attention``,
    ``decode_attention`` and ``gla_scan`` pick for each dtype and width;
@@ -29,7 +29,11 @@ result:
    float32 gla_scan kernel runs at RWKV6's decay floor too (``clamp``: every
    token at -exp(10); ``floor``: the floor or a weak decay per token and
    channel) against the token-by-token scan at 1e-3, and is timed at
-   RWKV6's served shape;
+   RWKV6's served shape; ``microgrid_scan`` (the co-sim's steps in one
+   launch) is held bit for bit against its plain step loop (Table 2's
+   trace, seeded random loads under four batteries, no battery, a batch
+   of traces, T = 0, traces longer than one shared-memory window) and
+   timed at Table 2's 1800 steps beside its bound and the serial chain's;
 4. Llama-3-8B at full width served through the launcher
    (``repro_torch.launch.serve.main``);
 5. the main path: Llama-3-8B at full width served by ``ServingEngine`` with
@@ -54,7 +58,14 @@ result:
    stages, each held against the same call on the CPU in this process
    (Eq. 1 quantities at 5e-6, the roofline at 1e-5, host columns bitwise);
    it prints the Table 2 metrics, wall times on the card and on the CPU,
-   and the launches of the microgrid loop on the card.
+   and the co-sim's device operations (one ``microgrid_scan`` launch);
+12. the sweep engine: all twelve ``--smoke`` sweeps of
+   ``repro_torch.sweep.scenarios`` in vectorized mode, and fig1, fig3,
+   fig4, exp5 and perf in device mode, on the card and on the CPU in this
+   process, held card against CPU with ``repro_torch.obs.diff`` (host
+   columns bitwise, Eq. 1 and co-sim columns within ``DEVICE_MODE_RTOL``;
+   a ``regression`` fails); it prints each sweep's scenarios, wall times
+   and cells by contract.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Weights are random, drawn
@@ -119,6 +130,10 @@ SEQ_TOL = 2e-2
 ROW_TOL = 3e-2
 # gla_scan: the tolerances of tests/test_kernels.py::test_gla_scan_sweep
 GLA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (5e-2, 5e-2)}
+MICROGRID_REPLACES = "src/repro/core/microgrid.py:45 (simulate, lax.scan)"
+MICROGRID_SOURCE = "src/repro_torch/kernels/microgrid_scan/csrc/microgrid_scan.cu"
+# dependent float32 operations that carry soc_wh from one step to the next
+MICROGRID_CHAIN_OPS = 8
 
 
 def fail(msg: str):
@@ -660,7 +675,111 @@ def phase_kernels() -> dict:
     row = gla_case(1, 2048, 64, 64, 64, "ssd", bf16, gen,
                    lw_dtype=torch.float32, timed=True)
     print(f"gla ssd B=1 T=2048 H=64 K=V=64: {fmt(row)}")
+    rows["microgrid"] = microgrid_cases()
     return rows
+
+
+def equal_nan(a, b) -> bool:
+    """``torch.equal`` with NaN equal to NaN (in the same places)."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(nan_a, nan_b)) and bool(torch.equal(
+        torch.where(nan_a, 0.0, a), torch.where(nan_b, 0.0, b)))
+
+
+def microgrid_inputs(T: int, seed: int, B: int = 1):
+    """Seeded random (B, T) load, solar and CI traces on the card, as
+    ``tests/test_torch_core.py::_grid_inputs`` draws them."""
+    rng = np.random.default_rng(seed)
+    draw = lambda lo, hi: torch.as_tensor(
+        rng.uniform(lo, hi, (B, T)), dtype=torch.float32, device="cuda")
+    return draw(0, 600.0), draw(0, 800.0), draw(50, 800.0)
+
+
+def table2_inputs():
+    """Table 2's co-sim inputs as ``core.run_cosim`` hands them to the
+    scan (the stage log of ``run_simulation(PAPER_DEFAULT)`` as a 60 s
+    load, solar and CI on its grid), from a CPU run, and its config."""
+    from repro_torch import sim
+    res = sim.run_simulation(sim.PAPER_DEFAULT)
+    cos = table2_cosim(res, "cpu")
+    return [torch.as_tensor(np.asarray(x, np.float32)[None], device="cuda")
+            for x in (cos.load.values, cos.solar.values, cos.ci.values)]
+
+
+def microgrid_cases() -> dict:
+    """``microgrid_scan`` against its plain step loop on the card, held
+    with ``equal_nan`` (bit for bit): Table 2's trace, seeded random
+    loads under four batteries, no battery, a batch of traces, T = 0,
+    and traces longer than one shared-memory window. Returns the Table 2
+    row, timed."""
+    from repro_torch import core
+    from repro_torch.core.microgrid import constants
+    from repro_torch.kernels.microgrid_scan import (microgrid_scan,
+                                                    microgrid_scan_reference)
+    from repro_torch.kernels.microgrid_scan.ops import window_steps
+    print("-- microgrid_scan against its plain step loop (torch.equal, NaN "
+          "in the same places); no PyTorch call computes this scan, so "
+          "library_ms is none")
+    battery = lambda **kw: core.MicrogridConfig(battery=core.BatteryConfig(**kw))
+    table1b = battery(capacity_wh=100.0, soc_init=0.5, soc_min=0.2, soc_max=0.8)
+    grids = {"default": core.MicrogridConfig(), "table1b": table1b,
+             "slow-5min": core.MicrogridConfig(
+                 step_s=300.0, battery=core.BatteryConfig(
+                     capacity_wh=500.0, soc_init=0.2, max_charge_w=150.0,
+                     max_discharge_w=90.0, efficiency=0.9)),
+             "no-battery": battery(capacity_wh=0.0)}
+    window = window_steps()
+
+    def case(label, inputs, cfg):
+        k = constants(cfg)
+        n0 = microgrid_scan.launches
+        out = microgrid_scan(*inputs, k)
+        torch.cuda.synchronize()
+        launched = microgrid_scan.launches - n0
+        if launched != (1 if out.numel() else 0):
+            fail(f"microgrid_scan {label}: {launched} launches")
+        ref = microgrid_scan_reference(*inputs, k)
+        if out.shape != ref.shape or not equal_nan(out, ref):
+            diff = (out - ref).abs().nan_to_num(float("inf"))
+            fail(f"microgrid_scan {label}: kernel differs from the plain loop "
+                 f"(max |diff| {float(diff.max(initial=0.0)):.3e})")
+        print(f"microgrid {label}: B={inputs[0].shape[0]} "
+              f"T={inputs[0].shape[1]} equal=True launches={launched} "
+              f"nan_soc={bool(torch.isnan(out[0]).any())}")
+        return out, ref, k
+
+    t2 = table2_inputs()
+    out, ref, k = case("table2", t2, table1b)
+    for seed in range(2):
+        for name, cfg in grids.items():
+            case(f"random seed={seed} {name}", microgrid_inputs(1800, seed), cfg)
+    case("batch of 3", microgrid_inputs(window + 5, 7, B=3), grids["default"])
+    case("T=0", microgrid_inputs(0, 0), table1b)
+    case(f"T=2x{window}+123 (three windows)",
+         microgrid_inputs(2 * window + 123, 9), grids["default"])
+    case(f"T=2x{window}+123 no battery",
+         microgrid_inputs(2 * window + 123, 10), grids["no-battery"])
+
+    T = t2[0].shape[1]
+    kernel = lambda: microgrid_scan(*t2, k)
+    # bytes: three float32 inputs read and seven traces written once per
+    # step; operations: ~25 float32 operations per step
+    nbytes, flops = 4 * T * (3 + 7), 25 * T
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = ((t_ops, "operations") if t_ops >= t_bytes
+                          else (t_bytes, "bytes"))
+    sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    row = {"max_abs_err": 0.0, "path": "cuda",
+           "ms": time_ms(kernel, 50), "graph_ms": graph_ms(kernel),
+           "plain_ms": time_ms(lambda: microgrid_scan_reference(*t2, k), 2,
+                               warmup=1),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           # the serial chain: 8 dependent float32 operations of ~4
+           # cycles per step, at the card's maximum SM clock
+           "chain_ms": T * MICROGRID_CHAIN_OPS * 4 / (sm_mhz * 1e3)}
+    print(f"microgrid table2 B=1 T={T}: {fmt(row)} chain_ms="
+          f"{row['chain_ms']:.4f} (serial chain at {sm_mhz:.0f} MHz)")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -671,8 +790,10 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gla_scan import gla_scan
+    from repro_torch.kernels.microgrid_scan import microgrid_scan
     return {"flash_attention": flash_attention,
-            "decode_attention": decode_attention, "gla_scan": gla_scan}
+            "decode_attention": decode_attention, "gla_scan": gla_scan,
+            "microgrid_scan": microgrid_scan}
 
 
 def reset_counts():
@@ -1100,16 +1221,23 @@ def phase_simulated():
     for k, v in cosim["cpu"].metrics.items():
         close(cosim["cuda"].metrics[k], v, DEVICE_MODE_RTOL, f"Table 2 {k}")
     steps = len(cosim["cuda"].load.times)
+    from repro_torch.kernels.microgrid_scan import microgrid_scan
+    n0 = microgrid_scan.launches
     ops, busy_ms, wall_ms = device_ops(lambda: table2_cosim(res, "cuda"))
+    if microgrid_scan.launches - n0 != 1:
+        fail(f"Table 2 co-sim: {microgrid_scan.launches - n0} microgrid_scan "
+             "launches, expected 1")
     m = cosim["cuda"].metrics
     print("Table 2 co-sim (30 h at 60 s, 600 W solar, 100 Wh battery): "
           + " ".join(f"{k}={float(m[k])!r}" for k in (
               "carbon_offset_pct", "renewable_share_pct", "net_emissions_kg",
               "total_energy_kwh", "grid_dependency_pct")))
-    print(f"microgrid loop on the card: {steps} steps, {ops} device "
-          f"operations in the co-sim call ({ops / steps:.1f} per step), "
-          f"device busy {busy_ms:.2f} ms of {wall_ms:.1f} ms traced wall "
-          f"(idle {1 - busy_ms / wall_ms:.1%})")
+    print(f"microgrid scan on the card: {steps} steps in 1 microgrid_scan "
+          f"launch; {ops} device operations in the co-sim call (the earlier "
+          f"eager step loop: 46,939), device busy {busy_ms:.2f} ms of "
+          f"{wall_ms:.1f} ms traced wall (idle {1 - busy_ms / wall_ms:.1%}); "
+          f"untraced wall {times['table2_cuda']:.4f} s (the earlier eager "
+          f"step loop: 0.7065 s), CPU {times['table2_cpu']:.4f} s")
 
     fleets = {}
     for dev in ("cuda", "cpu"):
@@ -1145,11 +1273,100 @@ def phase_simulated():
           f"|diff| {worst:.3e} against numpy")
 
     launched = {k: fn.launches for k, fn in kernel_wrappers().items()}
-    if any(launched.values()):
-        fail(f"the simulated path launched kernels: {launched}")
+    others = {k: n for k, n in launched.items() if k != "microgrid_scan"}
+    if any(others.values()) or not launched["microgrid_scan"]:
+        fail(f"the simulated path's launches: {launched}; expected "
+             "microgrid_scan only")
     print("wall s, card vs CPU: " + " ".join(
         f"{k}={v:.4f}" for k, v in sorted(times.items())))
-    print(f"kernel launches in phase 11: {launched} (no kernel on this path)")
+    print(f"kernel launches in phase 11: {launched} (microgrid_scan only)")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the sweep engine
+# ---------------------------------------------------------------------------
+
+# the smoke sweeps that phase 12 runs in device mode too
+DEVICE_MODE_SWEEPS = ("fig1", "fig3", "fig4", "exp5", "perf")
+
+
+def check_sweep(name: str, mode: str, card: list, cpu: list) -> dict:
+    """Classify the card's records against the CPU's with the port's
+    ``obs.diff`` and fail unless every column the host computes is
+    bitwise equal and every other column (Eq. 1, energy, carbon and the
+    co-sim, and in device mode the program's float64 reductions of
+    duration and GPU hours) lies within ``DEVICE_MODE_RTOL``; returns the
+    cells' counts by contract."""
+    from repro_torch.core.power import DEVICE_MODE_RTOL
+    from repro_torch.obs.diff import column_phase, diff_records
+    res = diff_records(cpu, card, label_a="cpu", label_b="cuda")
+    if res.only_a or res.only_b or len(card) != len(cpu):
+        fail(f"sweep {name} ({mode}): records do not align between card "
+             f"and CPU: {len(res.only_a)} only on the CPU, "
+             f"{len(res.only_b)} only on the card")
+    for c in res.cells:
+        on_device = (column_phase(c.column) in ("power", "energy", "carbon")
+                     or (mode == "device"
+                         and c.column in ("duration_s", "gpu_hours")))
+        if c.contract == "regression" or c.rel > DEVICE_MODE_RTOL \
+                or not on_device:
+            fail(f"sweep {name} ({mode}), card against CPU: {c.format()}")
+    counts = res.by_contract()
+    counts["host-bitwise"] = res.n_compared - len(res.cells)
+    return counts
+
+
+def phase_sweeps() -> int:
+    """The port's sweep engine: all twelve smoke sweeps through
+    ``run_sweep`` (vectorized mode), and the device-mode ones again in
+    device mode, on the card and on the CPU in this process, card held
+    against CPU. Returns microgrid_scan's launches in the card's runs."""
+    from repro_torch.sweep.scenarios import SWEEPS, run_sweep
+    print("== phase 12: the sweep engine, all smoke sweeps (vectorized; "
+          f"device mode for {', '.join(DEVICE_MODE_SWEEPS)}), card against "
+          "CPU (host columns bitwise, Eq. 1 and co-sim columns within "
+          "DEVICE_MODE_RTOL)")
+    for dev in ("cuda", "cpu"):      # load each device's modules untimed
+        run_sweep("fig1", smoke=True, torch_device=dev)
+    reset_counts()
+    launches = dict.fromkeys(kernel_wrappers(), 0)
+    runs = [(name, "vectorized") for name in SWEEPS]
+    runs += [(name, "device") for name in DEVICE_MODE_SWEEPS]
+    for name, mode in runs:
+        out, wall = {}, {}
+        for dev in ("cuda", "cpu"):
+            before = {k: fn.launches for k, fn in kernel_wrappers().items()}
+            t = time.perf_counter()
+            out[dev] = run_sweep(name, smoke=True, mode=mode,
+                                 torch_device=dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            wall[dev] = time.perf_counter() - t
+            for k, fn in kernel_wrappers().items():
+                if dev == "cuda":
+                    launches[k] += fn.launches - before[k]
+                elif fn.launches != before[k]:
+                    fail(f"sweep {name} on the CPU launched {k}")
+        records, stats, derived = out["cuda"]
+        counts = check_sweep(name, mode, records, out["cpu"][0])
+        if name == "day" and not all(
+                "plans_match=True" in d and "exact_bitwise=True" in d
+                for d in (derived, out["cpu"][2])):
+            fail(f"day: hybrid and event_loop disagree: card {derived!r}, "
+                 f"CPU {out['cpu'][2]!r}")
+        if derived != out["cpu"][2]:
+            print(f"  note: {name} derived lines differ: card {derived!r} "
+                  f"CPU {out['cpu'][2]!r}")
+        print(f"sweep {name} {mode}: {len(records)} scenarios, "
+              f"{stats.trace_groups} trace groups; wall card "
+              f"{wall['cuda']:.4f} s, CPU {wall['cpu']:.4f} s; cells by "
+              f"contract {counts}; derived: {derived}")
+    others = {k: n for k, n in launches.items() if k != "microgrid_scan"}
+    print(f"kernel launches in phase 12 (card runs): {launches}")
+    if any(others.values()) or not launches["microgrid_scan"]:
+        fail(f"the sweep engine's launches: {launches}; expected "
+             "microgrid_scan only")
+    return launches["microgrid_scan"]
 
 
 def full_width(name: str):
@@ -1174,7 +1391,7 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1218,17 +1435,24 @@ def main():
         torch.cuda.empty_cache()
     if 11 in phases:
         phase_simulated()
+    microgrid_launches = phase_sweeps() if 12 in phases else 0
     print(f"chip_smoke phases {sorted(phases)} passed in "
           f"{time.perf_counter() - t0:.1f} s")
-    if rows and counts and rwkv_counts:
-        kernels = [
+    kernels = []
+    if rows and counts:
+        kernels += [
             kernel_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,
                          counts["flash_attention"], rows["flash_S2048"]),
             kernel_entry("decode_attention", DECODE_SOURCE, DECODE_REPLACES,
-                         counts["decode_attention"], rows["decode"]),
-            kernel_entry("gla_scan", GLA_SOURCE, GLA_REPLACES,
-                         rwkv_counts["gla_scan"], rows["gla_T2048"]),
-        ]
+                         counts["decode_attention"], rows["decode"])]
+    if rows and rwkv_counts:
+        kernels.append(kernel_entry("gla_scan", GLA_SOURCE, GLA_REPLACES,
+                                    rwkv_counts["gla_scan"], rows["gla_T2048"]))
+    if rows and microgrid_launches:
+        kernels.append(kernel_entry("microgrid_scan", MICROGRID_SOURCE,
+                                    MICROGRID_REPLACES, microgrid_launches,
+                                    rows["microgrid"]))
+    if kernels:
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))
 

@@ -1,4 +1,4 @@
-"""Vessim-analogue microgrid co-simulation as a torch step loop.
+"""Vessim-analogue microgrid co-simulation, one kernel launch per run.
 
 Actors (load, solar), a battery with SoC constraints (the ``ClcBattery``
 analogue), and a grid connection are stepped at fixed resolution
@@ -11,28 +11,31 @@ Power-flow convention per step (all W, averaged over the step):
   surplus < 0: discharge battery (down to SoC-min), import remainder
 
 Counterpart of ``repro.core.microgrid``. The reference's ``lax.scan`` runs
-in float32 (x64 is off), so this loop does too: inputs, state and every
+in float32 (x64 is off), so this scan does too: inputs, state and every
 constant are float32, on ``torch_device``. XLA compiles the reference's
 step with each division by a constant turned into a product with its
 float32 reciprocal and the constants of a chain folded into one
-(``room / dt_h / eff`` is ``room * ((1 / dt_h) * (1 / eff))``); the loop
-takes the same folded constants. Its traces agree with the reference's
-within 1e-5 of their largest value on the CPU, most steps bit for bit
-(the compiled scan still rounds some steps apart, and a battery decision
-that flips on a one-ulp SoC difference moves its step by more). Each step
-is 26 tensor operations of one element, one launch each on the card: the
-loop is bound by launches, not by the device. ``summarize`` is
-numpy, as in the reference.
+(``room / dt_h / eff`` is ``room * ((1 / dt_h) * (1 / eff))``); the scan
+takes the same folded constants (``constants``). Its traces agree with the
+reference's within 1e-5 of their largest value on the CPU, most steps bit
+for bit (the compiled scan still rounds some steps apart, and a battery
+decision that flips on a one-ulp SoC difference moves its step by more).
+The steps run in ``kernels.microgrid_scan``: on the card one launch of its
+CUDA kernel walks the whole trace, on the CPU its plain step loop does;
+the two agree bit for bit on one device. ``summarize`` is numpy, as in the
+reference.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.microgrid_scan.ops import microgrid_scan
+from repro_torch.kernels.microgrid_scan.ref import TRACE_KEYS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,8 +57,24 @@ class MicrogridConfig:
     ci_threshold_high: float = 200.0
 
 
-TRACE_KEYS = ("soc", "grid_import_w", "grid_export_w", "charge_w",
-              "discharge_w", "emissions_g", "solar_used_w")
+def constants(cfg: MicrogridConfig) -> Tuple[np.float32, ...]:
+    """The scan's float32 constants, folded as XLA folds the reference's,
+    in the order of ``kernels.microgrid_scan.ops.CONSTANTS``."""
+    b = cfg.battery
+    f32 = np.float32
+    one, dt_h = f32(1.0), f32(cfg.step_s / 3600.0)
+    eff = np.sqrt(f32(b.efficiency))
+    with np.errstate(divide="ignore"):              # no battery: soc is nan
+        k_soc = one / f32(b.capacity_wh)            # soc_wh / capacity_wh
+    return (f32(b.soc_init * b.capacity_wh),        # soc_wh at step 0
+            f32(b.soc_max * b.capacity_wh), f32(b.soc_min * b.capacity_wh),
+            f32(b.max_charge_w), f32(b.max_discharge_w),
+            (one / dt_h) * (one / eff),             # room / dt_h / eff
+            eff * (one / dt_h),                     # avail * eff / dt_h
+            eff * dt_h,                             # charge * eff * dt_h
+            (one / eff) * dt_h,                     # discharge / eff * dt_h
+            dt_h * (one / f32(1000.0)),             # import * dt_h / 1000
+            k_soc)
 
 
 def simulate(load_w, solar_w, ci, cfg: MicrogridConfig,
@@ -65,43 +84,10 @@ def simulate(load_w, solar_w, ci, cfg: MicrogridConfig,
 
     Returns the per-step traces, float32 tensors of shape (T,) there."""
     dev = resolve_device(torch_device)
-    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
-    load_w, solar_w, ci = f32(load_w), f32(solar_w), f32(ci)
-    b = cfg.battery
-    # the reference's constants in float32, folded as XLA folds them
-    one, dt_h = np.float32(1.0), np.float32(cfg.step_s / 3600.0)
-    eff = np.sqrt(np.float32(b.efficiency))
-    k_room = f32((one / dt_h) * (one / eff))       # room / dt_h / eff
-    k_avail = f32(eff * (one / dt_h))               # avail * eff / dt_h
-    k_charge = f32(eff * dt_h)                      # charge * eff * dt_h
-    k_discharge = f32((one / eff) * dt_h)           # discharge / eff * dt_h
-    k_emis = f32(dt_h * (one / np.float32(1000.0)))  # import * dt_h / 1000
-    with np.errstate(divide="ignore"):              # no battery: soc is nan
-        k_soc = f32(one / np.float32(b.capacity_wh))  # soc_wh / capacity_wh
-    soc_hi, soc_lo = f32(b.soc_max * b.capacity_wh), f32(b.soc_min * b.capacity_wh)
-    max_chg, max_dis_w, zero = f32(b.max_charge_w), f32(b.max_discharge_w), f32(0.0)
-
-    soc_wh = f32(b.soc_init * b.capacity_wh)
-    out = {key: [] for key in TRACE_KEYS}
-    for load, solar, ci_t in zip(load_w, solar_w, ci):
-        surplus = solar - load
-        # charge path
-        room = torch.maximum(soc_hi - soc_wh, zero)
-        charge = torch.clamp(surplus, zero, torch.minimum(max_chg, room * k_room))
-        # discharge path
-        avail = torch.maximum(soc_wh - soc_lo, zero)
-        max_dis = torch.minimum(max_dis_w, avail * k_avail)
-        discharge = torch.clamp(-surplus, zero, max_dis)
-        soc_wh = soc_wh + charge * k_charge - discharge * k_discharge
-        grid = surplus - charge + discharge   # >0 export, <0 import
-        grid_import = torch.maximum(-grid, zero)
-        for key, val in zip(TRACE_KEYS, (
-                soc_wh * k_soc, grid_import, torch.maximum(grid, zero), charge,
-                discharge, grid_import * k_emis * ci_t,
-                torch.minimum(solar, load + charge))):
-            out[key].append(val)
-    return {key: torch.stack(vals) if vals else load_w.new_zeros(0)
-            for key, vals in out.items()}
+    rows = [torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(1, -1)
+            for x in (load_w, solar_w, ci)]
+    out = microgrid_scan(*(r.contiguous() for r in rows), constants(cfg))
+    return {key: out[j, 0] for j, key in enumerate(TRACE_KEYS)}
 
 
 def summarize(load_w, solar_w, ci, tr, cfg: MicrogridConfig) -> Dict[str, float]:

@@ -10,6 +10,14 @@ libraries, hence ``DEVICE_MODE_RTOL``).
 ``device`` names the simulated accelerator's profile here, as in the
 reference; the torch device that evaluates Eq. 1 is ``PowerModel``'s
 ``torch_device`` (``None``: the CUDA card, see ``repro_torch.device``).
+
+Eq. 1 of a stage depends on its MFU alone, not on where the stage sits in
+the array (the day simulation's exact epochs agree bit for bit across day
+modes only so). A CUDA kernel computes every element alike; PyTorch's CPU
+``pow`` does not: it runs a vectorized loop over whole vectors and a
+scalar loop over the rest, which round differently (about one result in
+twenty, by one ulp), and splits arrays of 32768 elements or more between
+threads. ``_pow`` therefore feeds the CPU whole blocks only.
 """
 from __future__ import annotations
 
@@ -75,12 +83,32 @@ DEVICES["v5e"] = TPU_V5E
 DEVICES["v5p"] = TPU_V5P
 
 
+#: elements per CPU ``pow`` call: a multiple of every vector loop's step
+#: (64 covers two vectors of up to 32 floats) and below the size at which
+#: PyTorch splits an elementwise op between threads (32768)
+_CPU_POW_BLOCK = 16384
+_CPU_POW_STEP = 64
+
+
+def _pow(x: torch.Tensor, gamma: float) -> torch.Tensor:
+    """``torch.pow(x, gamma)``, each element rounded as every other: on the
+    CPU, zero-padded to whole vector steps and cut into blocks that one
+    thread takes whole, so every element goes through the vectorized loop."""
+    if x.device.type != "cpu":
+        return torch.pow(x, gamma)
+    flat = x.reshape(-1)
+    padded = torch.nn.functional.pad(flat, (0, -flat.numel() % _CPU_POW_STEP))
+    out = torch.cat([torch.pow(b, gamma)
+                     for b in padded.split(_CPU_POW_BLOCK)])
+    return out[:flat.numel()].reshape(x.shape)
+
+
 def power(mfu, dev: DeviceProfile) -> torch.Tensor:
     """Eq. 1, vectorized. mfu in [0, 1] (fraction, not percent)."""
     mfu = torch.clamp(torch.as_tensor(mfu, dtype=torch.float32), min=0.0)
     x = torch.minimum(mfu, torch.tensor(dev.mfu_sat, dtype=torch.float32,
                                         device=mfu.device)) / dev.mfu_sat
-    return dev.p_idle + (dev.p_max_inst - dev.p_idle) * torch.pow(x, dev.gamma)
+    return dev.p_idle + (dev.p_max_inst - dev.p_idle) * _pow(x, dev.gamma)
 
 
 class PowerModel:

@@ -1,0 +1,36 @@
+"""Scenario sweep engine: declarative grids over SimConfig, parallel
+execution with on-disk result memoization, tidy CSV/JSON reporting, and
+the paper's experiments as predefined sweeps (``repro_torch.sweep.cli``).
+
+Counterpart of ``repro.sweep``, without the remote backend
+(``remote``, ``worker``), which a later step of the port brings.
+"""
+from repro_torch.sweep.cache import ResultCache, default_cache_root
+from repro_torch.sweep.grid import (DEFAULT_GRID_CI, SCHEMA_VERSION,
+                                    GridSpec, Scenario, config_digest,
+                                    derive_seed, model_registry,
+                                    with_overrides)
+from repro_torch.sweep.report import (flatten, format_rows, format_table,
+                                      to_csv, to_json, write_outputs)
+from repro_torch.sweep.runner import (BACKENDS, EXECUTION_MODES,
+                                      POSTPROCESSORS, SweepRunner,
+                                      SweepStats, execute_scenario,
+                                      run_scenarios)
+from repro_torch.sweep.scenarios import SWEEPS, SweepDef, run_sweep
+from repro_torch.sweep.vectorized import (estimate_group_cost,
+                                          estimate_trace_cost,
+                                          execute_scenario_group,
+                                          group_by_trace)
+
+__all__ = [
+    "ResultCache", "default_cache_root",
+    "DEFAULT_GRID_CI", "SCHEMA_VERSION", "GridSpec", "Scenario",
+    "config_digest", "derive_seed", "model_registry", "with_overrides",
+    "flatten", "format_rows", "format_table", "to_csv", "to_json",
+    "write_outputs",
+    "BACKENDS", "EXECUTION_MODES", "POSTPROCESSORS", "SweepRunner",
+    "SweepStats", "execute_scenario", "run_scenarios",
+    "SWEEPS", "SweepDef", "run_sweep",
+    "estimate_group_cost", "estimate_trace_cost",
+    "execute_scenario_group", "group_by_trace",
+]

@@ -649,9 +649,9 @@ def test_simulated_path_eq1_to_eq3_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", range(3))
 def test_microgrid_loop_on_card_matches_cpu(seed):
-    """The float32 step loop on the card against the CPU's: every operation
-    is an IEEE float32 add, multiply, min or max, so the traces agree bit for
-    bit."""
+    """The microgrid scan kernel on the card against the CPU's plain step
+    loop: every operation is an IEEE float32 add, multiply, min or max, so
+    the traces agree bit for bit."""
     _cuda_or_skip()
     from repro_torch import core
     rng = np.random.default_rng(seed)
@@ -724,3 +724,111 @@ def test_roofline_torch_backend_on_card():
     for f in dataclasses.fields(want):
         np.testing.assert_allclose(getattr(got, f.name), getattr(want, f.name),
                                    rtol=TORCH_BACKEND_RTOL, err_msg=f.name)
+
+
+# ---------------------------------------------------------------------------
+# microgrid_scan: the kernel against its plain step loop on the card
+# ---------------------------------------------------------------------------
+
+def _equal_nan(a, b):
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(nan_a, nan_b)) and bool(torch.equal(
+        torch.where(nan_a, 0.0, a), torch.where(nan_b, 0.0, b)))
+
+
+def _microgrids():
+    from repro_torch import core
+    battery = lambda **kw: core.MicrogridConfig(battery=core.BatteryConfig(**kw))
+    return {"default": core.MicrogridConfig(),
+            "table1b": battery(capacity_wh=100.0, soc_init=0.5, soc_min=0.2,
+                               soc_max=0.8),
+            "slow-5min": core.MicrogridConfig(
+                step_s=300.0, battery=core.BatteryConfig(
+                    capacity_wh=500.0, soc_init=0.2, max_charge_w=150.0,
+                    max_discharge_w=90.0, efficiency=0.9)),
+            "no-battery": battery(capacity_wh=0.0)}
+
+
+def _random_grid_inputs(T, seed, B=1):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.uniform(lo, hi, (B, T)), dtype=torch.float32,
+                            device="cuda")
+            for lo, hi in ((0, 600.0), (0, 800.0), (50, 800.0))]
+
+
+def _table2_inputs():
+    """Table 2's co-sim inputs as ``core.run_cosim`` hands them to the scan
+    (from a CPU run of ``run_simulation(PAPER_DEFAULT)``)."""
+    from repro_torch import core, sim
+    from repro_torch.core import datasets
+    res = sim.run_simulation(sim.PAPER_DEFAULT)
+    pm = core.PowerModel(res.cfg.device, torch_device="cpu")
+    load = core.stages_to_load_signal(res.stages.start_s, res.stages.dur_s,
+                                      res.stages.mfu, pm, pue=1.2)
+    n_bins, start = 1800, 480
+    vals = np.full(n_bins, pm.dev.p_idle * 1.2)
+    n = min(len(load.values), n_bins - start)
+    vals[start:start + n] = load.values[:n]
+    t = np.arange(n_bins) * 60.0
+    solar = datasets.solar_signal(30.0, capacity_w=600.0, seed=3,
+                                  cloudiness=0.12).at(t)
+    ci = datasets.carbon_intensity_signal(30.0, seed=4).at(t)
+    return [torch.as_tensor(np.asarray(x, np.float32)[None], device="cuda")
+            for x in (vals, solar, ci)]
+
+
+# (label, inputs(window), microgrid): phase 3's cases of chip_smoke.py
+MICROGRID_CASES = (
+    [("table2", lambda w: _table2_inputs(), "table1b")]
+    + [(f"random-s{seed}-{grid}", lambda w, s=seed: _random_grid_inputs(1800, s),
+        grid) for seed in range(2)
+       for grid in ("default", "table1b", "slow-5min", "no-battery")]
+    + [("batch-of-3", lambda w: _random_grid_inputs(w + 5, 7, B=3), "default"),
+       ("T0", lambda w: _random_grid_inputs(0, 0), "table1b"),
+       ("three-windows", lambda w: _random_grid_inputs(2 * w + 123, 9),
+        "default"),
+       ("three-windows-no-battery",
+        lambda w: _random_grid_inputs(2 * w + 123, 10), "no-battery")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,inputs,grid", MICROGRID_CASES,
+                         ids=[c[0] for c in MICROGRID_CASES])
+def test_microgrid_scan_kernel_matches_plain_loop_on_card(label, inputs, grid):
+    """One launch walks every trace; its traces equal the plain step loop's
+    on the card bit for bit, NaN (no battery) in the same places."""
+    _cuda_or_skip()
+    from repro_torch.core.microgrid import constants
+    from repro_torch.kernels.microgrid_scan import (microgrid_scan,
+                                                    microgrid_scan_reference)
+    from repro_torch.kernels.microgrid_scan.ops import window_steps
+    x = inputs(window_steps())
+    k = constants(_microgrids()[grid])
+    n = microgrid_scan.launches
+    out = microgrid_scan(*x, k)
+    torch.cuda.synchronize()
+    assert microgrid_scan.launches - n == (1 if out.numel() else 0)
+    ref = microgrid_scan_reference(*x, k)
+    assert out.shape == ref.shape == (7,) + tuple(x[0].shape)
+    assert _equal_nan(out, ref)
+    assert bool(torch.isnan(out[0]).any()) == (grid == "no-battery"
+                                               and out.numel() > 0)
+
+
+@pytest.mark.cuda
+def test_smoke_sweep_device_mode_on_card_matches_cpu():
+    """fig4's smoke sweep in device mode: the card's records against the
+    CPU's under ``obs.diff``. Columns the host computes are bitwise; Eq. 1
+    and the device program's float64 sums within ``DEVICE_MODE_RTOL``."""
+    _cuda_or_skip()
+    from repro_torch.obs.diff import diff_records
+    from repro_torch.sweep.scenarios import run_sweep
+    card, cpu = _on_card_and_cpu(
+        lambda dev: run_sweep("fig4", smoke=True, mode="device",
+                              torch_device=dev)[0])
+    result = diff_records(cpu, card)
+    assert not result.only_a and not result.only_b and len(card) == 3
+    for c in result.cells:
+        assert c.contract in ("host-bitwise", "DEVICE_MODE_RTOL"), c.format()
+        assert c.phase in ("power", "energy", "carbon") \
+            or c.column in ("duration_s", "gpu_hours"), c.format()

@@ -158,6 +158,29 @@ def test_energy_wh_matches_reference(device):
     np.testing.assert_allclose(float(got), want, **RTOL)
 
 
+_POW_EDGES = (63, 64, 65, 16383, 16384, 16385, 32767, 32768, 32769)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 16383, 16384, 16385, 32769,
+                               40000])
+def test_eq1_of_a_stage_does_not_depend_on_where_it_sits(n):
+    """Eq. 1 on the CPU gives a stage the same float32 bits alone, in an
+    array of any length and at any offset: across the vector loop's steps,
+    its scalar tail and the threading grain (a day epoch's energy sums
+    stages cut from the whole day's trace)."""
+    from repro_torch.core.power import A100_SXM, power
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.uniform(0.0, 0.6, n).astype(np.float32))
+    whole = power(x, A100_SXM)
+    for i in sorted({0, n - 1} | {j for e in _POW_EDGES for j in (e - 1, e)
+                                  if j < n}):
+        assert torch.equal(power(x[i:i + 1], A100_SXM), whole[i:i + 1]), i
+    for k in (1, 63, 16383):
+        pad = torch.from_numpy(rng.uniform(0.0, 0.6, k).astype(np.float32))
+        shifted = power(torch.cat([pad, x]), A100_SXM)[k:]
+        assert torch.equal(shifted, whole), k
+
+
 def test_power_model_returns_float32_on_its_device():
     p = pc.PowerModel("a100", torch_device=CPU).power(np.array([0.0, 0.45, 1.0]))
     assert p.dtype == torch.float32 and p.device.type == CPU

@@ -46,7 +46,8 @@ def _imported_roots(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "chip_ab.py", ROOT / "chip_sweeps.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_neither_jax_nor_reference(path):
     bad = [m for m in _imported_roots(path)
@@ -126,5 +127,64 @@ def test_simulated_path_raises_without_a_card(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = _simulated_path_calls()
     assert sorted(calls) == sorted(SIMULATED_PATH)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[name]()
+
+
+def test_module_list_covers_the_sweep_engine_and_obs():
+    """The no-JAX checks above walk every module of the port, the sweep
+    engine, ``obs``, the day simulation and the microgrid kernel included."""
+    mods = _modules()
+    for m in ("repro_torch.obs", "repro_torch.obs.diff",
+              "repro_torch.obs.__main__", "repro_torch.obs.recorder",
+              "repro_torch.sweep", "repro_torch.sweep.cli",
+              "repro_torch.sweep.device", "repro_torch.sweep.runner",
+              "repro_torch.fleet.day", "repro_torch.kernels.microgrid_scan.ops"):
+        assert m in mods
+
+
+def _sweep_entry_points():
+    """Each public entry point of the sweep engine, ``obs`` and the day
+    simulation, called with its torch device left at ``None`` (the card)."""
+    from repro_torch.fleet.day import run_fleet_day
+    from repro_torch.obs import FlightRecorder
+    from repro_torch.obs import __main__ as obs_cli
+    from repro_torch.sweep import (SWEEPS, ResultCache, SweepRunner,
+                                   execute_scenario, execute_scenario_group,
+                                   run_sweep)
+    from repro_torch.sweep import cli
+    from repro_torch.sweep.device import execute_device_grid
+    sc = SWEEPS["fig1"].build(True, n_requests=4)[0]
+    day_cfg = SWEEPS["day"].build(True, n_requests=40)[0].cfg
+    return {
+        "SweepRunner": lambda: SweepRunner(),
+        "ResultCache": lambda: ResultCache(),
+        "run_sweep": lambda: run_sweep("fig1", smoke=True),
+        "execute_scenario": lambda: execute_scenario(sc),
+        "execute_scenario_group": lambda: execute_scenario_group([sc]),
+        "execute_device_grid": lambda: execute_device_grid([sc]),
+        "run_fleet_day": lambda: run_fleet_day(day_cfg),
+        "FlightRecorder": lambda: FlightRecorder(),
+        "sweep.cli": lambda: cli.main(["--smoke", "fig1", "--quiet"]),
+        "obs record": lambda: obs_cli.main(["--quiet", "record", "fig1",
+                                            "--smoke"]),
+    }
+
+
+SWEEP_ENTRY_POINTS = ["SweepRunner", "ResultCache", "run_sweep",
+                      "execute_scenario", "execute_scenario_group",
+                      "execute_device_grid", "run_fleet_day",
+                      "FlightRecorder", "sweep.cli",
+                      "obs record"]
+
+
+@pytest.mark.parametrize("name", SWEEP_ENTRY_POINTS)
+def test_sweep_engine_raises_without_a_card(monkeypatch, name, tmp_path):
+    """``None`` means the card in the sweep engine, ``obs`` and the day
+    simulation too: without one they raise, never fall back to the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    calls = _sweep_entry_points()
+    assert sorted(calls) == sorted(SWEEP_ENTRY_POINTS)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[name]()
