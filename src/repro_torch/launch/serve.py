@@ -4,7 +4,10 @@ architecture, with energy accounting of the served trace.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --no-reduced --slots 8 --max-len 4096 --requests 16 --new-tokens 32
 
-Counterpart of ``repro.launch.serve`` with two faults of the reference fixed:
+Serves every decoder family (dense, MoE, VLM with text tokens, RWKV6,
+Zamba2); an encoder-only model (HuBERT) is refused before any weight is
+drawn. Counterpart of ``repro.launch.serve`` with two faults of the
+reference fixed:
 ``--reduced`` can be turned off (``--no-reduced`` serves the full model),
 and the default power profile is the H100 the port runs on.
 """

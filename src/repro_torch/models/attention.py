@@ -25,7 +25,8 @@ from torch import nn
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import apply_rope, as_param, truncated_normal_init
+from repro_torch.models.layers import (apply_rope, as_param, rope_angles,
+                                       truncated_normal_init)
 
 NEG_INF = -1e30
 
@@ -74,6 +75,17 @@ def _project_qkv(x, p: AttnParams, cfg: AttentionConfig):
         k = torch.repeat_interleave(k, cfg.kv_repeat, dim=2)
         v = torch.repeat_interleave(v, cfg.kv_repeat, dim=2)
     return q, k, v
+
+
+def positional_angles(cfg: AttentionConfig, positions: torch.Tensor
+                      ) -> Optional[torch.Tensor]:
+    """The rotations ``attention_block`` takes for ``positions``: RoPE's
+    from (B|1, S) positions, M-RoPE's from (B, S, 3) streams, None without
+    rotary embeddings."""
+    if cfg.rope == "none":
+        return None
+    return rope_angles(positions, cfg.head_dim, cfg.rope_pct, cfg.rope_theta,
+                       mrope=cfg.rope == "mrope")
 
 
 def _apply_positional(q, k, rope: Optional[torch.Tensor]):
@@ -177,9 +189,10 @@ def attention_block(x, p: AttnParams, cfg: AttentionConfig, *,
                     impl: str = "kernel"):
     """One attention application.
 
-    rope: ``layers.rope_angles`` of the tokens' positions (None without
-    RoPE). mode: "train"/"prefill" (full sequence) or "decode" (one token
-    w/ cache). cache (decode): (k_cache, v_cache) of shape (B,W,KV_eff,D).
+    rope: ``positional_angles`` of the tokens' positions (None without
+    rotary embeddings). mode: "train"/"prefill" (full sequence, causal or
+    not as ``cfg.causal`` says) or "decode" (one token w/ cache). cache
+    (decode): (k_cache, v_cache) of shape (B,W,KV_eff,D).
     Returns (out (B,S,D), new_cache_kv or computed (k, v))."""
     if impl not in ("kernel", "einsum"):
         raise ValueError(f"unknown attention impl {impl!r}")

@@ -4,10 +4,13 @@
 dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) and
 returns the port's parameter modules holding the same values in the same
 layouts, with the layers unstacked from the leading ``L`` axis: a
-``TransformerParams`` for the dense family (``init_transformer``), an
-``RWKVParams`` for RWKV6 (``init_rwkv``). Matrices are stored in ``dtype``
-(the compute dtype) once; norms, biases and RWKV6's mixers, decay and bonus
-stay float32.
+``TransformerParams`` for the dense, MoE, VLM and audio families
+(``init_transformer``; a MoE layer's router (D, E), up/gate (E, D, F) and
+down (E, F, D)), an ``RWKVParams`` for RWKV6 (``init_rwkv``), a
+``ZambaParams`` for Zamba2 (``init_zamba``; Mamba2 layers stacked on L,
+shared blocks on copies). Matrices are stored in ``dtype`` (the compute
+dtype) once; norms, biases, RWKV6's mixers, decay and bonus and Mamba2's
+conv weights, decays and norm stay float32.
 """
 from __future__ import annotations
 
@@ -20,16 +23,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.layers import MLPParams, NormParams
 from repro_torch.models.lm import check_supported
+from repro_torch.models.mamba import MambaParams
+from repro_torch.models.moe import MoEParams
 from repro_torch.models.rwkv import (RWKVBlockParams, RWKVLayerParams,
                                      RWKVParams)
 from repro_torch.models.transformer import (LayerParams, TransformerParams,
                                             compute_dtype)
+from repro_torch.models.zamba import SharedBlockParams, ZambaParams
 
 
 def _norm(tree: Dict, device) -> NormParams:
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     return NormParams(f32(tree["scale"]),
                       f32(tree["bias"]) if "bias" in tree else None)
+
+
+def _at(tree: Dict, i: int) -> Dict:
+    """Entry ``i`` of every leaf of a stacked tree."""
+    return {k: _at(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
 def params_from_numpy(tree: Dict, cfg: ModelConfig, device,
@@ -42,19 +53,39 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device,
                                  device=device)
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), dtype=torch.float32,
                                  device=device)
-    L = tree["layers"]
+
+    def attention(at):
+        biases = {k: f32(at[k]) for k in ("bq", "bk", "bv") if k in at}
+        return AttnParams(mat(at["wq"]), mat(at["wk"]), mat(at["wv"]),
+                          mat(at["wo"]), **biases)
+
+    def mlp(ml):
+        return MLPParams(mat(ml["up"]), mat(ml["down"]),
+                         mat(ml["gate"]) if "gate" in ml else None)
+
+    if cfg.family == "hybrid":
+        layers = [MambaParams(**{
+            k: (mat if k in MambaParams.MATRICES else f32)(v)
+            for k, v in _at(tree["layers"], i).items()})
+            for i in range(cfg.n_layers)]
+        shared = []
+        for g in range(cfg.zamba.shared_attn_copies):
+            sp = _at(tree["shared"], g)
+            shared.append(SharedBlockParams(
+                _norm(sp["attn_norm"], device), attention(sp["attn"]),
+                _norm(sp["mlp_norm"], device), mlp(sp["mlp"])))
+        return ZambaParams(mat(tree["embed"]), layers, shared,
+                           _norm(tree["final_norm"], device),
+                           mat(tree["lm_head"]))
     layers = []
     for i in range(cfg.n_layers):
-        at = {k: v[i] for k, v in L["attn"].items()}
-        biases = {k: f32(at[k]) for k in ("bq", "bk", "bv") if k in at}
-        ml = {k: v[i] for k, v in L["mlp"].items()}
-        layers.append(LayerParams(
-            _norm({k: v[i] for k, v in L["attn_norm"].items()}, device),
-            AttnParams(mat(at["wq"]), mat(at["wk"]), mat(at["wv"]),
-                       mat(at["wo"]), **biases),
-            _norm({k: v[i] for k, v in L["mlp_norm"].items()}, device),
-            MLPParams(mat(ml["up"]), mat(ml["down"]),
-                      mat(ml["gate"]) if "gate" in ml else None)))
+        lp = _at(tree["layers"], i)
+        ffn = ({"moe": MoEParams(*(mat(lp["moe"][k]) for k in
+                                   ("router", "up", "gate", "down")))}
+               if "moe" in lp else {"mlp": mlp(lp["mlp"])})
+        layers.append(LayerParams(_norm(lp["attn_norm"], device),
+                                  attention(lp["attn"]),
+                                  _norm(lp["mlp_norm"], device), **ffn))
     lm_head = None if cfg.tie_embeddings else mat(tree["lm_head"])
     return TransformerParams(mat(tree["embed"]), lm_head, layers,
                              _norm(tree["final_norm"], device))

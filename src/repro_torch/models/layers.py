@@ -91,7 +91,7 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings (RoPE / partial RoPE)
+# Rotary embeddings (RoPE / partial RoPE / M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, rope_pct: float, theta: float,
@@ -103,12 +103,21 @@ def rope_freqs(head_dim: int, rope_pct: float, theta: float,
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int, rope_pct: float,
-                theta: float) -> torch.Tensor:
+                theta: float, mrope: bool = False) -> torch.Tensor:
     """Unit complex rotations exp(i * pos * inv_freq), (..., S, 1, rot/2).
 
+    ``mrope``: ``positions`` are M-RoPE's (B, S, 3) streams (t, h, w) and
+    every frequency of the whole head takes the stream of its section
+    (``MROPE_SECTIONS``), so the angles are per (B, S, head_dim/2). Text
+    positions (three equal streams) give plain RoPE's angles bit for bit.
     Computed once per forward and shared by every layer's q and k."""
-    inv = rope_freqs(head_dim, rope_pct, theta, positions.device)
-    ang = positions[..., :, None].float() * inv          # (..., S, rot/2)
+    if mrope:
+        inv = rope_freqs(head_dim, 1.0, theta, positions.device)
+        pos = positions.float()[..., mrope_streams(head_dim, positions.device)]
+    else:
+        inv = rope_freqs(head_dim, rope_pct, theta, positions.device)
+        pos = positions[..., :, None].float()            # (..., S, 1)
+    ang = pos * inv                                      # (..., S, rot/2)
     return torch.polar(torch.ones_like(ang), ang)[..., :, None, :]
 
 
@@ -123,6 +132,28 @@ def apply_rope(x: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
     out = torch.view_as_real(torch.view_as_complex(xr) * rot).flatten(-2)
     out = out.to(x.dtype)
     return torch.cat([out, x[..., n:]], dim=-1) if n < x.shape[-1] else out
+
+
+# M-RoPE (Qwen2-VL): the head's frequencies split into 3 sections (t, h, w),
+# each rotated with its own position stream. For text tokens all three
+# position ids coincide and M-RoPE reduces to RoPE.
+MROPE_SECTIONS = (0.25, 0.375, 0.375)
+
+
+def mrope_streams(head_dim: int, device=None) -> torch.Tensor:
+    """(head_dim/2,) index of the position stream each frequency takes."""
+    half = head_dim // 2
+    sec = [int(half * s) for s in MROPE_SECTIONS[:2]]
+    sec.append(half - sec[0] - sec[1])
+    return torch.tensor([i for i, n in enumerate(sec) for _ in range(n)],
+                        device=device)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions3: (B, S, 3) multimodal position ids."""
+    return apply_rope(x, rope_angles(positions3, x.shape[-1], 1.0, theta,
+                                     mrope=True))
 
 
 # ---------------------------------------------------------------------------

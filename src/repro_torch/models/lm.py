@@ -1,10 +1,17 @@
-"""Model facade: init / prefill / decode for the dense and ssm (RWKV6)
-families.
+"""Model facade: init / prefill / decode for every family the port serves:
+dense, MoE, VLM and audio transformers, RWKV6 (ssm) and Zamba2 (hybrid).
 
 Counterpart of ``repro.models.lm``. ``build_model(cfg)`` returns a ``Model``
 whose step functions the serving engine drives. ``attn_impl`` defaults to
-``"kernel"``, the hand-written CUDA kernels (attention for the dense family,
-the ``gla_scan`` prefill scan for RWKV6); ``"einsum"`` is the plain path.
+``"kernel"``, the hand-written CUDA kernels (flash and decode attention, the
+``gla_scan`` prefill scan of RWKV6 and Zamba2's Mamba2 layers); ``"einsum"``
+is the plain path.
+
+A batch holds ``tokens`` (B, S) or, for the stub frontends (VLM patches,
+audio frames), ``embeds`` (B, S, D); under M-RoPE optionally ``positions3``
+(B, S, 3), else text positions (all three streams equal). Encoder-only
+models (HuBERT) prefill to last-position logits and have no cache or
+decode.
 """
 from __future__ import annotations
 
@@ -18,12 +25,13 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import transformer as tf
+from repro_torch.models import zamba as zamba_mod
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The families the port serves: dense decoders (RoPE or none) and
-    RWKV6 (ssm). MoE, hybrid, M-RoPE, encoders and stubs raise."""
-    if cfg.family != "ssm":
+    """Every family of the reference: the transformer families, RWKV6
+    (ssm) and Zamba2 (hybrid). An unknown family raises."""
+    if cfg.family not in ("ssm", "hybrid"):
         tf.check_supported(cfg)
 
 
@@ -34,51 +42,90 @@ class Model:
 
     def init(self, seed: int = 0, device: DeviceLike = None):
         """Random weights drawn on ``device`` from a generator seeded with
-        ``seed``."""
+        ``seed``, each tensor on its own in the compute dtype."""
+        c = self.cfg
+        check_supported(c)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        if self.cfg.family == "ssm":
-            return rwkv_mod.init_rwkv(self.cfg, gen, dev,
-                                      tf.compute_dtype(self.cfg))
-        return tf.init_transformer(self.cfg, gen, dev)
+        if c.family == "ssm":
+            return rwkv_mod.init_rwkv(c, gen, dev, tf.compute_dtype(c))
+        if c.family == "hybrid":
+            return zamba_mod.init_zamba(c, gen, dev, tf.compute_dtype(c))
+        return tf.init_transformer(c, gen, dev)
+
+    # ---------------- embeddings and positions ----------------
+    def _embed(self, params, batch: Dict) -> torch.Tensor:
+        if "embeds" in batch:  # modality stub (vlm / audio)
+            return batch["embeds"].to(tf.compute_dtype(self.cfg))
+        return tf.embed_tokens(params, self.cfg, batch["tokens"])
+
+    def _positions(self, batch: Dict, B: int, S: int, device,
+                   lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(1, S) text positions, or (B, 1) at decode (``lengths``); under
+        M-RoPE ``positions3`` if given, else the text positions on all
+        three streams."""
+        a = self.cfg.attention
+        if a is not None and a.rope == "mrope":
+            if "positions3" in batch:
+                return batch["positions3"]
+            pos = (lengths[:, None] if lengths is not None
+                   else torch.arange(S, device=device)[None].expand(B, S))
+            return pos[..., None].expand(B, pos.shape[1], 3)
+        if lengths is not None:
+            return lengths[:, None]
+        return torch.arange(S, device=device)[None, :]
 
     # ---------------- serving: prefill ----------------
     @torch.no_grad()
     def prefill(self, params, batch: Dict, max_len: int,
                 cache: Optional[Dict] = None, slot: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Dict]:
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """Full-sequence forward; returns (last-token logits (B,V), cache).
 
-        With ``cache`` and ``slot``, the (single) prompt's K/V (dense) or
-        recurrent states (ssm) are written into that row of the shared cache
-        in place and ``cache`` is returned; otherwise a fresh cache of
-        ``max_len`` is built, as the reference does. Prompts in a batch
-        share one length (the reference's padded ``lengths`` batches are not
-        ported)."""
+        With ``cache`` and ``slot``, the (single) prompt's K/V and
+        recurrent states are written into that row of the shared cache in
+        place and ``cache`` is returned; otherwise a fresh cache of
+        ``max_len`` is built, as the reference does (None for an
+        encoder-only model). Prompts in a batch share one length (the
+        reference's padded ``lengths`` batches are not ported)."""
         c = self.cfg
-        x = tf.embed_tokens(params, c, batch["tokens"])
+        x = self._embed(params, batch)
         B, S, _ = x.shape
         if cache is not None and B != 1:
             raise ValueError("in-place cache insertion takes one prompt")
+        rows = slice(None) if cache is None else slice(slot, slot + 1)
         if c.family == "ssm":
             h, states = rwkv_mod.rwkv_forward(params, c, x, mode="prefill",
                                               impl=self.attn_impl)
             if cache is None:
                 cache = rwkv_mod.init_rwkv_cache(c, B, x.device)
-                rows = slice(None)
-            else:
-                rows = slice(slot, slot + 1)
             rwkv_mod.write_states(cache, rows, states, S)
             return rwkv_mod.rwkv_logits(params, h[:, -1]), cache
+        positions = self._positions(batch, B, S, x.device)
+        if c.family == "hybrid":
+            h, pre = zamba_mod.zamba_forward(
+                params, c, x, positions=positions, mode="prefill",
+                attn_impl=self.attn_impl)
+            if cache is None:
+                cache = zamba_mod.fill_zamba_cache_from_prefill(
+                    c, pre, S, max_len, B)
+            else:
+                zamba_mod.write_prefill_to_zamba_cache(cache, rows, pre, S)
+            return tf.lm_logits(params, c, h[:, -1]), cache
+        if c.is_encoder_only:
+            h, _ = tf.transformer_forward(params, c, x, positions=positions,
+                                          mode="train",
+                                          attn_impl=self.attn_impl)
+            return tf.lm_logits(params, c, h[:, -1]), None
         h, pre = tf.transformer_forward(
-            params, c, x, positions=torch.arange(S, device=x.device)[None, :],
-            mode="prefill", attn_impl=self.attn_impl)
+            params, c, x, positions=positions, mode="prefill",
+            attn_impl=self.attn_impl)
         if cache is None:
             cache = tf.fill_cache_from_prefill(
                 c, pre["computed_k"], pre["computed_v"], S, max_len)
         else:
-            tf.write_prefill_to_cache(cache, slice(slot, slot + 1),
-                                      pre["computed_k"], pre["computed_v"], S)
+            tf.write_prefill_to_cache(cache, rows, pre["computed_k"],
+                                      pre["computed_v"], S)
         # last position logits only (serving does not need all logits)
         return tf.lm_logits(params, c, h[:, -1]), cache
 
@@ -86,18 +133,24 @@ class Model:
     @torch.no_grad()
     def decode_step(self, params, batch: Dict, cache: Dict
                     ) -> Tuple[torch.Tensor, Dict]:
-        """batch: {"tokens": (B,1)}. Returns ((B,V), cache); the cache's K/V
-        or recurrent states are updated in place."""
+        """batch: {"tokens": (B,1)} (+ ``positions3`` (B,1,3) under M-RoPE).
+        Returns ((B,V), cache); the cache's K/V or recurrent states are
+        updated in place."""
         c = self.cfg
-        x = tf.embed_tokens(params, c, batch["tokens"])
+        if c.is_encoder_only:
+            raise ValueError(f"{c.name} is encoder-only: no decode")
+        x = self._embed(params, batch)
         if c.family == "ssm":
             h, cache = rwkv_mod.rwkv_forward(params, c, x, mode="decode",
                                              cache=cache, impl=self.attn_impl)
             return rwkv_mod.rwkv_logits(params, h)[:, 0], \
                 {**cache, "lengths": cache["lengths"] + 1}
-        h, new_cache = tf.transformer_forward(
-            params, c, x, positions=cache["lengths"][:, None], mode="decode",
-            cache=cache, attn_impl=self.attn_impl)
+        positions = self._positions(batch, x.shape[0], 1, x.device,
+                                    lengths=cache["lengths"])
+        forward = (zamba_mod.zamba_forward if c.family == "hybrid"
+                   else tf.transformer_forward)
+        h, new_cache = forward(params, c, x, positions=positions, mode="decode",
+                               cache=cache, attn_impl=self.attn_impl)
         return tf.lm_logits(params, c, h)[:, 0], new_cache
 
     # ---------------- cache factory ----------------
@@ -105,10 +158,15 @@ class Model:
                    device: DeviceLike = None) -> Dict:
         c = self.cfg
         check_supported(c)
+        if c.is_encoder_only:
+            raise ValueError(f"{c.name} is encoder-only: no decode cache")
+        dev = resolve_device(device)
         if c.family == "ssm":
-            return rwkv_mod.init_rwkv_cache(c, batch, resolve_device(device))
+            return rwkv_mod.init_rwkv_cache(c, batch, dev)
+        if c.family == "hybrid":
+            return zamba_mod.init_zamba_cache(c, batch, max_len, dev, dtype)
         return attn_mod.init_kv_cache(c.n_layers, batch, c.attention, max_len,
-                                      resolve_device(device), dtype)
+                                      dev, dtype)
 
 
 def build_model(cfg: ModelConfig, attn_impl: str = "kernel") -> Model:

@@ -1,12 +1,16 @@
-"""Decoder transformer stack, dense family.
+"""Transformer stacks: the dense, MoE, VLM and audio families.
 
 Counterpart of ``repro.models.transformer``. The reference stacks layers on
 a leading axis and runs them with ``lax.scan``; here the layers are an
-``nn.ModuleList`` walked by a Python loop. The MoE, VLM and audio branches
-are not ported yet and raise ``NotImplementedError``; RWKV6 has its own
-stack (``repro_torch.models.rwkv``). The reference's
-sharding constraints (``distributed.axes.constrain``) have no counterpart on
-one card.
+``nn.ModuleList`` walked by a Python loop. A layer holds ``moe`` params in
+place of ``mlp`` for the MoE family (``repro_torch.models.moe``); the VLM
+(Qwen2-VL: M-RoPE, QKV bias, tied head) and audio (HuBERT: non-causal,
+LayerNorm, an encoder without decode) families take frame or patch
+embeddings in place of tokens (``embed_stub``) and otherwise share the
+dense stack. RWKV6 and Zamba2 have their own stacks
+(``repro_torch.models.rwkv``, ``repro_torch.models.zamba``). The
+reference's sharding constraints (``distributed.axes.constrain``) have no
+counterpart on one card.
 """
 from __future__ import annotations
 
@@ -18,8 +22,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, as_param,
-                                       embed_init, mlp_params, norm_params,
-                                       rope_angles)
+                                       embed_init, mlp_params, norm_params)
+from repro_torch.models.moe import apply_moe, moe_params
+
+FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -27,21 +33,22 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.embed_stub or cfg.is_encoder_only \
-            or cfg.attention.rope == "mrope":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the transformer stack ports only the dense decoder "
-            "family (RoPE or none); of the other families only RWKV6 (ssm, "
-            "repro_torch.models.rwkv) is ported")
+            f"{cfg.name}: family {cfg.family!r} has no transformer stack; "
+            f"this one builds {', '.join(FAMILIES)}")
 
 
 class LayerParams(nn.Module):
-    def __init__(self, attn_norm, attn_p, mlp_norm, mlp):
+    """One layer: ``mlp`` (dense, VLM, audio) or ``moe`` (MoE family)."""
+
+    def __init__(self, attn_norm, attn_p, mlp_norm, mlp=None, moe=None):
         super().__init__()
         self.attn_norm = attn_norm
         self.attn = attn_p
         self.mlp_norm = mlp_norm
         self.mlp = mlp
+        self.moe = moe
 
 
 class TransformerParams(nn.Module):
@@ -68,13 +75,18 @@ def init_transformer(cfg: ModelConfig, generator: torch.Generator,
     embed = embed_init(cfg.vocab_size, cfg.d_model, generator, device, dt)
     lm_head = (None if cfg.tie_embeddings else
                embed_init(cfg.vocab_size, cfg.d_model, generator, device, dt))
+
+    def ffn():
+        if cfg.family == "moe":
+            return {"moe": moe_params(cfg.d_model, cfg.moe, generator, device, dt)}
+        return {"mlp": mlp_params(cfg.d_model, cfg.mlp.d_ff, cfg.mlp.gated,
+                                  generator, device, dt)}
+
     layers = [
         LayerParams(
             norm_params(cfg.d_model, cfg.norm, device),
             attn.attn_params(cfg.d_model, cfg.attention, generator, device, dt),
-            norm_params(cfg.d_model, cfg.norm, device),
-            mlp_params(cfg.d_model, cfg.mlp.d_ff, cfg.mlp.gated, generator,
-                       device, dt))
+            norm_params(cfg.d_model, cfg.norm, device), **ffn())
         for _ in range(cfg.n_layers)]
     return TransformerParams(embed, lm_head, layers,
                              norm_params(cfg.d_model, cfg.norm, device))
@@ -88,24 +100,29 @@ def _layer_apply(x, lp: LayerParams, cfg: ModelConfig, *, rope, mode,
         cache=cache_kv, lengths=lengths, impl=impl)
     x = x + a_out
     h = apply_norm(x, lp.mlp_norm, cfg.norm, cfg.norm_eps)
-    x = x + apply_mlp(h, lp.mlp, cfg.mlp.activation, cfg.mlp.gated)
-    return x, new_kv
+    if cfg.family == "moe":
+        # the aux loss trains the router; serving ignores it
+        m_out, _ = apply_moe(h, lp.moe, cfg.moe,
+                             act=cfg.mlp.activation if cfg.mlp else "silu")
+    else:
+        m_out = apply_mlp(h, lp.mlp, cfg.mlp.activation, cfg.mlp.gated)
+    return x + m_out, new_kv
 
 
 def transformer_forward(params: TransformerParams, cfg: ModelConfig, x, *,
                         positions, mode: str = "prefill",
                         cache: Optional[Dict] = None,
                         attn_impl: str = "kernel"):
-    """x: (B, S, D) embeddings. Returns (hidden (B,S,D), new_cache).
+    """x: (B, S, D) embeddings; positions (B|1, S), or (B, S, 3) under
+    M-RoPE. Returns (hidden (B,S,D), new_cache).
 
     decode: ``cache`` k/v are updated in place and returned with
     ``lengths + 1``. prefill: returns the computed K/V stacked as
-    (L, B, S, KV, D), as the reference does."""
+    (L, B, S, KV, D), as the reference does. train: the full sequence and
+    no K/V (the encoder's forward)."""
     check_supported(cfg)
     lengths = cache["lengths"] if cache is not None else None
-    a = cfg.attention
-    rope = (rope_angles(positions, a.head_dim, a.rope_pct, a.rope_theta)
-            if a.rope == "rope" else None)
+    rope = attn.positional_angles(cfg.attention, positions)
     computed_k, computed_v = [], []
     for i, lp in enumerate(params.layers):
         cache_kv = (cache["k"][i], cache["v"][i]) if mode == "decode" else None

@@ -5,8 +5,11 @@ Counterpart of ``repro.serve.engine``, with the same slot semantics:
 the waiting queue by a single-sequence prefill whose K/V go into that slot;
 one decode step advances every slot by a token (inactive slots included, as
 in the reference, whose ``lengths`` advance for every row). The cache is
-the family's: K/V rows for the dense family, the recurrent states
-(token-shift and wkv) for RWKV6. Decoding is greedy.
+the family's: K/V rows for the transformer families (dense, MoE, VLM), the
+recurrent states (token-shift and wkv) for RWKV6, and for Zamba2 K/V with a
+leading application axis beside the Mamba2 conv and ssm states. Under
+M-RoPE the model numbers text tokens itself (all three streams equal).
+Decoding is greedy.
 
 Every iteration is logged (start, duration, token counts) so the served
 trace can be priced by Eq. 1 and Eq. 4. Each duration ends with the argmax
@@ -131,9 +134,10 @@ class ServingEngine:
                 self.slots[req.slot] = None
                 # only the length is reset. Stale K/V of a reused slot lie
                 # past its length and are masked; stale recurrent states
-                # (RWKV6) are overwritten, all three, by the next prefill into
-                # the slot. The reference zeroes them here, but decode goes on
-                # advancing every slot, free ones included, so a zeroed state
-                # would not stay zero either.
+                # (RWKV6's three, Zamba2's conv and ssm) are overwritten, all
+                # of them, by the next prefill into the slot. The reference
+                # zeroes them here, but decode goes on advancing every slot,
+                # free ones included, so a zeroed state would not stay zero
+                # either.
                 self.cache["lengths"][req.slot] = 0
             self.done.append(req)

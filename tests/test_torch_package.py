@@ -133,13 +133,16 @@ def test_simulated_path_raises_without_a_card(monkeypatch, name):
 
 def test_module_list_covers_the_sweep_engine_and_obs():
     """The no-JAX checks above walk every module of the port, the sweep
-    engine, ``obs``, the day simulation and the microgrid kernel included."""
+    engine, ``obs``, the day simulation, the microgrid kernel and the model
+    families (MoE, Mamba2, Zamba2) included."""
     mods = _modules()
     for m in ("repro_torch.obs", "repro_torch.obs.diff",
               "repro_torch.obs.__main__", "repro_torch.obs.recorder",
               "repro_torch.sweep", "repro_torch.sweep.cli",
               "repro_torch.sweep.device", "repro_torch.sweep.runner",
-              "repro_torch.fleet.day", "repro_torch.kernels.microgrid_scan.ops"):
+              "repro_torch.fleet.day", "repro_torch.kernels.microgrid_scan.ops",
+              "repro_torch.models.moe", "repro_torch.models.mamba",
+              "repro_torch.models.zamba"):
         assert m in mods
 
 

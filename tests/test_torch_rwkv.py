@@ -261,14 +261,6 @@ def test_rwkv_served_through_the_launcher_on_cpu():
     assert out["energy_wh"] > 0
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "zamba2-1.2b", "qwen2-vl-2b",
-                                  "hubert-xlarge"])
-def test_unported_families_still_raise(arch):
-    model = build_model(reduced_config(get_config(arch)))
-    with pytest.raises(NotImplementedError):
-        model.init(0, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # (e) the CPU path never launches the kernel
 # ---------------------------------------------------------------------------
