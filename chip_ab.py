@@ -2,17 +2,23 @@
 """Time kernels of several checkouts on one card, at the served shapes,
 with ``chip_smoke.py``'s clocks.
 
-    python3 chip_ab.py <parent checkout>/src src src <parent checkout>/src
+    python3 chip_ab.py [--only flash,decode,gla] <parent checkout>/src src src <parent checkout>/src
 
 Each argument is a directory that holds a ``repro_torch`` package. Each runs
 in a process of its own: its kernels are built, held against their plain
 versions, and timed eager and from a CUDA graph beside their bound:
+``flash_attention`` at the served head_dim 80 shapes (HuBERT-XLarge's
+encoder B=4 S=1024 H=16 non-causal, phi-2's B=1 S=2048 MHA 32/32 causal,
+h2o-danube-1.8b's B=1 S=2048 GQA 32/8 causal in its 4096 window) and, to
+show what the shared template does to them, Zamba2's D=64 and Llama-3-8B's
+D=128 rows at S=2048 (``chip_smoke.flash_case``, SDPA both ways),
 ``decode_attention`` at Llama-3-8B's decode shapes
 (``chip_smoke.max_err``, ``seq_err`` and ``decode_times``, SDPA both ways),
 and ``gla_scan`` at RWKV6-1.6B's prefill shapes (rwkv, H=32, T 128,
 1000 and 2048) and Zamba2's widths (ssd, H=64, T=2048), bf16 q/k/v,
 float32 log_w and u, and the float32 kernel at RWKV6's T=2048 with
-float32 q/k/v (``chip_smoke.GLA_TOL`` and ``gla_times``). Listing
+float32 q/k/v (``chip_smoke.GLA_TOL`` and ``gla_times``). ``--only`` picks
+some of the three (default: all). Listing
 the trees as parent, change, change, parent shows the card's drift within
 the call. One JSON line per (tree, shape); a kernel that disagrees with
 its plain version exits non-zero.
@@ -26,19 +32,37 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SHAPES = ((None, 4096), (4096, 8000))  # (window, longest length) at W = 4096
+# (B, S, H, KV, D, causal, window): HuBERT, phi-2, h2o-danube, Zamba2, Llama
+FLASH_SHAPES = ((4, 1024, 16, 16, 80, False, None), (1, 2048, 32, 32, 80, True, None),
+                (1, 2048, 32, 8, 80, True, 4096), (1, 2048, 32, 32, 64, True, None),
+                (1, 2048, 32, 8, 128, True, None))
 GLA_SHAPES = (("rwkv", 32, 128, "bfloat16"), ("rwkv", 32, 1000, "bfloat16"),
               ("rwkv", 32, 2048, "bfloat16"), ("ssd", 64, 2048, "bfloat16"),
               ("rwkv", 32, 2048, "float32"))  # (mode, H, T, q/k/v) at B = 1, K = V = 64
 
 
-def one(src: Path):
+KERNELS = ("flash", "decode", "gla")
+
+
+def one(src: Path, only):
     import chip_smoke as cs  # puts this checkout's src first on sys.path
     sys.path.insert(0, str(src))
     import repro_torch
     if not Path(repro_torch.__file__).resolve().is_relative_to(src):
         cs.fail(f"imported {repro_torch.__file__}, not the package under {src}")
-    decode(cs, src)
-    gla(cs, src)
+    for name in only:
+        globals()[name](cs, src)
+
+
+def flash(cs, src: Path):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for B, S, H, KV, D, causal, window in FLASH_SHAPES:
+        row = dict(src=str(src), kernel="flash_attention", B=B, S=S, H=H, KV=KV,
+                   D=D, causal=causal, window=window)
+        row.update(cs.flash_case(B, S, H, KV, D, torch.bfloat16, causal, window,
+                                 gen, timed=True))
+        print(json.dumps(row), flush=True)
 
 
 def decode(cs, src: Path):
@@ -89,17 +113,25 @@ def gla(cs, src: Path):
 
 def main():
     args = sys.argv[1:]
+    only = KERNELS
+    if args[:1] == ["--only"]:
+        only = tuple(args[1].split(","))
+        args = args[2:]
+        if not only or not set(only) <= set(KERNELS):
+            sys.exit(f"--only takes some of {','.join(KERNELS)}")
     if args[:1] == ["--one"]:
-        return one(Path(args[1]).resolve())
+        return one(Path(args[1]).resolve(), only)
     import torch
     if not args or not torch.cuda.is_available():
-        sys.exit("usage: chip_ab.py SRC [SRC ...] (on a machine with a card)")
+        sys.exit("usage: chip_ab.py [--only flash,decode,gla] SRC [SRC ...] (on a "
+                 "machine with a card)")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     code = 0
     for src in args:
-        res = subprocess.run([sys.executable, __file__, "--one", src], cwd=ROOT)
+        res = subprocess.run([sys.executable, __file__, "--only", ",".join(only),
+                              "--one", src], cwd=ROOT)
         code = code or res.returncode
     sys.exit(code)
 

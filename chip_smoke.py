@@ -78,8 +78,9 @@ result:
 15. Qwen2-VL-2B at full width as phases 5-7, and one prefill of patch
    embeddings on an M-RoPE (t, h, w) grid, kernel against plain;
 16. HuBERT-XLarge's encoder at full width: one prefill of 4 x 1024 frame
-   embeddings (flash non-causal at head_dim 80, 48 launches), timed and
-   held against the plain path.
+   embeddings (flash non-causal at head_dim 80 on the wgmma route, 48
+   launches), timed and held against the plain path; 16a: where that
+   prefill's time goes (device busy and idle, launches, flash's share).
 
 The line before the last is a JSON object with one entry per kernel (its
 launches summed over the served phases); the last line is ``{"ok": true,
@@ -128,6 +129,7 @@ DECODE_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.
 GLA_REPLACES = "src/repro/kernels/gla_scan/kernel.py:103"
 GLA_SOURCE = "src/repro_torch/kernels/gla_scan/csrc/gla_scan.cu"
 # the wgmma flash path's cases, as in tests/test_torch_card.py
+WGMMA_D = (64, 80, 96, 112, 128)
 WGMMA_S = (1, 63, 64, 127, 128, 129, 1000, 2048)
 WGMMA_MASKS = ((True, None), (True, 64), (True, 1000), (False, None))
 # the decode mma.sync path's cases, as in tests/test_torch_card.py: W = 1024,
@@ -158,6 +160,9 @@ SEQ_TOL = 2e-2
 ROW_TOL = 3e-2
 # gla_scan: the tolerances of tests/test_kernels.py::test_gla_scan_sweep
 GLA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (5e-2, 5e-2)}
+# phase 16's encoder prefill median (ms) when flash ran its mma.sync kernel
+# at head_dim 80: two calls on one H100 80GB HBM3 at 700 W
+HUBERT_MMA_SYNC_MS = (30.85, 41.03)
 MICROGRID_REPLACES = "src/repro/core/microgrid.py:45 (simulate, lax.scan)"
 MICROGRID_SOURCE = "src/repro_torch/kernels/microgrid_scan/csrc/microgrid_scan.cu"
 # dependent float32 operations that carry soc_wh from one step to the next
@@ -292,7 +297,8 @@ def phase_build():
             print(f"  {name}: library reused from an earlier build, "
                   "ptxas output not recorded")
     for dtype, D in [(torch.bfloat16, 128), (torch.bfloat16, 64),
-                     (torch.bfloat16, 80), (torch.bfloat16, 32),
+                     (torch.bfloat16, 80), (torch.bfloat16, 96),
+                     (torch.bfloat16, 112), (torch.bfloat16, 32),
                      (torch.float32, 128)]:
         path, smem = kernel_route(dtype, D)
         print(f"  flash_attention route {dtype} D={D}: {path}, {smem} bytes "
@@ -578,9 +584,10 @@ def phase_kernels() -> dict:
             print(f"decode sweep B={B} W={W} H={H} KV={KV} D={D} {dtype}: "
                   f"{fmt(row)}")
     print("-- flash, the wgmma path's cases (tests/test_torch_card.py: bf16, "
-          "H=8, GQA groups 1/4/8, B 1 and 2, causal / window 64 / window 1000 "
-          "/ non-causal, q x1 and x8), max error per (D, S)")
-    for D in (64, 128):
+          f"D {'/'.join(map(str, WGMMA_D))}, H=8, GQA groups 1/4/8, B 1 and 2, "
+          "causal / window 64 / window 1000 / non-causal, q x1 and x8), max "
+          "error per (D, S)")
+    for D in WGMMA_D:
         for S in WGMMA_S:
             worst, paths, n = 0.0, set(), 0
             for B in (1, 2):
@@ -648,14 +655,18 @@ def phase_kernels() -> dict:
         print(f"{label} q x8: {fmt(row)}")
 
     print("-- the other served families' attention shapes (bf16): HuBERT "
-          "(non-causal, D=80), Mixtral (window 4096 at S=6000), Zamba2 (MHA "
-          "32/32, D=64); SDPA takes Mixtral's band as a boolean mask")
-    for args in ((4, 1024, 16, 16, 80, bf16, False, None),
-                 (1, MIXTRAL_PROMPT, 48, 8, 128, bf16, True, 4096),
-                 (1, 2048, 32, 32, 64, bf16, True, None)):
+          "(non-causal, D=80), phi-2 (MHA 32/32, D=80) and h2o-danube (GQA "
+          "32/8, D=80, window 4096) at S=2048, Mixtral (window 4096 at "
+          "S=6000), Zamba2 (MHA 32/32, D=64); SDPA takes a window as a "
+          "boolean mask")
+    for key, args in (("hubert", (4, 1024, 16, 16, 80, bf16, False, None)),
+                      ("phi2", (1, 2048, 32, 32, 80, bf16, True, None)),
+                      ("danube", (1, 2048, 32, 8, 80, bf16, True, 4096)),
+                      ("mixtral", (1, MIXTRAL_PROMPT, 48, 8, 128, bf16, True, 4096)),
+                      ("zamba2", (1, 2048, 32, 32, 64, bf16, True, None))):
         row = flash_case(*args, gen, timed=True)
         B, S, H, KV, D, _, causal, window = args
-        print(f"flash B={B} S={S} H={H} KV={KV} D={D} causal={causal} "
+        print(f"flash {key} B={B} S={S} H={H} KV={KV} D={D} causal={causal} "
               f"window={window}: {fmt(row)}")
     row = decode_case(8, 4096, 32, 32, 64, bf16, ragged, None, gen, timed=True)
     print(f"decode B=8 W=4096 H=32 KV=32 D=64 (Zamba2) lengths="
@@ -1258,8 +1269,6 @@ def phase_profile(model, params, phase: int, kernel_group: str,
     decode iterations: wall time from an untraced pass, device time from a
     traced pass of the same work. Kernels whose names contain one of
     ``kernel_names`` form the group ``kernel_group``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import ServeRequest, ServingEngine
     cfg = model.cfg
     print(f"== phase {phase}: where the time goes in {cfg.name} "
@@ -1274,45 +1283,51 @@ def phase_profile(model, params, phase: int, kernel_group: str,
     for _ in range(8):
         engine.step()                         # fill the slots: 8 prefills
     prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size, 1024), device="cuda")[None]
-    work = {
-        "prefill": lambda: int(torch.argmax(model.prefill(
-            params, {"tokens": prompt}, 4096, cache=engine.cache, slot=0)[0])),
-        "decode": lambda: [engine.step() for _ in range(4)],
-    }
-    for name, fn in work.items():
+    profile_work("prefill", lambda: int(torch.argmax(model.prefill(
+        params, {"tokens": prompt}, 4096, cache=engine.cache, slot=0)[0])),
+        kernel_group, kernel_names)
+    profile_work("decode", lambda: [engine.step() for _ in range(4)],
+                 kernel_group, kernel_names)
+
+
+def profile_work(name: str, fn, kernel_group: str, kernel_names: tuple):
+    """Wall time of ``fn()`` from an untraced pass, device busy time and
+    kernel time by name from a traced pass of the same work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not kernels:
-            print(f"{name}: the profiler recorded no device activity")
-            continue
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        busy = sum(by_name.values())
-        groups = {kernel_group: 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
-        for kname, ms in by_name.items():
-            low = kname.lower()
-            if any(n in low for n in kernel_names):
-                groups[kernel_group] += ms
-            elif any(t in low for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
-                groups["matmul (cuBLAS)"] += ms
-            else:
-                groups["other"] += ms
-        print(f"{name}: wall {wall_ms:.2f} ms untraced; device busy {busy:.2f} ms "
-              f"traced ({busy / wall_ms:.1%} of wall, idle {1 - busy / wall_ms:.1%}); "
-              f"{len(kernels)} kernel launches")
-        print("  by group: " + "; ".join(f"{k} {v:.2f} ms ({v / busy:.1%})"
-                                         for k, v in groups.items()))
-        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-            print(f"  {ms:8.3f} ms  {kname[:90]}")
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print(f"{name}: the profiler recorded no device activity")
+        return
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    groups = {kernel_group: 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
+    for kname, ms in by_name.items():
+        low = kname.lower()
+        if any(n in low for n in kernel_names):
+            groups[kernel_group] += ms
+        elif any(t in low for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+            groups["matmul (cuBLAS)"] += ms
+        else:
+            groups["other"] += ms
+    print(f"{name}: wall {wall_ms:.2f} ms untraced; device busy {busy:.2f} ms "
+          f"traced ({busy / wall_ms:.1%} of wall, idle {1 - busy / wall_ms:.1%}); "
+          f"{len(kernels)} kernel launches")
+    print("  by group: " + "; ".join(f"{k} {v:.2f} ms ({v / busy:.1%})"
+                                     for k, v in groups.items()))
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"  {ms:8.3f} ms  {kname[:90]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1689,16 +1704,20 @@ def phase_vlm_grid(model, params):
 
 def phase_encoder(model, params):
     """HuBERT at full width: one encoder prefill of seeded frame embeddings
-    at B=4, S=1024 through the non-causal flash kernel (head_dim 80),
-    timed, its launches counted, held against the plain path."""
+    at B=4, S=1024 through the non-causal flash kernel (head_dim 80, the
+    wgmma route), timed, its launches counted, held against the plain path;
+    then where the prefill's time goes (16a)."""
+    from repro_torch.kernels.flash_attention.ops import kernel_route
     from repro_torch.launch.serve import energy_report
     from repro_torch.serve.engine import IterationLog
     cfg = model.cfg
-    B, S = 4, 1024
+    B, S, D = 4, 1024, cfg.attention.head_dim
+    route = kernel_route(torch.bfloat16, D)[0]
     print(f"== phase 16: full-width {cfg.name} encoder prefill, B={B} S={S} "
-          "frame embeddings (non-causal, head_dim "
-          f"{cfg.attention.head_dim}); nvidia-smi name, power.limit: "
-          f"{nvidia_smi('name,power.limit')}")
+          f"frame embeddings (non-causal, head_dim {D}, flash route {route}); "
+          f"nvidia-smi name, power.limit: {nvidia_smi('name,power.limit')}")
+    if route != "wgmma":
+        fail(f"flash at bf16 head_dim {D} takes {route}, not the wgmma kernel")
     gen = torch.Generator(device="cuda").manual_seed(6)
     batch = {"embeds": torch.randn((B, S, cfg.d_model), generator=gen,
                                    device="cuda").to(torch.bfloat16)}
@@ -1720,7 +1739,9 @@ def phase_encoder(model, params):
         durs.append(time.perf_counter() - t)
     med = float(np.median(durs))
     print(f"prefill {B}x{S} frames: median {med * 1e3:.2f} ms over 5 "
-          f"({B * S / med:.0f} frames/s); max_memory_allocated "
+          f"({B * S / med:.0f} frames/s; {HUBERT_MMA_SYNC_MS[0]}-"
+          f"{HUBERT_MMA_SYNC_MS[1]} ms when flash ran mma.sync at head_dim 80, "
+          "H100 80GB HBM3 at 700 W); max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     trace = types.SimpleNamespace(
         logs=[IterationLog(0.0, med, "prefill", B * S, B)], clock=med)
@@ -1728,6 +1749,10 @@ def phase_encoder(model, params):
     print(f"Eq. 1/3 energy {wh * 1000:.4f} mWh, Eq. 4 carbon "
           f"{rep.total_g:.6f} gCO2 per prefill (CI=400, profile {prof.name})")
     check_gap(kernel_vs_plain(params, batch, model, steps=1), cfg.name)
+    print(f"== phase 16a: where the time goes in one {cfg.name} encoder "
+          f"prefill of {B}x{S} frames (torch.profiler)")
+    profile_work("prefill", lambda: model.prefill(params, batch, S),
+                 "flash_attention", ("flash_fwd",))
     return counts
 
 

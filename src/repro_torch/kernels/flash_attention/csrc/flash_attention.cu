@@ -21,40 +21,44 @@
 // work is far above the H100's ~295 FLOP/byte ridge, so it is bound by
 // operations, and only wgmma reaches the tensor cores' full rate. Three
 // kernels, chosen by (dtype, D) in flash_attention_fwd:
-//   - bfloat16 at D = 64 and 128 (Llama-3-8B and the other served D = 64/128
-//     models): flash_fwd_wgmma_kernel, Hopper's shape (FlashAttention-3's).
-//     It replaces, at these head dims, the mma.sync kernel below, and behind
-//     it flash_attention_pallas. A work item is one (batch, head, 128-query
-//     tile); the grid is persistent, one CTA per SM walking its items
-//     heaviest first, so the next item's loads overlap this item's last
-//     tiles instead of every CTA paying its load latency and pipeline fill
-//     alone. A CTA has three warpgroups. The producer warpgroup gives its
-//     registers up (setmaxnreg) and one of its threads loads Q (two
-//     buffers: this item's and the next's) and K/V tiles of 128 keys into
-//     a 2-stage ring in shared memory with TMA (cp.async.bulk.tensor over
-//     4-D maps (D, heads, S, B), 128-byte swizzle, so D = 128 is two
-//     64-column boxes per tile). Each stage has "full" and "empty" mbarriers
-//     for K and for V apart, so Q K^T starts before V lands and the next K
-//     loads as soon as Q K^T is done: loads run ahead of the tensor cores
-//     instead of fencing every tile with __syncthreads. Two consumer
-//     warpgroups of 64 query rows run both products on wgmma: S = Q K^T
-//     with Q and K from shared memory, O += P V with P kept in registers as
-//     the A operand (bf16, in the accumulator layout) and V as an MN-major
-//     B operand. While one group's softmax is on the CUDA cores, the
-//     other's products can be on the tensor cores. (Issuing Q K^T of tile
-//     i + 1 before the softmax of tile i, or making the groups take turns
-//     at the tensor cores, needs ~200 registers a thread; ptxas gave the
-//     consumers 168 whatever setmaxnreg asked, spilled, and ran no faster.)
-//     Softmax runs in exp2 on scores pre-scaled by scale * log2(e); the
-//     causal, window and kpos < S masks run only on tiles that cross a
-//     boundary (zero-filled keys past S score 0, so the last tile is
-//     masked). Output is stored from registers, rows past S unwritten.
-//     The tensor maps are built on the host for each call.
-//   - bfloat16 at the other head dims (16..112 in steps of 16, e.g. D = 80,
-//     D = 32): each warp owns 16 query rows and runs both products with
-//     mma.sync m16n8k16 (bf16 in, float32 accumulate); the score
-//     accumulators are reused in registers as the A operand of P V, as in
-//     FlashAttention-2. Loads are synchronous and single-buffered.
+//   - bfloat16 at D = 64, 80, 96, 112 and 128 (Llama-3-8B and the other served
+//     D = 128 models, Zamba2's D = 64, HuBERT's, phi-2's and h2o-danube's
+//     D = 80): flash_fwd_wgmma_kernel, Hopper's shape (FlashAttention-3's). It
+//     replaces, at these head dims, the mma.sync kernel below, and behind it
+//     flash_attention_pallas. A work item is one (batch, head, 128-query tile);
+//     the grid is persistent, one CTA per SM walking its items heaviest first,
+//     so the next item's loads overlap this item's last tiles instead of every
+//     CTA paying its load latency and pipeline fill alone. A CTA has three
+//     warpgroups. The producer warpgroup gives its registers up (setmaxnreg) and
+//     one of its threads loads Q (two buffers: this item's and the next's) and
+//     K/V tiles of 128 keys into a 2-stage ring in shared memory with TMA
+//     (cp.async.bulk.tensor over 4-D maps (D, heads, S, B), 128-byte swizzle, so
+//     a tile is one 64-column box at D = 64 and two from D = 80 to 128: at
+//     D < 128 the second box is padded in shared memory by TMA's zero fill, not
+//     in device memory, and the products issue only the D real columns: D / 16
+//     k-steps of Q K^T, an n = D product for P V). Each stage has "full" and
+//     "empty" mbarriers for K and for V apart, so Q K^T starts before V lands
+//     and the next K loads as soon as Q K^T is done: loads run ahead of the
+//     tensor cores instead of fencing every tile with __syncthreads. Two
+//     consumer warpgroups of 64 query rows run both products on wgmma: S = Q K^T
+//     with Q and K from shared memory, O += P V with P kept in registers as the
+//     A operand (bf16, in the accumulator layout) and V as an MN-major B
+//     operand. Each group issues Q K^T of tile j with P V of tile j - 1 and runs
+//     the softmax of tile j while P V is on the tensor cores (FlashAttention-3's
+//     intra-warpgroup overlap); the consumers take up to 240 registers
+//     (setmaxnreg; ptxas reports the 168 of the launch). Below D = 128 the
+//     softmax weighs as much as the products: a tile's 128 x 128 scores are
+//     16,384 exp2 on 16 special-function lanes per SM, ~1,000 cycles, against
+//     ~1,300 cycles of tensor-core work at D = 80. Softmax runs in exp2 on scores
+//     pre-scaled by scale * log2(e); the causal, window and kpos < S masks run
+//     only on tiles that cross a boundary (zero-filled keys past S score 0, so
+//     the last tile is masked). Output is stored from registers, rows past S
+//     unwritten. The tensor maps are built on the host for each call.
+//   - bfloat16 at D = 16, 32 and 48 (no served model): each warp owns 16 query
+//     rows and runs both products with mma.sync m16n8k16 (bf16 in, float32
+//     accumulate); the score accumulators are reused in registers as the A
+//     operand of P V, as in FlashAttention-2. Loads are synchronous and
+//     single-buffered.
 //   - float32 (tests and float32 models): float32 FMAs on shared-memory
 //     tiles, which keep full float32 precision (TF32 tensor cores would not).
 // A refused launch or a failed tensor-map encode returns its error; there is
@@ -487,9 +491,8 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
   switch (D) {
 #define REPRO_FLASH_CASE(DD) \
   case DD: return launch_bf16<DD>(q, k, v, o, B, S, H, KV, scale, causal, window, stream);
-    // D = 64 and 128 run flash_fwd_wgmma_kernel (see route)
+    // D = 64..128 run flash_fwd_wgmma_kernel (see route)
     REPRO_FLASH_CASE(16) REPRO_FLASH_CASE(32) REPRO_FLASH_CASE(48)
-    REPRO_FLASH_CASE(80) REPRO_FLASH_CASE(96) REPRO_FLASH_CASE(112)
 #undef REPRO_FLASH_CASE
     default: return cudaErrorInvalidValue;
   }
@@ -511,13 +514,17 @@ constexpr int KV_BOX = WG_BK * 128;  // bytes of one [WG_BK rows][64 columns] bo
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory: two Q tiles (this item's and the next's), then WG_STAGES x
-// (K tile, V tile), then the barriers. A tile is D / 64 boxes of
+// (K tile, V tile), then the barriers. A tile is NB = ceil(D / 64) boxes of
 // [rows][64 columns], each row 128 bytes, 128-byte swizzled by TMA in
-// 1024-byte atoms of 8 rows.
+// 1024-byte atoms of 8 rows. At D = 80, 96 and 112 the second box holds
+// columns 64..D-1 and TMA zero-fills the rest (the map's width is D), so
+// device memory is read for D columns only; the products never read the
+// fill: Q K^T takes D / 16 k-steps and P V an n = D product.
 template <int D>
 struct WgSmem {
-  static constexpr int Q_TILE = (D / BOX_COLS) * Q_BOX;
-  static constexpr int KV_TILE = (D / BOX_COLS) * KV_BOX;
+  static constexpr int NB = (D + BOX_COLS - 1) / BOX_COLS;
+  static constexpr int Q_TILE = NB * Q_BOX;
+  static constexpr int KV_TILE = NB * KV_BOX;
   static constexpr int DATA = 2 * Q_TILE + 2 * WG_STAGES * KV_TILE;
   static constexpr int N_BARS = 4 + 4 * WG_STAGES;  // q_full/empty[2], k/v_full/empty[]
   static constexpr int BYTES = 1024 + DATA + 8 * N_BARS;  // 1024: slack to align the base
@@ -649,54 +656,90 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x 128, float32) += A (64 x 16, registers) * B (16 x 128, shared memory,
-// MN-major: the last immediate, trans-b, is 1).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+// d (64 x N, float32) += A (64 x 16, registers) * B (16 x N, shared memory,
+// MN-major: the last immediate, trans-b, is 1), N = D, the head dim. At
+// D = 80, 96 and 112 the N columns span one full 64-column swizzle atom and
+// part of the next (lbo further on).
+#define ACC8(i)                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46,"
+      "%47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<112>(float (&d)[56], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46,"
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
                                               uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46,"
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      "%62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
-
-// d (64 x 64, float32) += A (64 x 16, registers) * B (16 x 64, shared memory,
-// MN-major: the last immediate, trans-b, is 1).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+#undef ACC8
 
 // S = Q K^T for one consumer warpgroup: 64 rows x WG_BK keys, D / 16 k-steps
 // of 16 columns; a k-step moves 32 bytes along a 128-byte swizzled row and
-// every 4 k-steps to the next 64-column box. Issued, not waited for.
+// every 4 k-steps to the next 64-column box (D = 80: four k-steps in the
+// first box, one in the second). Issued, not waited for.
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&sacc)[WG_BK / 2], uint32_t q_rows,
                                          uint32_t k_tile) {
@@ -713,8 +756,7 @@ __device__ __forceinline__ void issue_qk(float (&sacc)[WG_BK / 2], uint32_t q_ro
 
 // O += P V: P in registers, in the A layout of keys [16 kk, 16 kk + 16); V
 // the MN-major B operand, where a k-step of 16 keys is 2048 bytes of a box
-// and the second 64 columns lie one box (lbo) further. Issued, not waited
-// for.
+// and columns 64.. lie one box (lbo) further. Issued, not waited for.
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
                                          const uint32_t (&pa)[WG_BK / 16][4],
@@ -722,23 +764,20 @@ __device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
   const uint64_t dv0 = sw128_desc(v_tile, KV_BOX, 1024);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < WG_BK / 16; ++kk) {
-    const uint64_t dv = desc_plus(dv0, kk * 2048);
-    if constexpr (D == 128) wgmma_rs_n128(oacc, pa[kk], dv);
-    else wgmma_rs_n64(oacc, pa[kk], dv);
-  }
+  for (int kk = 0; kk < WG_BK / 16; ++kk)
+    wgmma_rs<D>(oacc, pa[kk], desc_plus(dv0, kk * 2048));
   wgmma_commit();
 }
 
 // One tile of the online softmax for rows row0 and row1 = row0 + 8 of a
 // thread (lane = 4 g + t holds keys k0 + 8 j + 2 t, + 1 of every n8 block
 // j). Masks only when `masked`; updates m (log2 units) and the per-lane
-// partial l; writes P as bf16 A fragments and returns the factors by which
-// the previous accumulator must be scaled. A row with no unmasked score
+// partial l; leaves the probabilities in sacc (pack_p makes them P V's A
+// operand) and returns the factors by which the previous accumulator must
+// be scaled. A row with no unmasked score
 // yet keeps m = -inf and takes 0 as its exp2 reference, so every exp2 is of
 // -inf or of a finite number, never of inf - inf.
 __device__ __forceinline__ void softmax_tile(float (&sacc)[WG_BK / 2],
-                                             uint32_t (&pa)[WG_BK / 16][4],
                                              float& m0, float& m1, float& l0,
                                              float& l1, float& alpha0, float& alpha1,
                                              bool masked, int k0, int row0, int t,
@@ -787,6 +826,11 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[WG_BK / 2],
   }
   l0 = l0 * alpha0 + rs0;  // per-lane partial sums; the quad is summed at the end
   l1 = l1 * alpha1 + rs1;
+}
+
+// The probabilities as bf16 A fragments of P V (keys [16 kk, 16 kk + 16)).
+__device__ __forceinline__ void pack_p(const float (&sacc)[WG_BK / 2],
+                                       uint32_t (&pa)[WG_BK / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < WG_BK / 16; ++kk) {
     pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
@@ -841,7 +885,7 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
                        __nv_bfloat16* __restrict__ o, int B, int S, int H, int KV,
                        float scale_log2, int causal, int window) {
   using L = WgSmem<D>;
-  constexpr int NB = D / BOX_COLS;  // boxes per tile row
+  constexpr int NB = L::NB;  // boxes per tile row
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   const uint32_t base = (smem_u32(wg_smem) + 1023u) & ~1023u;
   const uint32_t bars = base + L::DATA;
@@ -912,9 +956,13 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
     // Consumers: warpgroup cw owns query rows q0 + 64 cw .. + 63 of each
     // item. Thread (warp w of the group, lane = 4 g + t) holds rows
     // 16 w + g and 16 w + g + 8 of them, and columns 8 j + 2 t, + 1 of every
-    // n8 block j (wgmma's accumulator layout). Per KV tile: Q K^T, softmax,
-    // P V; while one group's softmax is on the CUDA cores, the other's
-    // products can be on the tensor cores.
+    // n8 block j (wgmma's accumulator layout). Q K^T of tile j and P V of
+    // tile j - 1 are issued together; the softmax of tile j runs while P V
+    // is on the tensor cores, and the accumulator is rescaled once P V is
+    // done (FlashAttention-3's intra-warpgroup overlap). The first tile is
+    // peeled so that no wgmma is issued under a branch: ptxas serialises
+    // every wgmma of a kernel where one is. While one group's softmax is on
+    // the CUDA cores, the other's products can be on the tensor cores too.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     const int cw = wg - 1;
     const int tid = threadIdx.x - 128 * wg;
@@ -934,26 +982,45 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
       float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // m in log2 units
       mbar_wait(q_full(qb), (r >> 1) & 1);
 
-      for (int j = 0; j < it.n_tiles; ++j, ++g) {
+      // a tile needs masks only where it crosses the diagonal, the window's
+      // edge or S; zero-filled keys past S score 0, not -inf, so the last
+      // tile is masked too
+      auto masked = [&](int k0) {
+        return k0 + WG_BK > S || (causal && k0 + WG_BK - 1 > qlo) ||
+               (window > 0 && k0 <= qlo + 63 - window);
+      };
+      uint32_t pa[WG_BK / 16][4];  // P of the tile whose P V is issued next
+      int ps = g % WG_STAGES, pparity = (g / WG_STAGES) & 1;  // and its stage
+      {
+        float sacc[WG_BK / 2], alpha0, alpha1;
+        mbar_wait(k_full(ps), pparity);
+        issue_qk<D>(sacc, q_rows, k_tile(ps));
+        wgmma_wait<0>();
+        fence_regs(sacc);
+        mbar_arrive(k_empty(ps));
+        if (it.n_tiles == 1) mbar_arrive(q_empty(qb));  // Q of this item is read
+        softmax_tile(sacc, m0, m1, l0, l1, alpha0, alpha1, masked(it.k_begin),
+                     it.k_begin, row0, t, S, causal, window, scale_log2);
+        pack_p(sacc, pa);  // the accumulator is still 0: no rescale
+        ++g;
+      }
+      for (int j = 1; j < it.n_tiles; ++j, ++g) {
         const int s = g % WG_STAGES, parity = (g / WG_STAGES) & 1;
         const int k0 = it.k_begin + j * WG_BK;
-        float sacc[WG_BK / 2];
+        float sacc[WG_BK / 2], alpha0, alpha1;
         mbar_wait(k_full(s), parity);
+        mbar_wait(v_full(ps), pparity);
         issue_qk<D>(sacc, q_rows, k_tile(s));
-        wgmma_wait<0>();
+        issue_pv<D>(oacc, pa, v_tile(ps));
+        wgmma_wait<1>();  // Q K^T is done; P V may still run
         fence_regs(sacc);
         mbar_arrive(k_empty(s));
         if (j == it.n_tiles - 1) mbar_arrive(q_empty(qb));  // Q of this item is read
-
-        // a tile needs masks only where it crosses the diagonal, the
-        // window's edge or S; zero-filled keys past S score 0, not -inf, so
-        // the last tile is masked too
-        const bool masked = k0 + WG_BK > S || (causal && k0 + WG_BK - 1 > qlo) ||
-                            (window > 0 && k0 <= qlo + 63 - window);
-        float alpha0, alpha1;
-        uint32_t pa[WG_BK / 16][4];
-        softmax_tile(sacc, pa, m0, m1, l0, l1, alpha0, alpha1, masked, k0, row0, t,
+        softmax_tile(sacc, m0, m1, l0, l1, alpha0, alpha1, masked(k0), k0, row0, t,
                      S, causal, window, scale_log2);
+        wgmma_wait<0>();
+        fence_regs(oacc);
+        mbar_arrive(v_empty(ps));
 #pragma unroll
         for (int jj = 0; jj < D / 8; ++jj) {
           oacc[4 * jj] *= alpha0;
@@ -961,13 +1028,15 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
           oacc[4 * jj + 2] *= alpha1;
           oacc[4 * jj + 3] *= alpha1;
         }
-
-        mbar_wait(v_full(s), parity);
-        issue_pv<D>(oacc, pa, v_tile(s));
-        wgmma_wait<0>();
-        fence_regs(oacc);
-        mbar_arrive(v_empty(s));
+        pack_p(sacc, pa);
+        ps = s;
+        pparity = parity;
       }
+      mbar_wait(v_full(ps), pparity);  // the last tile's P V
+      issue_pv<D>(oacc, pa, v_tile(ps));
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      mbar_arrive(v_empty(ps));
 
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
@@ -1084,12 +1153,26 @@ Route route(int dtype, int D, size_t* smem) {
     return ROUTE_FMA;
   }
   if (dtype != 1) return ROUTE_NONE;
-  if (D == 64 || D == 128) {
-    *smem = D == 64 ? WgSmem<64>::BYTES : WgSmem<128>::BYTES;
-    return ROUTE_WGMMA;
+  if (D < 64) {
+    *smem = mma_smem_bytes(D);
+    return ROUTE_MMA;
   }
-  *smem = mma_smem_bytes(D);
-  return ROUTE_MMA;
+  // one 64-column box per tile row at D = 64, two from D = 80 to 128
+  *smem = D == 64 ? WgSmem<64>::BYTES : WgSmem<128>::BYTES;
+  return ROUTE_WGMMA;
+}
+
+cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
+                           int B, int S, int H, int KV, int D, float scale,
+                           int causal, int window, cudaStream_t stream) {
+  switch (D) {
+#define REPRO_FLASH_CASE(DD) \
+  case DD: return launch_wgmma<DD>(q, k, v, o, B, S, H, KV, scale, causal, window, stream);
+    REPRO_FLASH_CASE(64) REPRO_FLASH_CASE(80) REPRO_FLASH_CASE(96)
+    REPRO_FLASH_CASE(112) REPRO_FLASH_CASE(128)
+#undef REPRO_FLASH_CASE
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1109,10 +1192,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     case ROUTE_FMA:
       return (int)launch_f32(q, k, v, o, B, S, H, KV, D, scale, causal, window, st);
     case ROUTE_WGMMA:
-      return D == 128 ? (int)launch_wgmma<128>(q, k, v, o, B, S, H, KV, scale,
-                                               causal, window, st)
-                      : (int)launch_wgmma<64>(q, k, v, o, B, S, H, KV, scale,
-                                              causal, window, st);
+      return (int)dispatch_wgmma(q, k, v, o, B, S, H, KV, D, scale, causal,
+                                 window, st);
     default:
       return (int)dispatch_bf16(q, k, v, o, B, S, H, KV, D, scale, causal,
                                 window, st);

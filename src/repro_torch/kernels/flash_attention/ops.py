@@ -4,9 +4,9 @@
 and returns (B, S, H, D). On CPU tensors it runs the plain version
 (``ref.attention_reference``); on CUDA tensors it launches the kernel or
 raises. The C entry point picks the kernel by (dtype, head_dim): bf16 at
-64 and 128 runs the TMA + wgmma kernel, other bf16 head dims the mma.sync
-kernel, float32 the FMA kernel. ``flash_attention.launches`` counts kernel
-launches.
+64, 80, 96, 112 and 128 runs the TMA + wgmma kernel (bound by operations: it
+reaches the tensor cores' rate), bf16 at 16, 32 and 48 the mma.sync kernel,
+float32 the FMA kernel. ``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 

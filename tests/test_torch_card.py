@@ -20,6 +20,8 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels.decode_attention.ops import kernel_route, split_plan
 from repro_torch.kernels.flash_attention import (attention_reference,
                                                  flash_attention)
+from repro_torch.kernels.flash_attention.ops import \
+    kernel_route as flash_route
 from repro_torch.kernels.gla_scan import gla_scan, gla_scan_reference
 from repro_torch.kernels.gla_scan import ops as gla_ops
 from repro_torch.kernels.gla_scan.ops import kernel_route as gla_route
@@ -30,11 +32,13 @@ FLASH_SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 64),
                 (1, 200, 8, 1, 32),   # unpadded seq, MQA
                 (2, 64, 6, 3, 80)]    # odd heads / head_dim
 FLASH_MASKS = [(True, None), (True, 64), (False, None)]
-# The wgmma path (bf16 at head_dim 64 and 128): S on both sides of the 64-row
-# consumer and 128-row tiles, batch 1 and 2, GQA groups 1, 4 and 8 of H = 8,
-# causal, windows 64 and 1000, non-causal; q scaled x8 as well, so that
-# scores (standard deviation 8) reach about +-60 and exercise the exp2
-# rescaling.
+# The wgmma path (bf16 at head_dim 64, 80, 96, 112 and 128: one 64-column
+# box per tile row at 64, two at the others, the second zero-filled past D
+# below 128): S on both sides of the 64-row consumer and 128-row tiles,
+# batch 1 and 2, GQA groups 1, 4 and 8 of H = 8, causal, windows 64 and
+# 1000, non-causal; q scaled x8 as well, so that scores (standard deviation
+# 8) reach about +-60 and exercise the exp2 rescaling.
+WGMMA_D = [64, 80, 96, 112, 128]
 WGMMA_S = [1, 63, 64, 127, 128, 129, 1000, 2048]
 WGMMA_MASKS = [(True, None), (True, 64), (True, 1000), (False, None)]
 # (B, S, H, KV, D, dtype, causal, window, amp): amp scales q
@@ -43,7 +47,7 @@ FLASH_CASES = (
      for B, S, H, KV, D in FLASH_SHAPES for dtype in DTYPES
      for causal, window in FLASH_MASKS]
     + [(B, S, 8, 8 // group, D, "bfloat16", causal, window, amp)
-       for D in (64, 128) for S in WGMMA_S for B in (1, 2)
+       for D in WGMMA_D for S in WGMMA_S for B in (1, 2)
        for group in (1, 4, 8) for causal, window in WGMMA_MASKS
        for amp in (1, 8)])
 DECODE_SHAPES = [(2, 512, 8, 2, 64), (1, 1024, 4, 4, 128), (3, 300, 6, 3, 80)]
@@ -108,6 +112,10 @@ def _flash_inputs(seed, B, S, H, KV, D, dtype, amp=1):
 def test_flash_kernel_matches_plain_on_card(B, S, H, KV, D, dtype, causal,
                                             window, amp):
     _cuda_or_skip()
+    _flash_cases_hold(B, S, H, KV, D, dtype, causal, window, amp)
+
+
+def _flash_cases_hold(B, S, H, KV, D, dtype, causal, window, amp):
     q, k, v = _flash_inputs(0, B, S, H, KV, D, dtype, amp)
     n = flash_attention.launches
     out = flash_attention(q, k, v, causal=causal, window=window)
@@ -120,7 +128,33 @@ def test_flash_kernel_matches_plain_on_card(B, S, H, KV, D, dtype, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("amp", [1, 8])
+def test_flash_kernel_matches_plain_at_hubert_shape_on_card(amp):
+    """HuBERT-XLarge's encoder as served: B=4, S=1024, 16 heads of 80,
+    non-causal, on the wgmma path."""
+    _cuda_or_skip()
+    assert flash_route(torch.bfloat16, 80)[0] == "wgmma"
+    _flash_cases_hold(4, 1024, 16, 16, 80, "bfloat16", False, None, amp)
+
+
+@pytest.mark.cuda
+def test_flash_routes_by_dtype_and_head_dim_on_card():
+    """bf16 at 64..128 takes the TMA + wgmma kernel, below 64 mma.sync;
+    float32 the FMA kernel; a head dim off the grid of 16 none."""
+    _cuda_or_skip()
+    for D in WGMMA_D:
+        assert flash_route(torch.bfloat16, D)[0] == "wgmma"
+    for D in (16, 32, 48):
+        assert flash_route(torch.bfloat16, D)[0] == "mma.sync"
+    for D in [16, 32, 48] + WGMMA_D:
+        assert flash_route(torch.float32, D)[0] == "fma"
+    assert flash_route(torch.bfloat16, 72)[0] is None
+    # at D = 80..128 a tile is two 64-column boxes: D = 128's shared memory
+    assert len({flash_route(torch.bfloat16, D)[1] for D in WGMMA_D[1:]}) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", WGMMA_D)
 def test_flash_kernel_is_deterministic_on_card(D):
     """Two launches on the same input give the same bits."""
     _cuda_or_skip()
@@ -132,11 +166,12 @@ def test_flash_kernel_is_deterministic_on_card(D):
 
 
 @pytest.mark.cuda
-def test_flash_wrapper_refuses_misaligned_views_on_card():
+@pytest.mark.parametrize("D", [80, 128])
+def test_flash_wrapper_refuses_misaligned_views_on_card(D):
     """A view 2 bytes into its storage is contiguous but not 16-byte
     aligned, which TMA cannot take: the wrapper raises before any launch."""
     _cuda_or_skip()
-    B, S, H, D = 1, 64, 2, 128
+    B, S, H = 1, 64, 2
     n = B * S * H * D
     q = torch.zeros(n + 8, dtype=torch.bfloat16, device="cuda")[1:n + 1]
     q = q.view(B, S, H, D)

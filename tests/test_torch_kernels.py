@@ -104,17 +104,18 @@ def test_cpu_tensors_never_launch_a_kernel():
     assert (flash_attention.launches, decode_attention.launches) == before
 
 
-# Edges of the card's wgmma path (bf16, head_dim 128, 128-row tiles): S below,
-# at and past a tile, windows that end inside a tile, q scaled x8 (scores of standard deviation
-# 8, reaching about +-60). Here
-# the plain version runs; it is held to the JAX oracle in float32, so that
-# the card tests, which hold the kernel to the plain version, rest on it.
+# Edges of the card's wgmma path (bf16, 128-row tiles; head_dim 128, and 80,
+# 96 and 112, whose second 64-column box is zero-filled past D): S below, at
+# and past a tile, windows that end inside a tile, q scaled x8 (scores of
+# standard deviation 8, reaching about +-60). Here the plain version runs; it
+# is held to the JAX oracle in float32, so that the card tests, which hold
+# the kernel to the plain version, rest on it.
+@pytest.mark.parametrize("D", [80, 96, 112, 128])
 @pytest.mark.parametrize("S", [1, 129])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 64), (False, None)])
-def test_flash_plain_matches_oracle_at_wgmma_edges(S, causal, window):
+def test_flash_plain_matches_oracle_at_wgmma_edges(D, S, causal, window):
     (q, k, v), (jq, jk, jv) = _inputs(np.random.default_rng(5), "float32",
-                                      (2, S, 8, 128), (2, S, 2, 128),
-                                      (2, S, 2, 128))
+                                      (2, S, 8, D), (2, S, 2, D), (2, S, 2, D))
     out = flash_attention(8 * q, k, v, causal=causal, window=window)
     tr = lambda x: x.transpose(0, 2, 1, 3)
     oracle = tr(jax_flash_ref(tr(8 * jq), tr(jk), tr(jv), causal=causal,
