@@ -34,6 +34,13 @@ result:
    trace, seeded random loads under four batteries, no battery, a batch
    of traces, T = 0, traces longer than one shared-memory window) and
    timed at Table 2's 1800 steps beside its bound and the serial chain's;
+   flash attention's backward kernels (and the forward's lse) against the
+   plain backward (``attention_backward_reference``) over the card tests'
+   grid (float32 at 2e-4, bf16 at 2e-2 of each gradient's largest
+   magnitude; two launches bit-identical), then timed at the training
+   shapes (smollm-360m's, Llama's widths, h2o-danube's D=80 window, one
+   float32) beside their bound, the plain backward and SDPA's backward; and
+   the forward at smollm-360m's H=15/KV=5;
 4. Llama-3-8B at full width served through the launcher
    (``repro_torch.launch.serve.main``);
 5. the main path: Llama-3-8B at full width served by ``ServingEngine`` with
@@ -80,10 +87,20 @@ result:
 16. HuBERT-XLarge's encoder at full width: one prefill of 4 x 1024 frame
    embeddings (flash non-causal at head_dim 80 on the wgmma route, 48
    launches), timed and held against the plain path; 16a: where that
-   prefill's time goes (device busy and idle, launches, flash's share).
+   prefill's time goes (device busy and idle, launches, flash's share);
+17. training: smollm-360m at its published widths (float32 masters, bf16
+   compute) through ``repro_torch.launch.train.main``, 20 steps of
+   SyntheticLM at seq 2048 batch 8, then a restart that resumes from the
+   committed step 20 and runs to 24; the losses must be finite and fall by
+   0.3 from the first five to the last five, flash's forward and backward
+   launch once per layer and step, peak memory under 80 GB; it prints step
+   ms, tokens/s, MFU and checkpoint write seconds. 17a holds one step's
+   gradients through the kernels against the plain einsum path (B=1), 17b
+   gradient accumulation 4 against 1, both per leaf within 5e-2 relative
+   Frobenius; 17c: where a step's time goes (torch.profiler).
 
 The line before the last is a JSON object with one entry per kernel (its
-launches summed over the served phases); the last line is ``{"ok": true,
+launches summed over the served phases and training); the last line is ``{"ok": true,
 "device": {...}}``. Weights are random, drawn on the card from a seeded
 generator.
 """
@@ -93,8 +110,10 @@ import argparse
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -163,6 +182,20 @@ GLA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (5e-2, 5e-2)}
 # phase 16's encoder prefill median (ms) when flash ran its mma.sync kernel
 # at head_dim 80: two calls on one H100 80GB HBM3 at 700 W
 HUBERT_MMA_SYNC_MS = (30.85, 41.03)
+FLASH_BWD_REPLACES = ("src/repro/models/attention.py:172 (_flash_core's custom "
+                      "VJP, _flash_bwd_padded)")
+# phase 3's backward tolerance: of each gradient's largest magnitude (a
+# gradient that cancels to rounding noise at 1e-2 of the largest of the
+# three); lse's absolute tolerance
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+# phase 17: smollm-360m trained at its published widths
+TRAIN_ARCH = "smollm-360m"
+TRAIN_SEQ, TRAIN_BATCH = 2048, 8
+TRAIN_STEPS, RESTART_STEPS = 20, 24
+TRAIN_MARGIN = 0.3          # tests/test_train_serve_integration.py:40
+GRAD_TOL = 5e-2             # phase 17a/b: relative Frobenius per leaf
+MFU_PEAK_FLOPS = 989.4e12   # H100 SXM dense bf16, for the training MFU
 MICROGRID_REPLACES = "src/repro/core/microgrid.py:45 (simulate, lax.scan)"
 MICROGRID_SOURCE = "src/repro_torch/kernels/microgrid_scan/csrc/microgrid_scan.cu"
 # dependent float32 operations that carry soc_wh from one step to the next
@@ -371,16 +404,94 @@ def flash_case(B, S, H, KV, D, dtype, causal, window, gen, timed=False,
         library = lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=True)
-        qpos = torch.arange(S)
-        n_keys = (qpos + 1) if causal else torch.full((S,), S)
-        if window is not None:
-            n_keys = torch.minimum(n_keys, torch.tensor(window))
-        flops = 4.0 * D * H * B * float(n_keys.sum())
+        flops = 4.0 * D * H * B * visible_pairs(S, causal, window)
         nbytes = (2 * B * S * H * D + 2 * B * S * KV * D) * q.element_size()
         row.update(ms=time_ms(kernel, 20), plain_ms=time_ms(plain, 5),
                    library_ms=time_ms(library, 20), graph_ms=graph_ms(kernel),
                    library_graph_ms=graph_ms(library))
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
+    return row
+
+
+def visible_pairs(S: int, causal: bool, window) -> float:
+    """(query, key) pairs the mask lets through in one (batch, head)."""
+    qpos = torch.arange(S)
+    n_keys = (qpos + 1) if causal else torch.full((S,), S)
+    if window is not None:
+        n_keys = torch.minimum(n_keys, torch.tensor(window))
+    return float(n_keys.sum())
+
+
+def flash_bwd_case(B, S, H, KV, D, dtype, causal, window, gen, timed=False,
+                   amp=1):
+    """The backward kernels (and the forward's lse) against their plain
+    versions, fed the kernel forward's o and lse; two launches bit-identical.
+    ``timed``: eager and graph ms, the bound (10 D flops per visible pair and
+    head), the plain backward's ms and SDPA's backward alone (autograd.grad
+    with retain_graph on one retained SDPA forward); beside them the
+    forward's eager ms without lse (serving's) and with it (training's)."""
+    from repro_torch.kernels.flash_attention import (
+        attention_backward_reference, attention_forward_reference,
+        flash_attention, flash_attention_bwd, flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ops import kernel_route
+    q = randn((B, S, H, D), dtype, gen) * amp
+    k, v = randn((B, S, KV, D), dtype, gen), randn((B, S, KV, D), dtype, gen)
+    do = randn((B, S, H, D), dtype, gen)
+    tr = lambda x: x.transpose(1, 2)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    kernel = lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                         window=window)
+    plain = lambda: attention_backward_reference(
+        tr(q), tr(k), tr(v), tr(out), lse, tr(do), causal=causal, window=window)
+    grads, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        fail("two backward launches on the same inputs differ")
+    _, ref_lse = attention_forward_reference(tr(q), tr(k), tr(v), causal=causal,
+                                             window=window)
+    lse_err = float((lse - ref_lse).abs().max())
+    if not lse_err <= LSE_TOL[dtype]:
+        fail(f"forward lse differs from the plain version's by {lse_err:.3e}")
+    refs = [tr(r).float() for r in plain()]
+    largest = max(float(r.abs().max()) for r in refs)
+    errs = []
+    for name, got, want in zip("qkv", grads, refs):
+        if not torch.isfinite(got).all():
+            fail(f"d{name} is not finite")
+        scale = max(float(want.abs().max()), 1e-2 * largest)
+        errs.append(float((got.float() - want).abs().max()) / scale)
+        if not errs[-1] <= BWD_TOL[dtype]:
+            fail(f"backward d{name} disagrees with its plain version: "
+                 f"{errs[-1]:.3e} of its largest magnitude")
+    row = {"max_abs_err": max(float((g.float() - r).abs().max())
+                              for g, r in zip(grads, refs)),
+           "rel_err": errs, "lse_err": lse_err,
+           "path": kernel_route(dtype, D, backward=True)[0]}
+    if timed:
+        qt, kt, vt = (tr(x).detach().contiguous().requires_grad_()
+                      for x in (q, k, v))
+        mask = None
+        if window is not None:   # SDPA has no window: the band as a mask
+            pos = torch.arange(S, device="cuda")
+            mask = (pos[None, :] > pos[:, None] - window) & (
+                pos[None, :] <= pos[:, None] if causal else True)
+        sdpa = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+        g = tr(do).contiguous()
+        library = lambda: torch.autograd.grad(sdpa, (qt, kt, vt), g,
+                                              retain_graph=True)
+        flops = 10.0 * D * H * B * visible_pairs(S, causal, window)
+        nbytes = ((4 * B * S * H * D + 4 * B * S * KV * D) * q.element_size()
+                  + 2 * B * H * S * 4)    # q, o, do, dq; k, v, dk, dv; lse, delta
+        row.update(ms=time_ms(kernel, 10), plain_ms=time_ms(plain, 3, warmup=1),
+                   library_ms=time_ms(library, 10), graph_ms=graph_ms(kernel, 10),
+                   fwd_ms=time_ms(lambda: flash_attention(
+                       q, k, v, causal=causal, window=window), 20),
+                   fwd_lse_ms=time_ms(lambda: flash_attention_fwd(
+                       q, k, v, causal=causal, window=window), 20))
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
+        del sdpa
     return row
 
 
@@ -543,6 +654,9 @@ def gla_times(kernel, q, k, v, log_w, u, mode) -> dict:
 
 def fmt(row: dict) -> str:
     parts = [f"max_err={row['max_abs_err']:.3e}"]
+    if "rel_err" in row:
+        parts.append("rel_err(dq,dk,dv)=" + ",".join(
+            f"{e:.2e}" for e in row["rel_err"]) + f" lse_err={row['lse_err']:.2e}")
     if "seq_err" in row:
         parts.append(f"seq_err={row['seq_err']:.3e}")
     if "path" in row:
@@ -558,6 +672,8 @@ def fmt(row: dict) -> str:
         if "library_graph_ms" in row:
             parts.append(f"library_graph_ms={row['library_graph_ms']:.4f}")
         parts.append(f"graph_of_bound={row['bound_ms'] / row['graph_ms']:.3f}")
+    if "fwd_lse_ms" in row:
+        parts.append(f"fwd_ms={row['fwd_ms']:.4f} fwd_lse_ms={row['fwd_lse_ms']:.4f}")
     if "exps" in row:
         parts.append(f"exps={row['exps']}")
     if "by_kernel" in row:
@@ -671,6 +787,12 @@ def phase_kernels() -> dict:
     row = decode_case(8, 4096, 32, 32, 64, bf16, ragged, None, gen, timed=True)
     print(f"decode B=8 W=4096 H=32 KV=32 D=64 (Zamba2) lengths="
           f"{ragged.tolist()}: {fmt(row)}")
+    row = flash_case(TRAIN_BATCH, TRAIN_SEQ, 15, 5, 64, bf16, True, None, gen,
+                     timed=True)
+    print(f"flash smollm B={TRAIN_BATCH} S={TRAIN_SEQ} H=15 KV=5 D=64 causal "
+          f"(phase 17's forward): {fmt(row)}")
+    rows["flash_smollm"] = row
+    rows.update(phase_flash_backward(gen))
 
     print("-- gla_scan: the tests/test_kernels.py sweep (float32 tol 2e-4, "
           "bfloat16 tol 5e-2; log_w in the input dtype, strong decay)")
@@ -735,6 +857,48 @@ def phase_kernels() -> dict:
                    lw_dtype=torch.float32, timed=True)
     print(f"gla ssd B=1 T=2048 H=64 K=V=64 (Zamba2's served prefill): {fmt(row)}")
     rows["microgrid"] = microgrid_cases()
+    return rows
+
+
+def phase_flash_backward(gen) -> dict:
+    """Phase 3's backward part: the tests' grid, then the training shapes."""
+    print("-- flash backward (tests/test_torch_card.py: float32 fma, bf16 "
+          "mma.sync; H=6, GQA groups 1/3/6, B=2, S 1/63/65/200, causal / "
+          "window 64 / non-causal / non-causal window 50), worst error of "
+          "each gradient's largest magnitude per (dtype, D); tol float32 "
+          "2e-4, bf16 2e-2; lse float32 1e-5, bf16 1e-3; two launches "
+          "bit-identical")
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (16, 32, 48, 64, 80, 96, 112, 128):
+            worst, lse_worst, paths, n = 0.0, 0.0, set(), 0
+            for S in (1, 63, 65, 200):
+                for causal, window in ((True, None), (True, 64), (False, None),
+                                       (False, 50)):
+                    for KV in (6, 2, 1):
+                        row = flash_bwd_case(2, S, 6, KV, D, dtype, causal,
+                                             window, gen)
+                        worst = max(worst, *row["rel_err"])
+                        lse_worst = max(lse_worst, row["lse_err"])
+                        paths.add(row["path"])
+                        n += 1
+            print(f"flash backward cases {dtype} D={D}: {n} cases, path="
+                  f"{'/'.join(sorted(paths))} rel_err={worst:.3e} "
+                  f"lse_err={lse_worst:.3e}")
+    print("-- flash backward at the training shapes (smollm-360m's, Llama's "
+          "widths, h2o-danube's D=80 with its 4096 window inside S=6000, one "
+          "float32); library = SDPA's backward alone")
+    rows = {}
+    bf16 = torch.bfloat16
+    for key, args in (
+            ("flash_bwd_smollm", (TRAIN_BATCH, TRAIN_SEQ, 15, 5, 64, bf16, True, None)),
+            ("flash_bwd_llama", (1, 2048, 32, 8, 128, bf16, True, None)),
+            ("flash_bwd_danube", (1, 6000, 32, 8, 80, bf16, True, 4096)),
+            ("flash_bwd_f32", (1, 1024, 8, 2, 64, torch.float32, True, None))):
+        row = flash_bwd_case(*args, gen, timed=True)
+        B, S, H, KV, D, dtype, causal, window = args
+        print(f"flash backward {key[10:]} B={B} S={S} H={H} KV={KV} D={D} "
+              f"{dtype} causal={causal} window={window}: {fmt(row)}")
+        rows[key] = row
     return rows
 
 
@@ -847,10 +1011,12 @@ def microgrid_cases() -> dict:
 
 def kernel_wrappers() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.gla_scan import gla_scan
     from repro_torch.kernels.microgrid_scan import microgrid_scan
     return {"flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention, "gla_scan": gla_scan,
             "microgrid_scan": microgrid_scan}
 
@@ -1292,7 +1458,8 @@ def phase_profile(model, params, phase: int, kernel_group: str,
 
 def profile_work(name: str, fn, kernel_group: str, kernel_names: tuple):
     """Wall time of ``fn()`` from an untraced pass, device busy time and
-    kernel time by name from a traced pass of the same work."""
+    kernel time by name from a traced pass of the same work; returns
+    (device ms by kernel name, wall ms), or None if nothing was traced."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1307,7 +1474,7 @@ def profile_work(name: str, fn, kernel_group: str, kernel_names: tuple):
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         print(f"{name}: the profiler recorded no device activity")
-        return
+        return None
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
@@ -1328,6 +1495,7 @@ def profile_work(name: str, fn, kernel_group: str, kernel_names: tuple):
                                      for k, v in groups.items()))
     for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  {ms:8.3f} ms  {kname[:90]}")
+    return by_name, wall_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1756,6 +1924,184 @@ def phase_encoder(model, params):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training
+# ---------------------------------------------------------------------------
+
+def check_train_counts(n_layers: int, steps: int, remat: bool = False) -> dict:
+    """Launches since ``reset_counts``: flash's forward (with lse) and its
+    backward once per layer and step (the forward twice with remat), every
+    other kernel never."""
+    got = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    want = dict.fromkeys(got, 0)
+    want["flash_attention"] = n_layers * steps * (2 if remat else 1)
+    want["flash_attention_bwd"] = n_layers * steps
+    print(f"launches {got}; expected {want} ({n_layers} layers x {steps} steps)")
+    if got != want:
+        fail(f"training launch counts {got} != expected {want}")
+    return got
+
+
+def grad_gap(got: dict, want: dict, what: str) -> float:
+    """Worst relative Frobenius distance over the leaves (a leaf whose
+    gradient is 0 relative to 1e-3 of the largest leaf's norm); fails above
+    GRAD_TOL."""
+    floor = 1e-3 * max(float(torch.linalg.vector_norm(w.float()))
+                       for w in want.values())
+    gaps = {name: float(torch.linalg.vector_norm((got[name] - w).float())
+                        / max(float(torch.linalg.vector_norm(w.float())), floor))
+            for name, w in want.items()}
+    name, worst = max(gaps.items(), key=lambda kv: kv[1])
+    print(f"{what}: worst leaf gradient gap {worst:.3e} ({name}; median "
+          f"{float(np.median(list(gaps.values()))):.3e}; tol {GRAD_TOL:.0e})")
+    if not worst <= GRAD_TOL:
+        fail(f"{what}: gradient of {name} differs by {worst:.3e}")
+    return worst
+
+
+def phase_train() -> dict:
+    """Phase 17: smollm-360m at its published widths trained through the
+    launcher: 20 steps, then a restart to 24 from the committed step 20;
+    17a-c: kernel against plain gradients, gradient accumulation, where a
+    step's time goes. Returns the main path's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    cfg = get_config(TRAIN_ARCH)
+    L, tokens = cfg.n_layers, TRAIN_BATCH * TRAIN_SEQ
+    print(f"== phase 17: full-width {TRAIN_ARCH} training through "
+          f"repro_torch.launch.train.main: {L} layers, d_model {cfg.d_model}, "
+          f"GQA {cfg.attention.n_heads}/{cfg.attention.n_kv_heads}, "
+          f"{cfg.param_count() / 1e6:.1f} M parameters, float32 masters, bf16 "
+          f"compute; SyntheticLM seq {TRAIN_SEQ} batch {TRAIN_BATCH} seed 0; "
+          f"{TRAIN_STEPS} steps, then a restart to {RESTART_STEPS}")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        argv = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ), "--batch",
+                str(TRAIN_BATCH), "--ckpt-dir", ckpt]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        print(f"before: nvidia-smi clocks.sm, power.draw: "
+              f"{nvidia_smi('clocks.sm,power.draw')}")
+        reset_counts()
+        out = train.main(argv + ["--steps", str(TRAIN_STEPS)], device="cuda")
+        torch.cuda.synchronize()
+        counts = check_train_counts(L, TRAIN_STEPS)
+        print(f"after: nvidia-smi clocks.sm, power.draw: "
+              f"{nvidia_smi('clocks.sm,power.draw')}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        losses = out["losses"]
+        print("losses " + ", ".join(f"{x:.4f}" for x in losses))
+        if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+            fail(f"{len(losses)} losses of {TRAIN_STEPS}, finite: "
+                 f"{np.isfinite(losses).all()}")
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        print(f"mean of the first 5 losses {first:.4f}, of the last 5 "
+              f"{last:.4f}: fell {first - last:.4f} (gate >= {TRAIN_MARGIN})")
+        if not first - last >= TRAIN_MARGIN:
+            fail(f"the loss fell {first - last:.4f}, under {TRAIN_MARGIN}")
+        step_s = float(np.median(out["step_times"][5:]))
+        writes = out["runner"].manager.timings
+        print(f"step {step_s * 1e3:.2f} ms (median of steps 5-{TRAIN_STEPS - 1}, "
+              f"each to its float(loss)); {tokens / step_s:.0f} tokens/s; MFU "
+              f"{6 * cfg.param_count() * tokens / step_s / MFU_PEAK_FLOPS:.4f} "
+              f"(6 x param_count x tokens / step / {MFU_PEAK_FLOPS / 1e12:.1f} "
+              f"TFLOP/s); max_memory_allocated {peak:.2f} GB")
+        print("checkpoints (step, snapshot s, write s): " + "; ".join(
+            f"{st}, {a:.3f}, {b:.3f}" for st, a, b in writes))
+        if not peak < 80:
+            fail(f"peak device memory {peak:.2f} GB")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        again = train.main(argv + ["--steps", str(RESTART_STEPS)], device="cuda")
+        torch.cuda.synchronize()
+        print(f"restart: from step {again['start_step']} to "
+              f"{again['final_step']}, losses "
+              + ", ".join(f"{x:.4f}" for x in again["losses"]))
+        if (again["start_step"], again["final_step"]) != (TRAIN_STEPS, RESTART_STEPS) \
+                or not np.all(np.isfinite(again["losses"])):
+            fail("the restart did not resume from the committed step "
+                 f"{TRAIN_STEPS} and run to {RESTART_STEPS}")
+        check_train_counts(L, RESTART_STEPS - TRAIN_STEPS)
+        del again
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_train_checks(cfg)
+    return counts
+
+
+def phase_train_checks(cfg):
+    """17a: one step's gradients, kernel against plain, from the same masters
+    and batch (B=1); 17b: gradient accumulation 4 against 1 on one batch of
+    8; 17c: where one training step's time goes."""
+    from repro_torch.models import build_model
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import (accumulated, batch_to,
+                                           make_train_step,
+                                           make_value_and_grad, param_dict)
+    kernel = build_model(cfg)
+    params = param_dict(kernel.init(0, device="cuda", dtype=torch.float32))
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH, seed=0))
+    batch = batch_to(ds.batch(0), "cuda")
+    one = {k: v[:1] for k, v in batch.items()}
+
+    print(f"== phase 17a: one step's gradients at B=1 S={TRAIN_SEQ}, "
+          "attention through the flash kernels against the plain einsum path, "
+          f"same float32 masters and batch; loss within 1e-2 relative, each "
+          f"leaf within {GRAD_TOL:.0e} relative Frobenius")
+    reset_counts()
+    loss_k, _, grads_k = make_value_and_grad(kernel)(params, one)
+    check_train_counts(cfg.n_layers, 1)
+    loss_e, _, grads_e = make_value_and_grad(
+        build_model(cfg, attn_impl="einsum"))(params, one)
+    # relative: the random tied embedding (entries of scale 1) starts the
+    # loss near 212, where bf16's rounding moves it by ~1e-4 of itself
+    gap = abs(float(loss_k) - float(loss_e)) / abs(float(loss_e))
+    print(f"loss kernel {float(loss_k):.6f}, einsum {float(loss_e):.6f}: "
+          f"{gap:.3e} relative")
+    if not gap <= 1e-2:
+        fail(f"kernel and einsum losses differ: {float(loss_k)} {float(loss_e)}")
+    grad_gap(grads_k, grads_e, "kernel vs einsum")
+    del grads_k, grads_e
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"== phase 17b: gradient accumulation 4 against 1 on one batch of "
+          f"{TRAIN_BATCH} (strided microbatches); each leaf within {GRAD_TOL:.0e}")
+    vg = make_value_and_grad(kernel)
+    loss1, _, full = accumulated(vg, params, batch, 1)
+    loss4, _, acc = accumulated(vg, params, batch, 4)
+    print(f"loss full batch {float(loss1):.6f}, mean of 4 microbatches "
+          f"{float(loss4):.6f}")
+    grad_gap(acc, full, "grad_accum 4 vs 1")
+    del full, acc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("== phase 17c: where one training step's time goes (torch.profiler; "
+          f"B={TRAIN_BATCH} S={TRAIN_SEQ}, AdamW included)")
+    step = make_train_step(kernel, AdamWConfig(lr=1e-3, warmup_steps=10,
+                                               total_steps=100))
+    state = adamw_init(params)
+    traced = profile_work("train step", lambda: float(step(params, state, batch)[2]["loss"]),
+                          "flash kernels", ("flash_fwd", "flash_bwd"))
+    if traced is None:
+        fail("the profiler recorded no device activity in a training step")
+    by_name, wall_ms = traced
+    busy = sum(by_name.values())
+    for part, key in (("forward", "flash_fwd"), ("backward", "flash_bwd")):
+        ms = sum(v for n, v in by_name.items() if key in n)
+        print(f"flash {part}: {ms:.2f} ms ({ms / busy:.1%} of device busy, "
+              f"{ms / wall_ms:.1%} of wall)")
+    del params, state, batch
+
+
 def serve_and_check(name: str, phase: int, kernel_names: tuple, **cut):
     """Phases 13-15: the model at full width served by the engine (its
     launches counted), its consistency checks and where its time goes."""
@@ -1780,7 +2126,7 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 17))),
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 18))),
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1859,12 +2205,17 @@ def main():
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
+    if 17 in phases:
+        add_counts(served, phase_train())
     print(f"chip_smoke phases {sorted(phases)} passed in "
           f"{time.perf_counter() - t0:.1f} s")
-    print(f"kernel launches over the served models' phases: {served}")
+    print(f"kernel launches over the main paths' phases (served models, "
+          f"training): {served}")
     kernels = []
     for name, source, replaces, row in (
             ("flash_attention", FLASH_SOURCE, FLASH_REPLACES, "flash_S2048"),
+            ("flash_attention_bwd", FLASH_SOURCE, FLASH_BWD_REPLACES,
+             "flash_bwd_smollm"),
             ("decode_attention", DECODE_SOURCE, DECODE_REPLACES, "decode"),
             ("gla_scan", GLA_SOURCE, GLA_REPLACES, "gla_T2048")):
         if rows and served.get(name):

@@ -1,11 +1,16 @@
-// Flash-attention forward (prefill) for Hopper, sm_90a.
+// Flash attention for Hopper, sm_90a: the forward (prefill and training)
+// and, below it, the backward (training).
 //
-// Replaces the TPU kernel repro/kernels/flash_attention/kernel.py::
+// The forward replaces the TPU kernel repro/kernels/flash_attention/kernel.py::
 // flash_attention_pallas (body _flash_kernel). Same function: online-softmax
 // attention with GQA (query head h reads KV head h / (H / KV)), causal mask
 // kpos <= qpos, sliding-window mask kpos > qpos - window, a ragged tail past
 // S, float32 running max, denominator and accumulator, and the output written
-// once in the input dtype, normalised by 1 / max(l, 1e-37). No backward.
+// once in the input dtype, normalised by 1 / max(l, 1e-37). Given an lse
+// pointer (training) each kernel also writes every row's log-sum-exp, from an
+// instantiation of its own (template flag LSE), so the serving forward keeps
+// its instructions. The Pallas kernel has no backward; the backward kernels
+// replace the reference's XLA custom VJP (see "Backward" below).
 //
 // Translation. The TPU grid walks its KV axis in order and carries (m, l,
 // acc) in VMEM scratch from one grid step to the next. CUDA blocks run in
@@ -88,12 +93,15 @@ __host__ __device__ constexpr size_t smem_bytes(int D) {
 // float32: FMAs on shared-memory tiles
 // ---------------------------------------------------------------------------
 
-// q, o: (B, S, H, D); k, v: (B, S, KV, D); float32, contiguous.
+// q, o: (B, S, H, D); k, v: (B, S, KV, D); float32, contiguous. With LSE,
+// lse (B, H, S) float32 takes each row's natural-log sum of exp(scores).
 // grid: (ceil(S / BQ), H, B); block: THREADS; dynamic smem: smem_bytes(D).
+template <bool LSE>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S, int H,
-                 int KV, int D, float scale, int causal, int window) {
+                 int KV, int D, float scale, int causal, int window,
+                 float* __restrict__ lse) {
   extern __shared__ float smem[];
   const int ldq = D + 1;
   float* Qs = smem;               // [BQ][D + 1]
@@ -225,27 +233,31 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
       if (j < nd) orow[tx + 16 * j] = acc[i][j] * inv;
+    // m and l are whole-row values in every lane of the row group
+    if constexpr (LSE)
+      if (tx == 0) lse[((size_t)b * H + h) * S + qpos] = m[i] + logf(l[i]);
   }
 }
 
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-                   int S, int H, int KV, int D, float scale, int causal,
-                   int window, cudaStream_t stream) {
+template <bool LSE>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int S, int H, int KV, int D,
+                       float scale, int causal, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32_kernel<LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   // two CTAs of ~113 KB share an SM only with the whole carveout as shared memory
-  err = cudaFuncSetAttribute(flash_fwd_f32_kernel,
+  err = cudaFuncSetAttribute(flash_fwd_f32_kernel<LSE>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_f32_kernel<<<grid, THREADS, smem, stream>>>(
+  flash_fwd_f32_kernel<LSE><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, D, scale,
-      causal, window);
+      causal, window, lse);
   return cudaGetLastError();
 }
 
@@ -308,15 +320,17 @@ constexpr size_t mma_smem_bytes(int D) {
   return sizeof(__nv_bfloat16) * (size_t)(BQ + 2 * BK) * (D + PAD);
 }
 
-// q, o: (B, S, H, D); k, v: (B, S, KV, D); bf16, contiguous.
+// q, o: (B, S, H, D); k, v: (B, S, KV, D); bf16, contiguous. With LSE, lse
+// (B, H, S) float32 as in flash_fwd_f32_kernel.
 // grid: (ceil(S / BQ), H, B); block: MMA_THREADS; dynamic smem: mma_smem_bytes(D).
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
                       __nv_bfloat16* __restrict__ o, int S, int H, int KV,
-                      float scale, int causal, int window) {
+                      float scale, int causal, int window,
+                      float* __restrict__ lse) {
   constexpr int LDS = D + PAD;
   constexpr int KT = D / 16;   // k-steps of Q K^T over the head dim
   constexpr int NT = BK / 8;   // n8 tiles of scores (keys)
@@ -466,31 +480,39 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     if (qpos1 < S)
       *reinterpret_cast<uint32_t*>(o1 + t * 8) = pack_bf16(oacc[t][2] * inv1, oacc[t][3] * inv1);
   }
+  if constexpr (LSE) {
+    // m is the quad's, l now its whole-row sum
+    float* lrow = lse + ((size_t)b * H + h) * S;
+    if (tig == 0 && qpos0 < S) lrow[qpos0] = m0 + logf(l0);
+    if (tig == 0 && qpos1 < S) lrow[qpos1] = m1 + logf(l1);
+  }
 }
 
-template <int D>
+template <int D, bool LSE>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, int KV, float scale, int causal,
-                        int window, cudaStream_t stream) {
+                        float* lse, int B, int S, int H, int KV, float scale,
+                        int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_bf16_kernel<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_bf16_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+  flash_fwd_bf16_kernel<D, LSE><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      H, KV, scale, causal, window);
+      H, KV, scale, causal, window, lse);
   return cudaGetLastError();
 }
 
+template <bool LSE>
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
-                          int B, int S, int H, int KV, int D, float scale,
-                          int causal, int window, cudaStream_t stream) {
+                          float* lse, int B, int S, int H, int KV, int D,
+                          float scale, int causal, int window,
+                          cudaStream_t stream) {
   switch (D) {
 #define REPRO_FLASH_CASE(DD) \
-  case DD: return launch_bf16<DD>(q, k, v, o, B, S, H, KV, scale, causal, window, stream);
+  case DD: return launch_bf16<DD, LSE>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, stream);
     // D = 64..128 run flash_fwd_wgmma_kernel (see route)
     REPRO_FLASH_CASE(16) REPRO_FLASH_CASE(32) REPRO_FLASH_CASE(48)
 #undef REPRO_FLASH_CASE
@@ -512,6 +534,7 @@ constexpr int BOX_COLS = 64;         // 128-byte swizzle: boxes of at most 64 bf
 constexpr int Q_BOX = WG_BQ * 128;   // bytes of one [WG_BQ rows][64 columns] box of Q
 constexpr int KV_BOX = WG_BK * 128;  // bytes of one [WG_BK rows][64 columns] box of K or V
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Shared memory: two Q tiles (this item's and the next's), then WG_STAGES x
 // (K tile, V tile), then the barriers. A tile is NB = ceil(D / 64) boxes of
@@ -876,14 +899,18 @@ __device__ __forceinline__ int item_index(int r) {
 // 128-byte swizzle; o: (B, S, H, D) bf16, contiguous. Persistent: grid of
 // min(items, SMs) CTAs, each walking its items (item_index); block:
 // WG_THREADS; dynamic smem: WgSmem<D>::BYTES. scale_log2 = scale * log2(e):
-// softmax runs in exp2 on pre-scaled scores.
-template <int D>
+// softmax runs in exp2 on pre-scaled scores. With LSE, lse (B, H, S)
+// float32 takes each row's natural-log sum of exp(scale * scores), converted
+// once from the exp2 domain: m ln 2 + ln l. Without it (serving) the kernel
+// is the same instructions as before lse existed.
+template <int D, bool LSE>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
                        __grid_constant__ const CUtensorMap tk,
                        __grid_constant__ const CUtensorMap tv,
                        __nv_bfloat16* __restrict__ o, int B, int S, int H, int KV,
-                       float scale_log2, int causal, int window) {
+                       float scale_log2, int causal, int window,
+                       float* __restrict__ lse) {
   using L = WgSmem<D>;
   constexpr int NB = L::NB;  // boxes per tile row
   extern __shared__ __align__(1024) unsigned char wg_smem[];
@@ -1057,7 +1084,693 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
           *reinterpret_cast<uint32_t*>(o1 + 8 * jj) =
               pack_bf16(oacc[4 * jj + 2] * inv1, oacc[4 * jj + 3] * inv1);
       }
+      if constexpr (LSE) {
+        // m is in log2 units of the scaled scores: sum exp = 2^m l
+        float* lrow = lse + ((size_t)it.b * H + it.h) * S;
+        if (t == 0 && row0 < S) lrow[row0] = m0 * LN2 + logf(l0);
+        if (t == 0 && row0 + 8 < S) lrow[row0 + 8] = m1 * LN2 + logf(l1);
+      }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward: delta, then dK/dV, then dQ (FlashAttention-2's split, no atomics)
+// ---------------------------------------------------------------------------
+//
+// Replaces repro/models/attention.py::_flash_core's custom VJP
+// (_flash_bwd_padded); the Pallas kernel has no backward. Given q, k, v, the
+// forward's o and lse (B, H, S) and dO:
+//   delta = rowsum(dO o), P = exp(scale q k^T - lse), dP = dO v^T,
+//   dS = P (dP - delta) scale, dQ = dS k, dK = dS^T q, dV = P^T dO,
+// with dK and dV summed over the G query heads of each KV head. P is
+// recomputed from lse tile by tile, so no S x S tensor is ever stored.
+// Three launches:
+//   1. flash_bwd_delta_kernel: one warp per (b, s, h) row;
+//   2. dK/dV: one CTA per (batch, KV head, 64-key tile), walking the query
+//      tiles the mask lets through for each of the G heads of its group,
+//      accumulating dK and dV in float32 registers;
+//   3. dQ: one CTA per (batch, head, 64-query tile), walking the key tiles
+//      the mask lets through, accumulating dQ in float32 registers.
+// Every output element is summed by one thread in a fixed order, so two
+// launches on the same inputs are bit-identical. P and dS are recomputed by
+// both passes (14 D flops a (query, key) pair instead of 10). Masks are the
+// forward's: causal kpos <= qpos, window kpos > qpos - window, kpos, qpos < S.
+//
+// What bounds it: 10 D H flops a visible (query, key) pair against the same
+// few bytes as the forward, so operations. bf16 runs both products on
+// mma.sync m16n8k16 (float32 accumulate) with P and dS re-packed to bf16 as
+// A operands (FlashAttention-2's register reuse); loads are synchronous and
+// single-buffered. float32 runs FMAs on shared-memory tiles. Simple first:
+// wgmma and TMA, as in the forward, are for a later change.
+
+constexpr int BWD_THREADS = 128;  // bf16: 4 warps x 16 rows
+constexpr int BWD_TILE = 64;      // keys per dK/dV CTA, queries per dQ CTA, keys per dQ step
+
+__device__ __forceinline__ bool visible(int kpos, int qpos, int S, int causal,
+                                        int window) {
+  return kpos < S && qpos < S && (!causal || kpos <= qpos) &&
+         (window <= 0 || kpos > qpos - window);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// The queries [q_begin, q_end) that key tile [k0, k0 + BWD_TILE) is visible
+// from, and the keys [k_begin, k_end) that query tile [q0, q0 + BWD_TILE)
+// sees; the begins are multiples of BWD_TILE, so the walks stay on tiles.
+__device__ __forceinline__ void query_range(int k0, int S, int causal, int window,
+                                            int& q_begin, int& q_end) {
+  q_begin = causal ? k0 : 0;
+  q_end = window > 0 ? min(S, k0 + BWD_TILE - 1 + window) : S;
+}
+__device__ __forceinline__ void key_range(int q0, int S, int causal, int window,
+                                          int& k_begin, int& k_end) {
+  k_begin = window > 0 ? max(0, q0 - window + 1) / BWD_TILE * BWD_TILE : 0;
+  k_end = causal ? min(S, q0 + BWD_TILE) : S;
+}
+
+// o, dout: (B, S, H, D) rows; delta: (B, H, S) float32. One warp per row.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int rows, int S, int H, int D) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // whole warps
+  const T* orow = o + (size_t)row * D;
+  const T* drow = dout + (size_t)row * D;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc = fmaf(to_f32(orow[d]), to_f32(drow[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = row % H, bs = row / H;  // row = (b S + s) H + h
+    delta[((size_t)(bs / S) * H + h) * S + bs % S] = acc;
+  }
+}
+
+// ---- bfloat16: mma.sync ----
+
+template <int D>
+__host__ __device__ constexpr int bwd_qt() { return D <= 64 ? 64 : 32; }  // queries per dK/dV step (registers)
+
+template <int D>
+constexpr size_t bwd_dkdv_smem() {
+  return sizeof(__nv_bfloat16) * (size_t)(2 * BWD_TILE + 2 * bwd_qt<D>()) * (D + PAD) +
+         sizeof(float) * 2 * bwd_qt<D>();
+}
+template <int D>
+constexpr size_t bwd_dq_smem() {
+  return sizeof(__nv_bfloat16) * (size_t)(4 * BWD_TILE) * (D + PAD);
+}
+
+// The A fragment (16 rows x 16 columns, rows row0.. of a [rows][D + PAD]
+// tile, k-step kk) and a B fragment of 8 rows n0.. read as columns.
+template <int D>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const __nv_bfloat16* tile,
+                                       int r0, int kk, int tig) {
+  const __nv_bfloat16* p = tile + r0 * (D + PAD) + kk * 16 + tig * 2;
+  a[0] = ld_u32(p);
+  a[1] = ld_u32(p + 8 * (D + PAD));
+  a[2] = ld_u32(p + 8);
+  a[3] = ld_u32(p + 8 * (D + PAD) + 8);
+}
+
+// c[DT][4] += A (16 x 16: score accumulators of n8 tiles 2j, 2j + 1, packed
+// to bf16) x B (rows 16 j.. of a row-major [k][D] tile, read transposed).
+template <int D>
+__device__ __forceinline__ void acc_pv(float (&c)[D / 8][4], const float (&s0)[4],
+                                       const float (&s1)[4], const __nv_bfloat16* tile,
+                                       int j, int lane) {
+  const uint32_t pa[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
+                          pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
+  const __nv_bfloat16* row =
+      tile + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * (D + PAD) + (lane >> 4) * 8;
+#pragma unroll
+  for (int dp = 0; dp < D / 16; ++dp) {
+    uint32_t f[4];
+    ldmatrix_x4_trans(f, row + dp * 16);
+    mma_bf16(c[2 * dp], pa, f[0], f[1]);
+    mma_bf16(c[2 * dp + 1], pa, f[2], f[3]);
+  }
+}
+
+// q, dout: (B, S, H, D); k, v, dk, dv: (B, S, KV, D); bf16, contiguous; lse,
+// delta: (B, H, S) float32. grid: (ceil(S / BWD_TILE), KV, B); block:
+// BWD_THREADS; dynamic smem: bwd_dkdv_smem<D>(). Warp w owns keys k0 + 16 w
+// .. + 15; a thread holds rows r0 and r0 + 8 of them (mma's C layout).
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int S, int H, int KV,
+                           float scale, int causal, int window) {
+  constexpr int LDS = D + PAD;
+  constexpr int QT = bwd_qt<D>();
+  constexpr int NT = QT / 8;   // n8 tiles of scores (queries)
+  constexpr int DT = D / 8;    // n8 tiles of dK, dV (channels)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BWD_TILE][LDS]
+  __nv_bfloat16* Vs = Ks + BWD_TILE * LDS;                         // [BWD_TILE][LDS]
+  __nv_bfloat16* Qs = Vs + BWD_TILE * LDS;                         // [QT][LDS]
+  __nv_bfloat16* dOs = Qs + QT * LDS;                              // [QT][LDS]
+  float* Ls = reinterpret_cast<float*>(dOs + QT * LDS);            // [QT] lse
+  float* Dls = Ls + QT;                                            // [QT] delta
+
+  const int k0 = blockIdx.x * BWD_TILE;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const size_t q_row = (size_t)H * D, kv_row = (size_t)KV * D;
+
+  load_tile<D>(Ks, k + (size_t)b * S * kv_row + (size_t)kvh * D, kv_row, k0, BWD_TILE, S);
+  load_tile<D>(Vs, v + (size_t)b * S * kv_row + (size_t)kvh * D, kv_row, k0, BWD_TILE, S);
+  const int r0 = warp * 16 + g;
+  const int kpos0 = k0 + r0, kpos1 = kpos0 + 8;
+
+  float dkacc[DT][4], dvacc[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dkacc[t][e] = dvacc[t][e] = 0.f;
+
+  int q_begin, q_end;
+  query_range(k0, S, causal, window, q_begin, q_end);
+  for (int hh = 0; hh < G; ++hh) {
+    const int h = kvh * G + hh;
+    const __nv_bfloat16* qb = q + (size_t)b * S * q_row + (size_t)h * D;
+    const __nv_bfloat16* db = dout + (size_t)b * S * q_row + (size_t)h * D;
+    const float* lb = lse + ((size_t)b * H + h) * S;
+    const float* eb = delta + ((size_t)b * H + h) * S;
+    for (int q0 = q_begin; q0 < q_end; q0 += QT) {
+      __syncthreads();  // the previous tile's readers are done
+      load_tile<D>(Qs, qb, q_row, q0, QT, S);
+      load_tile<D>(dOs, db, q_row, q0, QT, S);
+      for (int i = threadIdx.x; i < QT; i += BWD_THREADS) {
+        const bool in = q0 + i < S;
+        Ls[i] = in ? lb[q0 + i] : 0.f;
+        Dls[i] = in ? eb[q0 + i] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x QT queries per warp
+      float sacc[NT][4], dpacc[NT][4];
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[t][e] = dpacc[t][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ka[4], va[4];
+        a_frag<D>(ka, Ks, r0, kk, tig);
+        a_frag<D>(va, Vs, r0, kk, tig);
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const __nv_bfloat16* pq = Qs + (t * 8 + g) * LDS + kk * 16 + tig * 2;
+          const __nv_bfloat16* pd = dOs + (t * 8 + g) * LDS + kk * 16 + tig * 2;
+          mma_bf16(sacc[t], ka, ld_u32(pq), ld_u32(pq + 8));
+          mma_bf16(dpacc[t], va, ld_u32(pd), ld_u32(pd + 8));
+        }
+      }
+      // element e of tile t: key row r0 + 8 (e >> 1), query q0 + 8 t + 2 tig + (e & 1)
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = t * 8 + tig * 2 + (e & 1);
+          const bool ok = visible(e < 2 ? kpos0 : kpos1, q0 + qi, S, causal, window);
+          const float p = ok ? expf(sacc[t][e] * scale - Ls[qi]) : 0.f;
+          sacc[t][e] = p;
+          dpacc[t][e] = p * (dpacc[t][e] - Dls[qi]) * scale;
+        }
+      // dV += P^T dO and dK += dS^T Q, queries [16 j, 16 j + 16) at a time
+#pragma unroll
+      for (int j = 0; j < QT / 16; ++j) {
+        acc_pv<D>(dvacc, sacc[2 * j], sacc[2 * j + 1], dOs, j, lane);
+        acc_pv<D>(dkacc, dpacc[2 * j], dpacc[2 * j + 1], Qs, j, lane);
+      }
+    }
+  }
+
+  __nv_bfloat16* dk0 = dk + ((size_t)b * S + kpos0) * kv_row + (size_t)kvh * D + tig * 2;
+  __nv_bfloat16* dv0 = dv + ((size_t)b * S + kpos0) * kv_row + (size_t)kvh * D + tig * 2;
+#pragma unroll
+  for (int t = 0; t < DT; ++t) {
+    if (kpos0 < S) {
+      *reinterpret_cast<uint32_t*>(dk0 + t * 8) = pack_bf16(dkacc[t][0], dkacc[t][1]);
+      *reinterpret_cast<uint32_t*>(dv0 + t * 8) = pack_bf16(dvacc[t][0], dvacc[t][1]);
+    }
+    if (kpos1 < S) {
+      *reinterpret_cast<uint32_t*>(dk0 + 8 * kv_row + t * 8) = pack_bf16(dkacc[t][2], dkacc[t][3]);
+      *reinterpret_cast<uint32_t*>(dv0 + 8 * kv_row + t * 8) = pack_bf16(dvacc[t][2], dvacc[t][3]);
+    }
+  }
+}
+
+// Shapes as flash_bwd_dkdv_bf16_kernel; dq: (B, S, H, D) bf16. grid:
+// (ceil(S / BWD_TILE), H, B), heaviest query tiles first; block: BWD_THREADS;
+// dynamic smem: bwd_dq_smem<D>(). Warp w owns queries q0 + 16 w .. + 15.
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq, int S, int H, int KV,
+                         float scale, int causal, int window) {
+  constexpr int LDS = D + PAD;
+  constexpr int NT = BWD_TILE / 8;  // n8 tiles of scores (keys)
+  constexpr int DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BWD_TILE][LDS]
+  __nv_bfloat16* dOs = Qs + BWD_TILE * LDS;
+  __nv_bfloat16* Ks = dOs + BWD_TILE * LDS;
+  __nv_bfloat16* Vs = Ks + BWD_TILE * LDS;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BWD_TILE;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const size_t q_row = (size_t)H * D, kv_row = (size_t)KV * D;
+  const __nv_bfloat16* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
+  const __nv_bfloat16* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
+
+  load_tile<D>(Qs, q + (size_t)b * S * q_row + (size_t)h * D, q_row, q0, BWD_TILE, S);
+  load_tile<D>(dOs, dout + (size_t)b * S * q_row + (size_t)h * D, q_row, q0, BWD_TILE, S);
+  const int r0 = warp * 16 + g;
+  const int qpos0 = q0 + r0, qpos1 = qpos0 + 8;
+  const float* lb = lse + ((size_t)b * H + h) * S;
+  const float* eb = delta + ((size_t)b * H + h) * S;
+  const float lse0 = qpos0 < S ? lb[qpos0] : 0.f, lse1 = qpos1 < S ? lb[qpos1] : 0.f;
+  const float del0 = qpos0 < S ? eb[qpos0] : 0.f, del1 = qpos1 < S ? eb[qpos1] : 0.f;
+
+  float dqacc[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqacc[t][e] = 0.f;
+
+  int k_begin, k_end;
+  key_range(q0, S, causal, window, k_begin, k_end);
+  for (int k0 = k_begin; k0 < k_end; k0 += BWD_TILE) {
+    __syncthreads();  // the previous tile's readers are done; orders Q, dO
+    load_tile<D>(Ks, kb, kv_row, k0, BWD_TILE, S);
+    load_tile<D>(Vs, vb, kv_row, k0, BWD_TILE, S);
+    __syncthreads();
+
+    float sacc[NT][4], dpacc[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[t][e] = dpacc[t][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], da[4];
+      a_frag<D>(qa, Qs, r0, kk, tig);
+      a_frag<D>(da, dOs, r0, kk, tig);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const __nv_bfloat16* pk = Ks + (t * 8 + g) * LDS + kk * 16 + tig * 2;
+        const __nv_bfloat16* pv = Vs + (t * 8 + g) * LDS + kk * 16 + tig * 2;
+        mma_bf16(sacc[t], qa, ld_u32(pk), ld_u32(pk + 8));
+        mma_bf16(dpacc[t], da, ld_u32(pv), ld_u32(pv + 8));
+      }
+    }
+    // element e of tile t: query row r0 + 8 (e >> 1), key k0 + 8 t + 2 tig + (e & 1)
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + t * 8 + tig * 2 + (e & 1);
+        const bool lo = e < 2;
+        const float p = visible(key, lo ? qpos0 : qpos1, S, causal, window)
+                            ? expf(sacc[t][e] * scale - (lo ? lse0 : lse1))
+                            : 0.f;
+        dpacc[t][e] = p * (dpacc[t][e] - (lo ? del0 : del1)) * scale;
+      }
+    // dQ += dS K, keys [16 j, 16 j + 16) at a time
+#pragma unroll
+    for (int j = 0; j < BWD_TILE / 16; ++j)
+      acc_pv<D>(dqacc, dpacc[2 * j], dpacc[2 * j + 1], Ks, j, lane);
+  }
+
+  __nv_bfloat16* dq0 = dq + ((size_t)b * S + qpos0) * q_row + (size_t)h * D + tig * 2;
+#pragma unroll
+  for (int t = 0; t < DT; ++t) {
+    if (qpos0 < S)
+      *reinterpret_cast<uint32_t*>(dq0 + t * 8) = pack_bf16(dqacc[t][0], dqacc[t][1]);
+    if (qpos1 < S)
+      *reinterpret_cast<uint32_t*>(dq0 + 8 * q_row + t * 8) = pack_bf16(dqacc[t][2], dqacc[t][3]);
+  }
+}
+
+// Raise two kernels' dynamic shared memory limits, once per device: `done`
+// is the caller's own flag array (it costs host time on every call
+// otherwise, and stays out of CUDA graph captures of the launches).
+constexpr int MAX_DEVICES = 64;
+
+template <typename K1, typename K2>
+cudaError_t smem_opt_in(bool (&done)[MAX_DEVICES], K1* k1, int bytes1, K2* k2,
+                        int bytes2) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes2);
+  if (err == cudaSuccess) done[device] = true;
+  return err;
+}
+
+template <int D>
+cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse, const float* delta,
+                            void* dq, void* dk, void* dv, int B, int S, int H,
+                            int KV, float scale, int causal, int window,
+                            cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  constexpr size_t smem_kv = bwd_dkdv_smem<D>(), smem_q = bwd_dq_smem<D>();
+  static bool done[MAX_DEVICES] = {};
+  cudaError_t err = smem_opt_in(done, flash_bwd_dkdv_bf16_kernel<D>, (int)smem_kv,
+                                flash_bwd_dq_bf16_kernel<D>, (int)smem_q);
+  if (err != cudaSuccess) return err;
+  const int tiles = (S + BWD_TILE - 1) / BWD_TILE;
+  flash_bwd_dkdv_bf16_kernel<D><<<dim3(tiles, KV, B), BWD_THREADS, smem_kv, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dk),
+      static_cast<bf*>(dv), S, H, KV, scale, causal, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_bf16_kernel<D><<<dim3(tiles, H, B), BWD_THREADS, smem_q, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dq), S, H, KV,
+      scale, causal, window);
+  return cudaGetLastError();
+}
+
+// ---- float32: FMAs on shared-memory tiles ----
+
+// K, V (or Q, dO) tiles padded to D + 1 columns, two [64][65] tiles of P and
+// dS (one for dQ), and lse, delta of the query tile.
+size_t bwd_f32_smem(int D, bool dkdv) {
+  return sizeof(float) * (4 * (size_t)BWD_TILE * (D + 1) +
+                          (dkdv ? 2 : 1) * (size_t)BWD_TILE * (BWD_TILE + 1) +
+                          (dkdv ? 2 * BWD_TILE : 0));
+}
+
+// Copy rows [row0, row0 + BWD_TILE) of a (S, heads, D) float32 tensor into a
+// [BWD_TILE][D + 1] tile; rows past S are zero.
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+                                              size_t row_stride, int row0, int S,
+                                              int D) {
+  for (int i = threadIdx.x; i < BWD_TILE * D; i += THREADS) {
+    const int r = i / D, c = i - r * D;
+    dst[r * (D + 1) + c] = row0 + r < S ? src[(size_t)(row0 + r) * row_stride + c] : 0.f;
+  }
+}
+
+// float32, shapes as the bf16 kernels. grid: (ceil(S / 64), KV, B); block:
+// THREADS (16 x 16: thread (ty, tx) owns keys 4 ty .. 4 ty + 3 of the tile,
+// queries tx + 16 j of a score tile and channels tx + 16 j of dK, dV).
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, float* __restrict__ dk,
+                          float* __restrict__ dv, int S, int H, int KV, int D,
+                          float scale, int causal, int window) {
+  extern __shared__ float smem[];
+  const int ld = D + 1, ldp = BWD_TILE + 1;
+  float* Ks = smem;              // [64][D + 1]
+  float* Vs = Ks + BWD_TILE * ld;
+  float* Qs = Vs + BWD_TILE * ld;
+  float* dOs = Qs + BWD_TILE * ld;
+  float* Ps = dOs + BWD_TILE * ld;  // [64 keys][65]: P^T
+  float* dSs = Ps + BWD_TILE * ldp; // [64 keys][65]: dS^T
+  float* Ls = dSs + BWD_TILE * ldp; // [64]
+  float* Dls = Ls + BWD_TILE;       // [64]
+
+  const int k0 = blockIdx.x * BWD_TILE;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int nd = D >> 4;
+  const size_t q_row = (size_t)H * D, kv_row = (size_t)KV * D;
+
+  load_tile_f32(Ks, k + (size_t)b * S * kv_row + (size_t)kvh * D, kv_row, k0, S, D);
+  load_tile_f32(Vs, v + (size_t)b * S * kv_row + (size_t)kvh * D, kv_row, k0, S, D);
+  float dka[4][NJ], dva[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) dka[i][j] = dva[i][j] = 0.f;
+
+  int q_begin, q_end;
+  query_range(k0, S, causal, window, q_begin, q_end);
+  for (int hh = 0; hh < G; ++hh) {
+    const int h = kvh * G + hh;
+    const float* lb = lse + ((size_t)b * H + h) * S;
+    const float* eb = delta + ((size_t)b * H + h) * S;
+    for (int q0 = q_begin; q0 < q_end; q0 += BWD_TILE) {
+      __syncthreads();
+      load_tile_f32(Qs, q + (size_t)b * S * q_row + (size_t)h * D, q_row, q0, S, D);
+      load_tile_f32(dOs, dout + (size_t)b * S * q_row + (size_t)h * D, q_row, q0, S, D);
+      for (int i = tid; i < BWD_TILE; i += THREADS) {
+        const bool in = q0 + i < S;
+        Ls[i] = in ? lb[q0 + i] : 0.f;
+        Dls[i] = in ? eb[q0 + i] : 0.f;
+      }
+      __syncthreads();
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        float kv[4], vv[4], qv[4], dv_[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          kv[i] = Ks[(ty * 4 + i) * ld + d];
+          vv[i] = Vs[(ty * 4 + i) * ld + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          qv[j] = Qs[(tx + 16 * j) * ld + d];
+          dv_[j] = dOs[(tx + 16 * j) * ld + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+            dp[i][j] = fmaf(vv[i], dv_[j], dp[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qi = tx + 16 * j;
+          const float p = visible(k0 + ty * 4 + i, q0 + qi, S, causal, window)
+                              ? expf(s[i][j] * scale - Ls[qi]) : 0.f;
+          Ps[(ty * 4 + i) * ldp + qi] = p;
+          dSs[(ty * 4 + i) * ldp + qi] = p * (dp[i][j] - Dls[qi]) * scale;
+        }
+      __syncthreads();
+      for (int t = 0; t < BWD_TILE; ++t) {
+        float pv[4], sv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pv[i] = Ps[(ty * 4 + i) * ldp + t];
+          sv[i] = dSs[(ty * 4 + i) * ldp + t];
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (j < nd) {
+            const float dov = dOs[t * ld + tx + 16 * j], qv = Qs[t * ld + tx + 16 * j];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              dva[i][j] = fmaf(pv[i], dov, dva[i][j]);
+              dka[i][j] = fmaf(sv[i], qv, dka[i][j]);
+            }
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kpos = k0 + ty * 4 + i;
+    if (kpos >= S) continue;
+    const size_t off = ((size_t)b * S + kpos) * kv_row + (size_t)kvh * D;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (j < nd) {
+        dk[off + tx + 16 * j] = dka[i][j];
+        dv[off + tx + 16 * j] = dva[i][j];
+      }
+  }
+}
+
+// float32 dQ. grid: (ceil(S / 64), H, B), heaviest query tiles first; block:
+// THREADS (thread (ty, tx) owns queries 4 ty .. 4 ty + 3, keys tx + 16 j of a
+// score tile and channels tx + 16 j of dQ).
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, float* __restrict__ dq,
+                        int S, int H, int KV, int D, float scale, int causal,
+                        int window) {
+  extern __shared__ float smem[];
+  const int ld = D + 1, ldp = BWD_TILE + 1;
+  float* Qs = smem;              // [64][D + 1]
+  float* dOs = Qs + BWD_TILE * ld;
+  float* Ks = dOs + BWD_TILE * ld;
+  float* Vs = Ks + BWD_TILE * ld;
+  float* dSs = Vs + BWD_TILE * ld;  // [64 queries][65]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BWD_TILE;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int nd = D >> 4;
+  const size_t q_row = (size_t)H * D, kv_row = (size_t)KV * D;
+  const float* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
+  const float* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
+
+  load_tile_f32(Qs, q + (size_t)b * S * q_row + (size_t)h * D, q_row, q0, S, D);
+  load_tile_f32(dOs, dout + (size_t)b * S * q_row + (size_t)h * D, q_row, q0, S, D);
+  float lse_i[4], del_i[4], dqa[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty * 4 + i;
+    lse_i[i] = qpos < S ? lse[((size_t)b * H + h) * S + qpos] : 0.f;
+    del_i[i] = qpos < S ? delta[((size_t)b * H + h) * S + qpos] : 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) dqa[i][j] = 0.f;
+  }
+
+  int k_begin, k_end;
+  key_range(q0, S, causal, window, k_begin, k_end);
+  for (int k0 = k_begin; k0 < k_end; k0 += BWD_TILE) {
+    __syncthreads();
+    load_tile_f32(Ks, kb, kv_row, k0, S, D);
+    load_tile_f32(Vs, vb, kv_row, k0, S, D);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float qv[4], dov[4], kv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = Qs[(ty * 4 + i) * ld + d];
+        dov[i] = dOs[(ty * 4 + i) * ld + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv[j] = Ks[(tx + 16 * j) * ld + d];
+        vv[j] = Vs[(tx + 16 * j) * ld + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = visible(k0 + tx + 16 * j, q0 + ty * 4 + i, S, causal, window)
+                            ? expf(s[i][j] * scale - lse_i[i]) : 0.f;
+        dSs[(ty * 4 + i) * ldp + tx + 16 * j] = p * (dp[i][j] - del_i[i]) * scale;
+      }
+    __syncthreads();
+    for (int t = 0; t < BWD_TILE; ++t) {
+      float sv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty * 4 + i) * ldp + t];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (j < nd) {
+          const float kv = Ks[t * ld + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dqa[i][j] = fmaf(sv[i], kv, dqa[i][j]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty * 4 + i;
+    if (qpos >= S) continue;
+    float* row = dq + ((size_t)b * S + qpos) * q_row + (size_t)h * D;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (j < nd) row[tx + 16 * j] = dqa[i][j];
+  }
+}
+
+cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse, const float* delta,
+                           void* dq, void* dk, void* dv, int B, int S, int H,
+                           int KV, int D, float scale, int causal, int window,
+                           cudaStream_t stream) {
+  const size_t smem_kv = bwd_f32_smem(D, true), smem_q = bwd_f32_smem(D, false);
+  static bool done[MAX_DEVICES] = {};  // the limits of the largest head dim
+  cudaError_t err = smem_opt_in(done, flash_bwd_dkdv_f32_kernel,
+                                (int)bwd_f32_smem(DMAX, true), flash_bwd_dq_f32_kernel,
+                                (int)bwd_f32_smem(DMAX, false));
+  if (err != cudaSuccess) return err;
+  const int tiles = (S + BWD_TILE - 1) / BWD_TILE;
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  const float* fd = static_cast<const float*>(dout);
+  flash_bwd_dkdv_f32_kernel<<<dim3(tiles, KV, B), THREADS, smem_kv, stream>>>(
+      fq, fk, fv, fd, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
+      S, H, KV, D, scale, causal, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_f32_kernel<<<dim3(tiles, H, B), THREADS, smem_q, stream>>>(
+      fq, fk, fv, fd, lse, delta, static_cast<float*>(dq), S, H, KV, D, scale,
+      causal, window);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bwd_bf16(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse, const float* delta,
+                              void* dq, void* dk, void* dv, int B, int S, int H,
+                              int KV, int D, float scale, int causal, int window,
+                              cudaStream_t stream) {
+  switch (D) {
+#define REPRO_FLASH_CASE(DD)                                                       \
+  case DD:                                                                         \
+    return launch_bwd_bf16<DD>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV, \
+                               scale, causal, window, stream);
+    REPRO_FLASH_CASE(16) REPRO_FLASH_CASE(32) REPRO_FLASH_CASE(48)
+    REPRO_FLASH_CASE(64) REPRO_FLASH_CASE(80) REPRO_FLASH_CASE(96)
+    REPRO_FLASH_CASE(112) REPRO_FLASH_CASE(128)
+#undef REPRO_FLASH_CASE
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -1105,10 +1818,10 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, bool LSE>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         int B, int S, int H, int KV, float scale, int causal,
-                         int window, cudaStream_t stream) {
+                         float* lse, int B, int S, int H, int KV, float scale,
+                         int causal, int window, cudaStream_t stream) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv;
@@ -1117,7 +1830,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
       !make_map(&tv, encode, v, B, S, KV, D, WG_BK))
     return cudaErrorInvalidValue;
   constexpr int smem = WgSmem<D>::BYTES;
-  // Once per device and head dim (they cost host time on every call
+  // Once per device, head dim and LSE (they cost host time on every call
   // otherwise): the shared-memory opt-in and the SM count.
   constexpr int MAX_DEVICES = 64;
   static int sms_of[MAX_DEVICES] = {};
@@ -1127,7 +1840,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (device >= MAX_DEVICES) return cudaErrorInvalidDevice;
   int sms = sms_of[device];
   if (sms == 0) {
-    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, LSE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -1136,9 +1849,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   }
   const long long items = (long long)((S + WG_BQ - 1) / WG_BQ) * H * B;
   const int grid = (int)(items < sms ? items : sms);  // one CTA per SM
-  flash_fwd_wgmma_kernel<D><<<grid, WG_THREADS, smem, stream>>>(
+  flash_fwd_wgmma_kernel<D, LSE><<<grid, WG_THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, H, KV, scale * LOG2E,
-      causal, window);
+      causal, window, lse);
   return cudaGetLastError();
 }
 
@@ -1162,12 +1875,14 @@ Route route(int dtype, int D, size_t* smem) {
   return ROUTE_WGMMA;
 }
 
+template <bool LSE>
 cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
-                           int B, int S, int H, int KV, int D, float scale,
-                           int causal, int window, cudaStream_t stream) {
+                           float* lse, int B, int S, int H, int KV, int D,
+                           float scale, int causal, int window,
+                           cudaStream_t stream) {
   switch (D) {
 #define REPRO_FLASH_CASE(DD) \
-  case DD: return launch_wgmma<DD>(q, k, v, o, B, S, H, KV, scale, causal, window, stream);
+  case DD: return launch_wgmma<DD, LSE>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, stream);
     REPRO_FLASH_CASE(64) REPRO_FLASH_CASE(80) REPRO_FLASH_CASE(96)
     REPRO_FLASH_CASE(112) REPRO_FLASH_CASE(128)
 #undef REPRO_FLASH_CASE
@@ -1179,24 +1894,34 @@ cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. window <= 0: no sliding window.
-// Returns the CUDA error code of the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. window <= 0: no sliding window. lse:
+// NULL (serving), or (B, H, S) float32 for each row's log-sum-exp, which the
+// backward reads. Returns the CUDA error code of the launch (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, int KV, int D, float scale,
-                        int causal, int window, int dtype, void* stream) {
+                        void* lse, int B, int S, int H, int KV, int D,
+                        float scale, int causal, int window, int dtype,
+                        void* stream) {
   size_t smem = 0;
   const Route r = route(dtype, D, &smem);
   if (r == ROUTE_NONE || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (r) {
     case ROUTE_FMA:
-      return (int)launch_f32(q, k, v, o, B, S, H, KV, D, scale, causal, window, st);
+      return (int)(l ? launch_f32<true>(q, k, v, o, l, B, S, H, KV, D, scale,
+                                        causal, window, st)
+                     : launch_f32<false>(q, k, v, o, l, B, S, H, KV, D, scale,
+                                         causal, window, st));
     case ROUTE_WGMMA:
-      return (int)dispatch_wgmma(q, k, v, o, B, S, H, KV, D, scale, causal,
-                                 window, st);
+      return (int)(l ? dispatch_wgmma<true>(q, k, v, o, l, B, S, H, KV, D,
+                                            scale, causal, window, st)
+                     : dispatch_wgmma<false>(q, k, v, o, l, B, S, H, KV, D,
+                                             scale, causal, window, st));
     default:
-      return (int)dispatch_bf16(q, k, v, o, B, S, H, KV, D, scale, causal,
-                                window, st);
+      return (int)(l ? dispatch_bf16<true>(q, k, v, o, l, B, S, H, KV, D,
+                                           scale, causal, window, st)
+                     : dispatch_bf16<false>(q, k, v, o, l, B, S, H, KV, D,
+                                            scale, causal, window, st));
   }
 }
 
@@ -1209,6 +1934,56 @@ const char* flash_attention_route(int dtype, int D, int* smem_bytes) {
   *smem_bytes = (int)smem;
   return r == ROUTE_WGMMA ? "wgmma" : r == ROUTE_MMA ? "mma.sync"
          : r == ROUTE_FMA ? "fma" : nullptr;
+}
+
+// The backward of flash_attention_fwd: dq (B, S, H, D), dk and dv (B, S, KV,
+// D) in the inputs' dtype from q, k, v, the forward's o and lse, and dout;
+// delta is (B, H, S) float32 scratch. Three launches (delta, dK/dV, dQ), no
+// atomics. Returns the CUDA error code of the launches (0 on success).
+int flash_attention_bwd(const void* q, const void* k, const void* v,
+                        const void* o, const void* lse, const void* dout,
+                        void* dq, void* dk, void* dv, void* delta, int B, int S,
+                        int H, int KV, int D, float scale, int causal,
+                        int window, int dtype, void* stream) {
+  if (D % 16 != 0 || D < 16 || D > DMAX || H % KV != 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = B * S * H;
+  const int blocks = (int)(((long long)rows * 32 + 255) / 256);
+  float* dl = static_cast<float*>(delta);
+  const float* l = static_cast<const float*>(lse);
+  if (dtype == 0)
+    flash_bwd_delta_kernel<float><<<blocks, 256, 0, st>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout), dl, rows, S, H, D);
+  else
+    flash_bwd_delta_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
+        dl, rows, S, H, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (dtype == 0)
+    return (int)launch_bwd_f32(q, k, v, dout, l, dl, dq, dk, dv, B, S, H, KV, D,
+                               scale, causal, window, st);
+  return (int)dispatch_bwd_bf16(q, k, v, dout, l, dl, dq, dk, dv, B, S, H, KV, D,
+                                scale, causal, window, st);
+}
+
+// Name of the kernels flash_attention_bwd runs for (dtype, D): "mma.sync"
+// (bf16) or "fma" (float32), or NULL where it refuses them; *smem_bytes is
+// the larger dynamic shared memory of its two tile kernels.
+const char* flash_attention_bwd_route(int dtype, int D, int* smem_bytes) {
+  *smem_bytes = 0;
+  if (D % 16 != 0 || D < 16 || D > DMAX) return nullptr;
+  if (dtype == 0) {
+    *smem_bytes = (int)bwd_f32_smem(D, true);
+    return "fma";
+  }
+  if (dtype != 1) return nullptr;
+  const int pad = D + PAD, qt = D <= 64 ? 64 : 32;  // bwd_qt<D>()
+  const int kv = (int)(sizeof(__nv_bfloat16) * (2 * BWD_TILE + 2 * qt) * pad + sizeof(float) * 2 * qt);
+  const int qq = (int)(sizeof(__nv_bfloat16) * 4 * BWD_TILE * pad);
+  *smem_bytes = kv > qq ? kv : qq;
+  return "mma.sync";
 }
 
 const char* flash_attention_error_string(int code) {

@@ -1,5 +1,5 @@
-"""Attention for serving: prefill over the whole prompt, decode against a
-KV cache.
+"""Attention: training and prefill over the whole sequence, decode against
+a KV cache.
 
 Counterpart of ``repro.models.attention``. Parameters keep the reference's
 per-head layouts — wq (D, H, Dh), wk/wv (D, KV, Dh), wo (H, Dh, D) — so
@@ -10,9 +10,14 @@ weights convert one to one. Two implementations:
                  (prefill ``flash_attention``, decode ``decode_attention``);
                  the counterpart of the reference's ``impl="pallas"``. On CPU
                  tensors their wrappers run the kernels' plain versions.
+                 Training (``mode="train"`` with gradients on) goes through
+                 ``FlashAttention``: the forward kernel with its log-sum-exp
+                 and the backward kernels, the counterpart of the
+                 reference's custom-VJP flash core (``attention_flash_xla``),
+                 which keeps O(S) per layer for the backward.
 
-The reference's chunked ``xla`` path and its custom-VJP backward serve
-training and the dry-run; they are not ported here.
+The reference's chunked ``xla`` forward serves its dry-run and long
+sequences; the port's ``kernel`` path takes its place.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from torch import nn
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 from repro_torch.models.layers import (apply_rope, as_param, rope_angles,
                                        truncated_normal_init)
 
@@ -212,7 +217,9 @@ def attention_block(x, p: AttnParams, cfg: AttentionConfig, *,
             out = attention_decode(q, ck, cv, cfg, lengths + 1, window=window)
         new_cache = (ck, cv)
     else:
-        if impl == "kernel":
+        if impl == "kernel" and mode == "train" and torch.is_grad_enabled():
+            out = FlashAttention.apply(q, k, v, cfg.causal, cfg.sliding_window)
+        elif impl == "kernel":
             out = flash_attention(q, k, v, causal=cfg.causal,
                                   window=cfg.sliding_window)
         else:

@@ -9,8 +9,15 @@ layouts, with the layers unstacked from the leading ``L`` axis: a
 down (E, F, D)), an ``RWKVParams`` for RWKV6 (``init_rwkv``), a
 ``ZambaParams`` for Zamba2 (``init_zamba``; Mamba2 layers stacked on L,
 shared blocks on copies). Matrices are stored in ``dtype`` (the compute
-dtype) once; norms, biases, RWKV6's mixers, decay and bonus and Mamba2's
-conv weights, decays and norm stay float32.
+dtype by default; float32 for training's masters) once; norms, biases,
+RWKV6's mixers, decay and bonus and Mamba2's conv weights, decays and norm
+stay float32.
+
+``opt_state_from_numpy`` takes the reference's AdamW state (``adamw_init``'s
+``{"mu", "nu", "step"}``, as numpy) and returns the port's: ``mu`` and
+``nu`` as dicts of float32 tensors keyed like ``named_parameters()``, and
+``step``. Both together let one training step start from the same state in
+both packages.
 """
 from __future__ import annotations
 
@@ -112,3 +119,14 @@ def _rwkv_from_numpy(tree: Dict, cfg: ModelConfig, device,
         layers,
         _norm({"scale": tree["final_scale"], "bias": tree["final_bias"]}, device),
         t(tree["lm_head"], True))
+
+
+def opt_state_from_numpy(state: Dict, cfg: ModelConfig, device) -> Dict:
+    """The reference's AdamW state -> the port's (``repro_torch.train.
+    optimizer.adamw_init``'s layout)."""
+    named = lambda tree: {
+        name: p.detach() for name, p in params_from_numpy(
+            tree, cfg, device, dtype=torch.float32).named_parameters()}
+    return {"mu": named(state["mu"]), "nu": named(state["nu"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}

@@ -1,19 +1,24 @@
 """Shared layer primitives: norms, rotary embeddings, MLP, initializers.
 
 Counterpart of ``repro.models.layers``. Parameters live in small
-``nn.Module`` containers (``requires_grad=False``: the port serves, it does
-not train yet) and the math is plain functions on tensors, so each function
-here maps one for one onto its reference. Norms compute in float32 and cast
-back, as the reference does.
+``nn.Module`` containers and the math is plain functions on tensors, so each
+function here maps one for one onto its reference. Norms compute in float32
+and cast back, as the reference does. The containers hold their tensors with
+``requires_grad=False``: serving never builds a graph, and training
+(``repro_torch.train.trainer``) differentiates with respect to tensors of its
+own, put in place of these by ``torch.func.functional_call``.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 
 def as_param(t: torch.Tensor) -> nn.Parameter:
@@ -185,3 +190,34 @@ def apply_mlp(x: torch.Tensor, p: MLPParams, act: str, gated: bool) -> torch.Ten
     else:
         h = activation(up, act)
     return h @ p.down.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation (training)
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("minimal", "dots")
+# matrix products without batch dimensions: ``x @ W`` with W 2-D reaches
+# autograd as ``aten.mm`` (``addmm`` with a bias); einsums over heads or
+# experts are ``bmm`` and are recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def rematerialized(fn: Callable, policy: str) -> Callable:
+    """``fn`` under ``torch.utils.checkpoint``, the counterpart of the
+    reference's ``jax.checkpoint`` of a layer: ``"minimal"`` saves nothing
+    of its inside (its inputs only), ``"dots"`` also saves the outputs of
+    matrix products without batch dimensions, as
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}")
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)

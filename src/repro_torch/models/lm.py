@@ -1,11 +1,14 @@
-"""Model facade: init / prefill / decode for every family the port serves:
+"""Model facade: init / train-loss / prefill / decode for every family:
 dense, MoE, VLM and audio transformers, RWKV6 (ssm) and Zamba2 (hybrid).
 
 Counterpart of ``repro.models.lm``. ``build_model(cfg)`` returns a ``Model``
-whose step functions the serving engine drives. ``attn_impl`` defaults to
-``"kernel"``, the hand-written CUDA kernels (flash and decode attention, the
-``gla_scan`` prefill scan of RWKV6 and Zamba2's Mamba2 layers); ``"einsum"``
-is the plain path.
+whose step functions the serving engine and the trainer drive. ``attn_impl``
+defaults to ``"kernel"``, the hand-written CUDA kernels (flash and decode
+attention, the ``gla_scan`` prefill scan of RWKV6 and Zamba2's Mamba2
+layers; in training flash attention's forward and backward kernels, and the
+plain ``gla_chunked`` scan, as the reference); ``"einsum"`` is the plain
+path. ``remat`` rematerialises each layer in training under
+``remat_policy`` (``"minimal"`` or ``"dots"``).
 
 A batch holds ``tokens`` (B, S) or, for the stub frontends (VLM patches,
 audio frames), ``embeds`` (B, S, D); under M-RoPE optionally ``positions3``
@@ -26,6 +29,20 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models import zamba as zamba_mod
+from repro_torch.models.layers import REMAT_POLICIES
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE over valid positions; logits promoted to float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if valid is None:
+        return nll.mean()
+    v = valid.float()
+    return (nll * v).sum() / torch.clamp(v.sum(), min=1.0)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -39,19 +56,28 @@ def check_supported(cfg: ModelConfig) -> None:
 class Model:
     cfg: ModelConfig
     attn_impl: str = "kernel"
+    remat: bool = False
+    remat_policy: str = "minimal"  # "minimal" (save nothing) | "dots"
 
-    def init(self, seed: int = 0, device: DeviceLike = None):
+    def init(self, seed: int = 0, device: DeviceLike = None,
+             dtype: Optional[torch.dtype] = None):
         """Random weights drawn on ``device`` from a generator seeded with
-        ``seed``, each tensor on its own in the compute dtype."""
+        ``seed``, each tensor on its own. Matrices are stored in ``dtype``:
+        by default the compute dtype (serving), ``torch.float32`` for
+        training's masters (the reference's storage, cast per use); norms,
+        biases and the recurrent models' mixers and decays are float32
+        either way. ``device="meta"`` gives the structure without values."""
         c = self.cfg
         check_supported(c)
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
+        dt = tf.compute_dtype(c) if dtype is None else dtype
         if c.family == "ssm":
-            return rwkv_mod.init_rwkv(c, gen, dev, tf.compute_dtype(c))
+            return rwkv_mod.init_rwkv(c, gen, dev, dt)
         if c.family == "hybrid":
-            return zamba_mod.init_zamba(c, gen, dev, tf.compute_dtype(c))
-        return tf.init_transformer(c, gen, dev)
+            return zamba_mod.init_zamba(c, gen, dev, dt)
+        return tf.init_transformer(c, gen, dev, dt)
 
     # ---------------- embeddings and positions ----------------
     def _embed(self, params, batch: Dict) -> torch.Tensor:
@@ -74,6 +100,31 @@ class Model:
         if lengths is not None:
             return lengths[:, None]
         return torch.arange(S, device=device)[None, :]
+
+    # ---------------- training ----------------
+    def loss_fn(self, params, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+        """Mean next-token CE (over ``valid`` positions if given) plus the
+        MoE aux loss; returns (loss, {"ce": loss, "aux": aux}), as the
+        reference. batch: ``tokens`` or ``embeds``, ``labels`` (B, S)."""
+        c = self.cfg
+        x = self._embed(params, batch)
+        B, S, _ = x.shape
+        kw = dict(mode="train", remat=self.remat,
+                  remat_policy=self.remat_policy)
+        if c.family == "ssm":
+            h, aux = rwkv_mod.rwkv_forward(params, c, x, impl=self.attn_impl,
+                                           **kw)
+            logits = rwkv_mod.rwkv_logits(params, h)
+        else:
+            forward = (zamba_mod.zamba_forward if c.family == "hybrid"
+                       else tf.transformer_forward)
+            h, aux = forward(params, c, x,
+                             positions=self._positions(batch, B, S, x.device),
+                             attn_impl=self.attn_impl, **kw)
+            logits = tf.lm_logits(params, c, h)
+        loss = cross_entropy(logits, batch["labels"], batch.get("valid"))
+        loss = loss + aux
+        return loss, {"ce": loss, "aux": aux}
 
     # ---------------- serving: prefill ----------------
     @torch.no_grad()
@@ -169,5 +220,9 @@ class Model:
                                       dev, dtype)
 
 
-def build_model(cfg: ModelConfig, attn_impl: str = "kernel") -> Model:
-    return Model(cfg=cfg, attn_impl=attn_impl)
+def build_model(cfg: ModelConfig, attn_impl: str = "kernel",
+                remat: bool = False, remat_policy: str = "minimal") -> Model:
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat_policy!r}")
+    return Model(cfg=cfg, attn_impl=attn_impl, remat=remat,
+                 remat_policy=remat_policy)

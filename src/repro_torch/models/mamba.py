@@ -12,7 +12,9 @@ state-space recurrence with per-head scalar decay
 Prefill scans from a zero state: with ``impl == "kernel"`` through the
 ``gla_scan`` CUDA kernel (its plain version on CPU tensors), with
 ``"einsum"`` through the plain chunked scan ``gla_chunked``. Decode is the
-single-token ``gla_step`` (the reference has no kernel for it). The depthwise
+single-token ``gla_step`` (the reference has no kernel for it). Training
+(``mode="train"``) takes ``gla_chunked`` whatever ``impl`` says, as the
+reference does: no scan kernel has a backward. The depthwise
 conv keeps the reference's summation order and dtype; ``dt``, the decay and
 the norm compute in float32.
 
@@ -140,7 +142,7 @@ def mamba_block(x, p: MambaParams, cfg: ModelConfig, *, conv_state=None,
         o, ssm_state = gla_step(Cm[:, 0], Bm[:, 0], xs[:, 0], log_w_full[:, 0],
                                 ssm_state, mode="ssd")
         o = o[:, None]
-    elif impl == "kernel":
+    elif impl == "kernel" and mode != "train":
         if ssm_state is not None:
             raise ValueError("the gla_scan kernel scans from a zero state")
         # the kernel reads log_w as a dense (B,T,H,N) tensor: materialise

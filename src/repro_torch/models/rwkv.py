@@ -5,12 +5,16 @@ decay, per-channel bonus ``u``, per-head group norm, relu^2 channel-mix.
 The recurrence goes through the ``gla_scan`` CUDA kernel on prefill when
 ``impl == "kernel"`` (its plain version on CPU tensors) and through the
 plain chunked scan ``gla_chunked`` when ``impl == "einsum"``; decode is the
-single-token ``gla_step`` (the reference has no kernel for it).
+single-token ``gla_step`` (the reference has no kernel for it). Training
+(``mode="train"``) takes ``gla_chunked`` whatever ``impl`` says, as the
+reference does: neither the reference's Pallas scan nor the port's kernel
+has a backward, so autograd differentiates the plain chunked scan.
 
 The reference stacks the layers on a leading axis and runs them with
 ``lax.scan``; here they are an ``nn.ModuleList`` walked by a Python loop.
-Projection matrices are stored in the compute dtype (the reference casts
-its float32 masters on every use, which gives the same values); the
+Projection matrices are stored in the dtype ``init_rwkv`` is given (the
+compute dtype to serve, float32 masters to train) and cast to the compute
+dtype on every use, as the reference casts its float32 masters; the
 token-shift mixers, decay LoRA, ``w0``, ``u``, norms and shift/wkv states
 stay float32, as the reference computes them.
 
@@ -19,6 +23,7 @@ wkv state (B, H, K, K), all float32.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -32,7 +37,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import gla_scan as gla_kernel
 from repro_torch.models.layers import (NormParams, activation, as_param,
                                        dense_init, embed_init, layernorm,
-                                       norm_params, truncated_normal_init)
+                                       norm_params, rematerialized,
+                                       truncated_normal_init)
 from repro_torch.models.linear_attention import gla_chunked, gla_step
 
 MIX_NAMES = ("w", "k", "v", "r", "g")
@@ -91,7 +97,7 @@ class RWKVLayerParams(nn.Module):
 
 class RWKVParams(nn.Module):
     """embed (V, D), ln0, per-layer modules, final norm, untied lm_head
-    (V, D). ``embed`` and ``lm_head`` are in the compute dtype."""
+    (V, D). ``embed`` and ``lm_head`` are in ``init_rwkv``'s dtype."""
 
     def __init__(self, embed, ln0: NormParams, layers: List[RWKVLayerParams],
                  final_norm: NormParams, lm_head):
@@ -131,15 +137,17 @@ def _token_shift(x, shift_state: Optional[torch.Tensor]):
 def _heads(x, w):
     """x (B,T,D) @ w (D,H,hd) -> (B,T,H,hd)."""
     B, T, _ = x.shape
-    return (x @ w.reshape(w.shape[0], -1)).view(B, T, w.shape[1], w.shape[2])
+    return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).view(
+        B, T, w.shape[1], w.shape[2])
 
 
 def rwkv_time_mix(x, p: RWKVBlockParams, cfg: ModelConfig, *,
                   shift_state=None, wkv_state=None, mode: str = "prefill",
                   impl: str = "kernel"):
     """x: (B, T, D) in the compute dtype. Returns (out (B,T,D), new time-mix
-    shift (B,D) float32, new wkv state (B,H,K,K) float32). Prefill starts
-    from zero states; decode reads ``shift_state`` and ``wkv_state``."""
+    shift (B,D) float32, new wkv state (B,H,K,K) float32). Prefill and
+    train start from zero states; decode reads ``shift_state`` and
+    ``wkv_state``."""
     dt = x.dtype
     xf = x.float()
     xx = _token_shift(xf, shift_state) - xf
@@ -164,13 +172,13 @@ def rwkv_time_mix(x, p: RWKVBlockParams, cfg: ModelConfig, *,
         o, new_state = gla_step(rr[:, 0], kk[:, 0], vv[:, 0], log_w[:, 0],
                                 wkv_state, u=p.u, mode="rwkv")
         o = o[:, None]  # (B,1,H,V)
-    elif impl == "kernel":   # prefill scans from a zero state
+    elif impl == "kernel" and mode != "train":   # prefill scans from zero
         o, new_state = gla_kernel.gla_scan(rr, kk, vv, log_w, u=p.u, mode="rwkv")
     else:
         o, new_state = gla_chunked(rr, kk, vv, log_w, u=p.u, mode="rwkv")
     o = _group_norm_heads(o, p.ln_x_scale, p.ln_x_bias)
     y = (o.to(dt) * g).flatten(2)
-    out = y @ p.wo.reshape(-1, p.wo.shape[-1])
+    out = y @ p.wo.to(dt).reshape(-1, p.wo.shape[-1])
     return out, xf[:, -1], new_state
 
 
@@ -181,8 +189,8 @@ def rwkv_channel_mix(x, p: RWKVBlockParams, cfg: ModelConfig, *,
     xx = _token_shift(xf, shift_state) - xf
     xk = (xf + xx * p.cm_mu_k).to(dt)
     xr = (xf + xx * p.cm_mu_r).to(dt)
-    k = activation(xk @ p.cm_key, cfg.mlp.activation)
-    out = torch.sigmoid(xr @ p.cm_recept) * (k @ p.cm_value)
+    k = activation(xk @ p.cm_key.to(dt), cfg.mlp.activation)
+    out = torch.sigmoid(xr @ p.cm_recept.to(dt)) * (k @ p.cm_value.to(dt))
     return out, xf[:, -1]
 
 
@@ -201,19 +209,37 @@ def init_rwkv_cache(cfg: ModelConfig, batch: int, device) -> Dict:
     return cache
 
 
+def _train_layer(h, lp: RWKVLayerParams, cfg: ModelConfig):
+    out, _, _ = rwkv_time_mix(layernorm(h, lp.ln1.scale, lp.ln1.bias),
+                              lp.block, cfg, mode="train")
+    h = h + out
+    out, _ = rwkv_channel_mix(layernorm(h, lp.ln2.scale, lp.ln2.bias),
+                              lp.block, cfg)
+    return h + out
+
+
 def rwkv_forward(params: RWKVParams, cfg: ModelConfig, x, *,
                  mode: str = "prefill", cache: Optional[Dict] = None,
-                 impl: str = "kernel"):
+                 impl: str = "kernel", remat: bool = False,
+                 remat_policy: str = "minimal"):
     """x: (B, S, D) embeddings (ln0 is applied here). Returns
     (hidden (B,S,D), states).
 
     prefill: scans from zero states and returns the new ones stacked over
     layers as ``{"tm_shift", "cm_shift", "wkv"}``. decode: reads ``cache``
-    and writes its three states in place (``states`` is then ``cache``)."""
+    and writes its three states in place (``states`` is then ``cache``).
+    train: scans from zero states through ``gla_chunked`` and returns the
+    aux loss, 0, in place of states; with ``remat`` each layer is
+    rematerialised under ``remat_policy``."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
     decode = mode == "decode"
     h = layernorm(x, params.ln0.scale, params.ln0.bias)
+    if mode == "train":
+        for lp in params.layers:
+            layer = functools.partial(_train_layer, lp=lp, cfg=cfg)
+            h = (rematerialized(layer, remat_policy) if remat else layer)(h)
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
     new = {"tm_shift": [], "cm_shift": [], "wkv": []}
     for i, lp in enumerate(params.layers):
         hn = layernorm(h, lp.ln1.scale, lp.ln1.bias)

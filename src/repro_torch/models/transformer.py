@@ -10,10 +10,13 @@ embeddings in place of tokens (``embed_stub``) and otherwise share the
 dense stack. RWKV6 and Zamba2 have their own stacks
 (``repro_torch.models.rwkv``, ``repro_torch.models.zamba``). The
 reference's sharding constraints (``distributed.axes.constrain``) have no
-counterpart on one card.
+counterpart on one card. Training (``mode="train"``) returns the MoE aux
+loss and can rematerialise each layer (``remat``), as the reference's
+``jax.checkpoint`` of its scan body.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -22,7 +25,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, as_param,
-                                       embed_init, mlp_params, norm_params)
+                                       embed_init, mlp_params, norm_params,
+                                       rematerialized)
 from repro_torch.models.moe import apply_moe, moe_params
 
 FAMILIES = ("dense", "moe", "vlm", "audio")
@@ -54,9 +58,10 @@ class LayerParams(nn.Module):
 class TransformerParams(nn.Module):
     """embed (V, D), lm_head (V, D) unless tied, per-layer modules, final norm.
 
-    Matrices are stored in the compute dtype (the reference keeps float32
-    masters and casts them on every use, which gives the same values); norm
-    scales stay float32."""
+    Matrices are stored in the dtype ``init`` is given: the compute dtype
+    for serving (the reference keeps float32 masters and casts them on every
+    use, which gives the same values), float32 masters for training, cast on
+    every use as the reference's; norm scales stay float32."""
 
     def __init__(self, embed, lm_head, layers, final_norm):
         super().__init__()
@@ -66,12 +71,14 @@ class TransformerParams(nn.Module):
         self.final_norm = final_norm
 
 
-def init_transformer(cfg: ModelConfig, generator: torch.Generator,
-                     device: torch.device) -> TransformerParams:
+def init_transformer(cfg: ModelConfig, generator: Optional[torch.Generator],
+                     device: torch.device,
+                     dtype: Optional[torch.dtype] = None) -> TransformerParams:
     """Random weights with the reference's initializers and scales, drawn
-    from ``generator`` on ``device``."""
+    from ``generator`` on ``device``; matrices in ``dtype`` (default: the
+    compute dtype)."""
     check_supported(cfg)
-    dt = compute_dtype(cfg)
+    dt = compute_dtype(cfg) if dtype is None else dtype
     embed = embed_init(cfg.vocab_size, cfg.d_model, generator, device, dt)
     lm_head = (None if cfg.tie_embeddings else
                embed_init(cfg.vocab_size, cfg.d_model, generator, device, dt))
@@ -102,31 +109,52 @@ def _layer_apply(x, lp: LayerParams, cfg: ModelConfig, *, rope, mode,
     h = apply_norm(x, lp.mlp_norm, cfg.norm, cfg.norm_eps)
     if cfg.family == "moe":
         # the aux loss trains the router; serving ignores it
-        m_out, _ = apply_moe(h, lp.moe, cfg.moe,
-                             act=cfg.mlp.activation if cfg.mlp else "silu")
+        m_out, aux = apply_moe(h, lp.moe, cfg.moe,
+                               act=cfg.mlp.activation if cfg.mlp else "silu")
     else:
-        m_out = apply_mlp(h, lp.mlp, cfg.mlp.activation, cfg.mlp.gated)
-    return x + m_out, new_kv
+        m_out, aux = apply_mlp(h, lp.mlp, cfg.mlp.activation, cfg.mlp.gated), None
+    return x + m_out, new_kv, aux
+
+
+def _train_layer(x, lp: LayerParams, cfg: ModelConfig, rope, impl):
+    x, _, aux = _layer_apply(x, lp, cfg, rope=rope, mode="train",
+                             cache_kv=None, lengths=None, impl=impl)
+    return x, aux
 
 
 def transformer_forward(params: TransformerParams, cfg: ModelConfig, x, *,
                         positions, mode: str = "prefill",
                         cache: Optional[Dict] = None,
-                        attn_impl: str = "kernel"):
+                        attn_impl: str = "kernel", remat: bool = False,
+                        remat_policy: str = "minimal"):
     """x: (B, S, D) embeddings; positions (B|1, S), or (B, S, 3) under
     M-RoPE. Returns (hidden (B,S,D), new_cache).
 
     decode: ``cache`` k/v are updated in place and returned with
     ``lengths + 1``. prefill: returns the computed K/V stacked as
-    (L, B, S, KV, D), as the reference does. train: the full sequence and
-    no K/V (the encoder's forward)."""
+    (L, B, S, KV, D), as the reference does. train: the full sequence, no
+    K/V, and the summed MoE aux loss (float32 scalar; 0 for the other
+    families) in place of a cache; with ``remat`` each layer is
+    rematerialised under ``remat_policy`` (``layers.rematerialized``). The
+    encoder's forward is train mode under ``torch.no_grad``."""
     check_supported(cfg)
     lengths = cache["lengths"] if cache is not None else None
     rope = attn.positional_angles(cfg.attention, positions)
+    if mode == "train":
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in params.layers:
+            layer = functools.partial(_train_layer, lp=lp, cfg=cfg, rope=rope,
+                                      impl=attn_impl)
+            if remat:
+                layer = rematerialized(layer, remat_policy)
+            x, aux = layer(x)
+            if aux is not None:   # MoE layers
+                aux_total = aux_total + aux
+        return x, aux_total
     computed_k, computed_v = [], []
     for i, lp in enumerate(params.layers):
         cache_kv = (cache["k"][i], cache["v"][i]) if mode == "decode" else None
-        x, (nk, nv) = _layer_apply(
+        x, (nk, nv), _ = _layer_apply(
             x, lp, cfg, rope=rope, mode=mode, cache_kv=cache_kv,
             lengths=lengths, impl=attn_impl)
         if mode == "prefill":

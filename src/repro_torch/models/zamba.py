@@ -9,10 +9,13 @@ block reads the residual stream, and there are no per-application LoRA
 adapters.
 
 Decode cache: k/v (n_app, B, W, KV, D), conv_x and conv_bc (L, B, K-1, ...)
-and ssm (L, B, H, N, P) float32, and the lengths.
+and ssm (L, B, H, N, P) float32, and the lengths. Training
+(``mode="train"``) rematerialises the Mamba2 layers (not the shared blocks)
+when asked, as the reference's ``jax.checkpoint`` of its Mamba2 scan body.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional
 
 import torch
@@ -21,7 +24,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, as_param,
-                                       embed_init, mlp_params, norm_params)
+                                       embed_init, mlp_params, norm_params,
+                                       rematerialized)
 from repro_torch.models.mamba import (MambaParams, mamba_block,
                                       mamba_block_params, mamba_state_shapes)
 from repro_torch.models.transformer import write_prefill_to_cache
@@ -44,7 +48,7 @@ class SharedBlockParams(nn.Module):
 
 
 class ZambaParams(nn.Module):
-    """embed and untied lm_head (V, D) in the compute dtype, the Mamba2
+    """embed and untied lm_head (V, D) in ``init_zamba``'s dtype, the Mamba2
     layers, the ``shared_attn_copies`` shared blocks, the final norm."""
 
     def __init__(self, embed, layers: List[MambaParams],
@@ -104,9 +108,14 @@ def _shared_apply(x, sp: SharedBlockParams, cfg: ModelConfig, *, rope, mode,
     return x + apply_mlp(h, sp.mlp, cfg.mlp.activation, cfg.mlp.gated), new_kv
 
 
+def _train_mamba(h, lp: MambaParams, cfg: ModelConfig):
+    return mamba_block(h, lp, cfg, mode="train")[0]
+
+
 def zamba_forward(params: ZambaParams, cfg: ModelConfig, x, *, positions,
                   mode: str = "prefill", cache: Optional[Dict] = None,
-                  attn_impl: str = "kernel"):
+                  attn_impl: str = "kernel", remat: bool = False,
+                  remat_policy: str = "minimal"):
     """x: (B,S,D). Returns (hidden, states).
 
     prefill: scans from zero states and returns ``{"computed_k",
@@ -114,12 +123,26 @@ def zamba_forward(params: ZambaParams, cfg: ModelConfig, x, *, positions,
     ``conv_bc`` and ``ssm`` stacked over layers. decode: reads ``cache``,
     writes its K/V and states in place and returns it with ``lengths + 1``.
     A conv state held in another dtype than x's is first recast to x's, as
-    the reference's decode returns its states in x's dtype."""
+    the reference's decode returns its states in x's dtype. train: scans
+    from zero states (Mamba2 through ``gla_chunked``) and returns the aux
+    loss, 0, in place of states; with ``remat`` each Mamba2 layer is
+    rematerialised under ``remat_policy``."""
     every = cfg.zamba.shared_attn_every
     copies = cfg.zamba.shared_attn_copies
     decode = mode == "decode"
     lengths = cache["lengths"] if decode else None
     rope = attn.positional_angles(cfg.attention, positions)
+    if mode == "train":
+        h = x
+        for g in range(n_shared_applications(cfg)):
+            h, _ = _shared_apply(h, params.shared[g % copies], cfg, rope=rope,
+                                 mode=mode, cache_kv=None, lengths=None,
+                                 impl=attn_impl)
+            for i in range(g * every, min((g + 1) * every, cfg.n_layers)):
+                layer = functools.partial(_train_mamba, lp=params.layers[i],
+                                          cfg=cfg)
+                h = (rematerialized(layer, remat_policy) if remat else layer)(h)
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
     if decode:
         for key in ("conv_x", "conv_bc"):
             if cache[key].dtype != x.dtype:

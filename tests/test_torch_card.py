@@ -18,8 +18,10 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_reference)
 from repro_torch.kernels.decode_attention.ops import kernel_route, split_plan
-from repro_torch.kernels.flash_attention import (attention_reference,
-                                                 flash_attention)
+from repro_torch.kernels.flash_attention import (
+    FlashAttention, attention_backward_reference, attention_forward_reference,
+    attention_reference, flash_attention, flash_attention_bwd,
+    flash_attention_fwd)
 from repro_torch.kernels.flash_attention.ops import \
     kernel_route as flash_route
 from repro_torch.kernels.gla_scan import gla_scan, gla_scan_reference
@@ -163,6 +165,120 @@ def test_flash_kernel_is_deterministic_on_card(D):
     b = flash_attention(q, k, v, causal=True, window=None)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# The backward kernels (and the forward's lse): every head dim the forward
+# takes, float32 (FMA) and bf16 (mma.sync); GQA groups 1, 3 and 6 of H = 6;
+# S of 1, one below and one past a 64-row tile, and 200; causal, window 64,
+# non-causal, non-causal with a window of 50. Gradients within 2e-4 (float32)
+# or 2e-2 (bf16) of each gradient's largest magnitude, against the plain
+# backward fed the kernel forward's own o and lse; a gradient that cancels to
+# rounding noise (dq and dk are 0 at S = 1) is held at 1e-2 of the largest
+# magnitude of the three.
+BWD_D = [16, 32, 48, 64, 80, 96, 112, 128]
+BWD_S = [1, 63, 65, 200]
+BWD_MASKS = [(True, None), (True, 64), (False, None), (False, 50)]
+BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+
+
+def _bwd_case_hold(seed, B, S, H, KV, D, dtype, causal, window, amp=1):
+    q, k, v = _flash_inputs(seed, B, S, H, KV, D, dtype, amp)
+    do = _inputs(np.random.default_rng(seed + 1), dtype, (B, S, H, D))[0]
+    tr = lambda x: x.transpose(1, 2)
+    n_fwd, n_bwd = flash_attention.launches, flash_attention_bwd.launches
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    grads = flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                window=window)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        n_fwd + 1, n_bwd + 1)
+    ref_out, ref_lse = attention_forward_reference(
+        tr(q), tr(k), tr(v), causal=causal, window=window)
+    np.testing.assert_allclose(_np(out), _np(tr(ref_out)), **_tol(dtype))
+    np.testing.assert_allclose(_np(lse), _np(ref_lse), rtol=0,
+                               atol=LSE_TOL[dtype])
+    refs = attention_backward_reference(tr(q), tr(k), tr(v), tr(out), lse,
+                                        tr(do), causal=causal, window=window)
+    largest = max(float(r.abs().max()) for r in refs)
+    for name, got, want in zip("qkv", grads, refs):
+        want = tr(want).float()
+        scale = max(float(want.abs().max()), 1e-2 * largest)
+        err = float((got.float() - want).abs().max())
+        assert torch.isfinite(got).all() and err <= BWD_TOL[dtype] * scale, (
+            f"d{name}: max err {err:.3e} of max |ref| {scale:.3e}")
+    return grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("D", BWD_D)
+@pytest.mark.parametrize("S", BWD_S)
+@pytest.mark.parametrize("causal,window", BWD_MASKS)
+@pytest.mark.parametrize("KV", [6, 2, 1])
+def test_flash_backward_matches_plain_on_card(dtype, D, S, causal, window, KV):
+    _cuda_or_skip()
+    _bwd_case_hold(7, 2, S, 6, KV, D, dtype, causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", [
+    (8, 2048, 15, 5, 64, True, None),      # smollm-360m's training shape
+    (1, 2048, 32, 8, 128, True, None),     # Llama widths
+    (1, 2048, 32, 8, 80, True, 1000)])     # D = 80 with a window inside S
+@pytest.mark.parametrize("amp", [1, 8])
+def test_flash_backward_matches_plain_at_training_shapes_on_card(
+        B, S, H, KV, D, causal, window, amp):
+    _cuda_or_skip()
+    _bwd_case_hold(3, B, S, H, KV, D, "bfloat16", causal, window, amp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_flash_backward_is_deterministic_on_card(dtype, D):
+    """No atomics: two backward launches on the same inputs give the same
+    bits, and so do two forwards' lse."""
+    _cuda_or_skip()
+    q, k, v = _flash_inputs(5, 2, 1000, 8, 2, D, dtype, 8)
+    do = _inputs(np.random.default_rng(6), dtype, (2, 1000, 8, D))[0]
+    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    out2, lse2 = flash_attention_fwd(q, k, v, causal=True)
+    a = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    b = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_flash_autograd_function_on_card():
+    """FlashAttention.apply through autograd: the forward with lse and the
+    backward kernels launch once each, an expanded output gradient (sum's)
+    is made contiguous, and the gradients equal a direct backward call."""
+    _cuda_or_skip()
+    q, k, v = (x.requires_grad_() for x in
+               _flash_inputs(8, 1, 300, 4, 2, 64, "bfloat16"))
+    n_fwd, n_bwd = flash_attention.launches, flash_attention_bwd.launches
+    out = FlashAttention.apply(q, k, v, True, None)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        n_fwd + 1, n_bwd + 1)
+    o, lse = flash_attention_fwd(q.detach(), k.detach(), v.detach())
+    want = flash_attention_bwd(q.detach(), k.detach(), v.detach(), o, lse,
+                               torch.ones_like(o))
+    for x, w in zip((q, k, v), want):
+        assert torch.equal(x.grad, w)
+
+
+@pytest.mark.cuda
+def test_flash_backward_routes_on_card():
+    _cuda_or_skip()
+    for D in BWD_D:
+        assert flash_route(torch.bfloat16, D, backward=True)[0] == "mma.sync"
+        assert flash_route(torch.float32, D, backward=True)[0] == "fma"
+    assert flash_route(torch.bfloat16, 72, backward=True)[0] is None
 
 
 @pytest.mark.cuda
