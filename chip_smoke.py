@@ -196,6 +196,13 @@ TRAIN_STEPS, RESTART_STEPS = 20, 24
 TRAIN_MARGIN = 0.3          # tests/test_train_serve_integration.py:40
 GRAD_TOL = 5e-2             # phase 17a/b: relative Frobenius per leaf
 MFU_PEAK_FLOPS = 989.4e12   # H100 SXM dense bf16, for the training MFU
+# phase 3's timed backward shapes, (B, S, H, KV, D, dtype, causal, window):
+# smollm-360m's training, Llama's widths, h2o-danube's D=80 window, float32
+FLASH_BWD_SHAPES = {
+    "flash_bwd_smollm": (TRAIN_BATCH, TRAIN_SEQ, 15, 5, 64, torch.bfloat16, True, None),
+    "flash_bwd_llama": (1, 2048, 32, 8, 128, torch.bfloat16, True, None),
+    "flash_bwd_danube": (1, 6000, 32, 8, 80, torch.bfloat16, True, 4096),
+    "flash_bwd_f32": (1, 1024, 8, 2, 64, torch.float32, True, None)}
 MICROGRID_REPLACES = "src/repro/core/microgrid.py:45 (simulate, lax.scan)"
 MICROGRID_SOURCE = "src/repro_torch/kernels/microgrid_scan/csrc/microgrid_scan.cu"
 # dependent float32 operations that carry soc_wh from one step to the next
@@ -336,6 +343,9 @@ def phase_build():
         path, smem = kernel_route(dtype, D)
         print(f"  flash_attention route {dtype} D={D}: {path}, {smem} bytes "
               "dynamic smem per CTA")
+        path, smem = kernel_route(dtype, D, backward=True)
+        print(f"  flash_attention_bwd route {dtype} D={D}: {path}, {smem} "
+              "bytes dynamic smem in its larger CTA")
     for qdt, cdt, D in [(torch.bfloat16, torch.bfloat16, 128),
                         (torch.bfloat16, torch.bfloat16, 64),
                         (torch.bfloat16, torch.bfloat16, 80),
@@ -863,17 +873,18 @@ def phase_kernels() -> dict:
 def phase_flash_backward(gen) -> dict:
     """Phase 3's backward part: the tests' grid, then the training shapes."""
     print("-- flash backward (tests/test_torch_card.py: float32 fma, bf16 "
-          "mma.sync; H=6, GQA groups 1/3/6, B=2, S 1/63/65/200, causal / "
-          "window 64 / non-causal / non-causal window 50), worst error of "
-          "each gradient's largest magnitude per (dtype, D); tol float32 "
-          "2e-4, bf16 2e-2; lse float32 1e-5, bf16 1e-3; two launches "
+          "wgmma at D 64-128, mma.sync below; H=6, GQA groups 1/3/6, B=2, S "
+          "1/63/65/127/128/129/200/257, causal / window 64 / window 100 / "
+          "non-causal / non-causal window 50), worst error of each "
+          "gradient's largest magnitude per (dtype, D); tol float32 2e-4, "
+          "bf16 2e-2; lse float32 1e-5, bf16 1e-3; two launches "
           "bit-identical")
     for dtype in (torch.float32, torch.bfloat16):
         for D in (16, 32, 48, 64, 80, 96, 112, 128):
             worst, lse_worst, paths, n = 0.0, 0.0, set(), 0
-            for S in (1, 63, 65, 200):
-                for causal, window in ((True, None), (True, 64), (False, None),
-                                       (False, 50)):
+            for S in (1, 63, 65, 127, 128, 129, 200, 257):
+                for causal, window in ((True, None), (True, 64), (True, 100),
+                                       (False, None), (False, 50)):
                     for KV in (6, 2, 1):
                         row = flash_bwd_case(2, S, 6, KV, D, dtype, causal,
                                              window, gen)
@@ -888,12 +899,7 @@ def phase_flash_backward(gen) -> dict:
           "widths, h2o-danube's D=80 with its 4096 window inside S=6000, one "
           "float32); library = SDPA's backward alone")
     rows = {}
-    bf16 = torch.bfloat16
-    for key, args in (
-            ("flash_bwd_smollm", (TRAIN_BATCH, TRAIN_SEQ, 15, 5, 64, bf16, True, None)),
-            ("flash_bwd_llama", (1, 2048, 32, 8, 128, bf16, True, None)),
-            ("flash_bwd_danube", (1, 6000, 32, 8, 80, bf16, True, 4096)),
-            ("flash_bwd_f32", (1, 1024, 8, 2, 64, torch.float32, True, None))):
+    for key, args in FLASH_BWD_SHAPES.items():
         row = flash_bwd_case(*args, gen, timed=True)
         B, S, H, KV, D, dtype, causal, window = args
         print(f"flash backward {key[10:]} B={B} S={S} H={H} KV={KV} D={D} "

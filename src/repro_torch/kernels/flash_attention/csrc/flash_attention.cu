@@ -757,45 +757,78 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+// d (64 x 64, float32) {=, +=} A (64 x 16) * B (16 x 64); A and B in shared
+// memory, both K-major. accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 #undef ACC8
 
-// S = Q K^T for one consumer warpgroup: 64 rows x WG_BK keys, D / 16 k-steps
-// of 16 columns; a k-step moves 32 bytes along a 128-byte swizzled row and
-// every 4 k-steps to the next 64-column box (D = 80: four k-steps in the
-// first box, one in the second). Issued, not waited for.
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&sacc)[WG_BK / 2], uint32_t q_rows,
-                                         uint32_t k_tile) {
-  const uint64_t dq = sw128_desc(q_rows, 16, 1024), dk = sw128_desc(k_tile, 16, 1024);
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, accumulate);
+  else wgmma_ss_n128(d, da, db, accumulate);
+}
+
+// acc (64 x N) = A (64 rows x D) B^T (N rows x D), both K-major tiles of
+// 64-column boxes (a_box, b_box bytes apart): D / 16 k-steps (a k-step
+// moves 32 bytes along a 128-byte swizzled row, every 4 k-steps to the next
+// box: D = 80 takes four k-steps in the first box, one in the second).
+// Issued and committed, not waited for.
+template <int N, int D>
+__device__ __forceinline__ void issue_ss(float (&acc)[N / 2], uint32_t a, uint32_t a_box,
+                                         uint32_t b, uint32_t b_box) {
+  const uint64_t da = sw128_desc(a, 16, 1024), db = sw128_desc(b, 16, 1024);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;
-    wgmma_ss_n128(sacc, desc_plus(dq, (kk / 4) * Q_BOX + col),
-                  desc_plus(dk, (kk / 4) * KV_BOX + col), kk > 0);
+    wgmma_ss<N>(acc, desc_plus(da, (kk / 4) * a_box + col),
+                desc_plus(db, (kk / 4) * b_box + col), kk > 0);
   }
   wgmma_commit();
 }
 
-// O += P V: P in registers, in the A layout of keys [16 kk, 16 kk + 16); V
-// the MN-major B operand, where a k-step of 16 keys is 2048 bytes of a box
-// and columns 64.. lie one box (lbo) further. Issued, not waited for.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
-                                         const uint32_t (&pa)[WG_BK / 16][4],
-                                         uint32_t v_tile) {
-  const uint64_t dv0 = sw128_desc(v_tile, KV_BOX, 1024);
+// acc (64 x D) += A (64 x 16 KS, registers) B (16 KS rows x D, MN-major, its
+// 64-column boxes b_box bytes apart): a k-step of 16 rows is 2048 bytes of a
+// box, and columns 64.. lie one box (lbo) further. Issued and committed.
+template <int D, int KS>
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2], const uint32_t (&a)[KS][4],
+                                         uint32_t b, uint32_t b_box) {
+  const uint64_t db = sw128_desc(b, b_box, 1024);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < WG_BK / 16; ++kk)
-    wgmma_rs<D>(oacc, pa[kk], desc_plus(dv0, kk * 2048));
+  for (int kk = 0; kk < KS; ++kk) wgmma_rs<D>(acc, a[kk], desc_plus(db, kk * 2048));
   wgmma_commit();
+}
+
+// An accumulator of 64 x N as bf16 A fragments (columns [16 kk, 16 kk + 16)).
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&acc)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(acc[8 * kk], acc[8 * kk + 1]);
+    a[kk][1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
+    a[kk][2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
+    a[kk][3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
+  }
 }
 
 // One tile of the online softmax for rows row0 and row1 = row0 + 8 of a
 // thread (lane = 4 g + t holds keys k0 + 8 j + 2 t, + 1 of every n8 block
 // j). Masks only when `masked`; updates m (log2 units) and the per-lane
-// partial l; leaves the probabilities in sacc (pack_p makes them P V's A
+// partial l; leaves the probabilities in sacc (pack_a makes them P V's A
 // operand) and returns the factors by which the previous accumulator must
 // be scaled. A row with no unmasked score
 // yet keeps m = -inf and takes 0 as its exp2 reference, so every exp2 is of
@@ -849,18 +882,6 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[WG_BK / 2],
   }
   l0 = l0 * alpha0 + rs0;  // per-lane partial sums; the quad is summed at the end
   l1 = l1 * alpha1 + rs1;
-}
-
-// The probabilities as bf16 A fragments of P V (keys [16 kk, 16 kk + 16)).
-__device__ __forceinline__ void pack_p(const float (&sacc)[WG_BK / 2],
-                                       uint32_t (&pa)[WG_BK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < WG_BK / 16; ++kk) {
-    pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
-  }
 }
 
 // One work item: a (batch, query head, 128-query tile), and the KV tiles it
@@ -1021,14 +1042,14 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
       {
         float sacc[WG_BK / 2], alpha0, alpha1;
         mbar_wait(k_full(ps), pparity);
-        issue_qk<D>(sacc, q_rows, k_tile(ps));
+        issue_ss<WG_BK, D>(sacc, q_rows, Q_BOX, k_tile(ps), KV_BOX);
         wgmma_wait<0>();
         fence_regs(sacc);
         mbar_arrive(k_empty(ps));
         if (it.n_tiles == 1) mbar_arrive(q_empty(qb));  // Q of this item is read
         softmax_tile(sacc, m0, m1, l0, l1, alpha0, alpha1, masked(it.k_begin),
                      it.k_begin, row0, t, S, causal, window, scale_log2);
-        pack_p(sacc, pa);  // the accumulator is still 0: no rescale
+        pack_a<WG_BK>(sacc, pa);  // the accumulator is still 0: no rescale
         ++g;
       }
       for (int j = 1; j < it.n_tiles; ++j, ++g) {
@@ -1037,8 +1058,8 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
         float sacc[WG_BK / 2], alpha0, alpha1;
         mbar_wait(k_full(s), parity);
         mbar_wait(v_full(ps), pparity);
-        issue_qk<D>(sacc, q_rows, k_tile(s));
-        issue_pv<D>(oacc, pa, v_tile(ps));
+        issue_ss<WG_BK, D>(sacc, q_rows, Q_BOX, k_tile(s), KV_BOX);
+        issue_rs<D, WG_BK / 16>(oacc, pa, v_tile(ps), KV_BOX);
         wgmma_wait<1>();  // Q K^T is done; P V may still run
         fence_regs(sacc);
         mbar_arrive(k_empty(s));
@@ -1055,12 +1076,12 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
           oacc[4 * jj + 2] *= alpha1;
           oacc[4 * jj + 3] *= alpha1;
         }
-        pack_p(sacc, pa);
+        pack_a<WG_BK>(sacc, pa);
         ps = s;
         pparity = parity;
       }
       mbar_wait(v_full(ps), pparity);  // the last tile's P V
-      issue_pv<D>(oacc, pa, v_tile(ps));
+      issue_rs<D, WG_BK / 16>(oacc, pa, v_tile(ps), KV_BOX);
       wgmma_wait<0>();
       fence_regs(oacc);
       mbar_arrive(v_empty(ps));
@@ -1105,24 +1126,61 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 //   dS = P (dP - delta) scale, dQ = dS k, dK = dS^T q, dV = P^T dO,
 // with dK and dV summed over the G query heads of each KV head. P is
 // recomputed from lse tile by tile, so no S x S tensor is ever stored.
-// Three launches:
-//   1. flash_bwd_delta_kernel: one warp per (b, s, h) row;
-//   2. dK/dV: one CTA per (batch, KV head, 64-key tile), walking the query
-//      tiles the mask lets through for each of the G heads of its group,
-//      accumulating dK and dV in float32 registers;
-//   3. dQ: one CTA per (batch, head, 64-query tile), walking the key tiles
-//      the mask lets through, accumulating dQ in float32 registers.
-// Every output element is summed by one thread in a fixed order, so two
-// launches on the same inputs are bit-identical. P and dS are recomputed by
-// both passes (14 D flops a (query, key) pair instead of 10). Masks are the
-// forward's: causal kpos <= qpos, window kpos > qpos - window, kpos, qpos < S.
+// Three launches: flash_bwd_delta_kernel (one warp per (b, s, h) row), a
+// dK/dV kernel and a dQ kernel. Every output element is summed by one
+// thread in a fixed order, so two launches on the same inputs are
+// bit-identical. Masks are the forward's: causal kpos <= qpos, window
+// kpos > qpos - window, kpos, qpos < S.
 //
-// What bounds it: 10 D H flops a visible (query, key) pair against the same
-// few bytes as the forward, so operations. bf16 runs both products on
-// mma.sync m16n8k16 (float32 accumulate) with P and dS re-packed to bf16 as
-// A operands (FlashAttention-2's register reuse); loads are synchronous and
-// single-buffered. float32 runs FMAs on shared-memory tiles. Simple first:
-// wgmma and TMA, as in the forward, are for a later change.
+// What bounds it: 10 D H flops a visible (query, key) pair (five products of
+// 2 D: S, dP, dV, dK, dQ) against the same few bytes as the forward, so
+// operations. Without atomics both kernels recompute S and dP: they issue
+// 14 D flops a pair, so they can reach at most 10 / 14 = 71% of the bound.
+//
+// bf16 at D = 64, 80, 96, 112 and 128 (every trained head dim): Hopper's
+// shape, as the forward's (TMA ring, warp-specialised wgmma, persistent grid
+// heaviest first). A CTA is a producer warpgroup (setmaxnreg 24) and two
+// consumer warpgroups (240); products are wgmma with float32 accumulators.
+//   - flash_bwd_dkdv_wgmma_kernel: an item is one (batch, KV head, 64-key
+//     tile). One producer thread loads K and V once per item and, for each
+//     of the G heads, the query tiles the mask lets through (BQ = 128
+//     queries at D = 64, 64 above: registers) into a ring of Q and dO
+//     tiles; the producer group's other three warps read each tile's lse
+//     and delta into the stage with ordinary loads, a stage each (a
+//     (B, H, S) row starts 16-byte aligned only when S % 4 == 0, which
+//     cp.async.bulk needs; one warp alone, one load round trip a step, set
+//     the kernel's pace). The two consumer groups take alternate query
+//     tiles of the item, each over all 64 keys:
+//     S^T = K Q^T and dP^T = V dO^T smem-smem (dP^T runs under P's exp2),
+//     then P^T and dS^T, packed to bf16 in the accumulator layout, are the
+//     register A operand of dV += P^T dO and dK += dS^T Q, with dO and Q read
+//     MN-major from the same swizzled tiles (as the forward reads V). At the
+//     end of an item the groups add their partial sums through shared memory,
+//     thread by thread in the accumulator layout (group 0 keeps dV, group 1
+//     dK): a fixed order. The ring has an even number of stages and a group
+//     takes the steps of its parity, so each group owns its stages: an
+//     mbarrier parity wait cannot tell a phase from the one two before it,
+//     and a group must not wait on a stage the other group has yet to free.
+//     Why not 128-key items, 64 keys a group: under a
+//     causal mask key tile 0 sees every query, so an item's work falls with
+//     its key tile, and at B = 1 the first items set the time (Llama's
+//     widths: 128 items on 132 SMs, the first alone ~0.14 ms at an SM's
+//     peak, twice the mean). 64-key items on a whole SM halve the longest
+//     item and give twice as many items to balance.
+//   - flash_bwd_dq_wgmma_kernel: an item is one (batch, head, 128-query
+//     tile), 64 rows a consumer group, as the forward's; K and V tiles of 128
+//     keys come through a TMA ring. S = Q K^T and dP = dO V^T smem-smem, dS
+//     in registers is the A operand of dQ += dS K with K read MN-major; the
+//     lse and delta of a thread's two rows stay in registers.
+//   Both take P = exp2(s scale log2 e - lse log2 e) (ex2.approx); a query
+//   past S gets lse = +inf, so its P is 0 without a mask; masks run only on
+//   tiles that cross the diagonal, the window's edge or (dQ's keys) S; dK
+//   and dQ are scaled once, at the store. Each step issues its products
+//   unconditionally (a wgmma under a branch serialises every wgmma of the
+//   kernel); the two groups' exp2 and products overlap each other's.
+// bf16 at D = 16, 32 and 48 (no trained model): mma.sync m16n8k16 with P and
+// dS re-packed to bf16 as A operands (FlashAttention-2's register reuse),
+// synchronous single-buffered loads. float32: FMAs on shared-memory tiles.
 
 constexpr int BWD_THREADS = 128;  // bf16: 4 warps x 16 rows
 constexpr int BWD_TILE = 64;      // keys per dK/dV CTA, queries per dQ CTA, keys per dQ step
@@ -1170,18 +1228,14 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
-// ---- bfloat16: mma.sync ----
+// ---- bfloat16 at D = 16, 32, 48: mma.sync ----
 
-template <int D>
-__host__ __device__ constexpr int bwd_qt() { return D <= 64 ? 64 : 32; }  // queries per dK/dV step (registers)
-
-template <int D>
-constexpr size_t bwd_dkdv_smem() {
-  return sizeof(__nv_bfloat16) * (size_t)(2 * BWD_TILE + 2 * bwd_qt<D>()) * (D + PAD) +
-         sizeof(float) * 2 * bwd_qt<D>();
+// K, V, Q and dO tiles of BWD_TILE rows, and the query tile's lse and delta
+__host__ __device__ constexpr size_t bwd_dkdv_smem(int D) {
+  return sizeof(__nv_bfloat16) * (size_t)(4 * BWD_TILE) * (D + PAD) +
+         sizeof(float) * 2 * BWD_TILE;
 }
-template <int D>
-constexpr size_t bwd_dq_smem() {
+__host__ __device__ constexpr size_t bwd_dq_smem(int D) {
   return sizeof(__nv_bfloat16) * (size_t)(4 * BWD_TILE) * (D + PAD);
 }
 
@@ -1218,7 +1272,7 @@ __device__ __forceinline__ void acc_pv(float (&c)[D / 8][4], const float (&s0)[4
 
 // q, dout: (B, S, H, D); k, v, dk, dv: (B, S, KV, D); bf16, contiguous; lse,
 // delta: (B, H, S) float32. grid: (ceil(S / BWD_TILE), KV, B); block:
-// BWD_THREADS; dynamic smem: bwd_dkdv_smem<D>(). Warp w owns keys k0 + 16 w
+// BWD_THREADS; dynamic smem: bwd_dkdv_smem(D). Warp w owns keys k0 + 16 w
 // .. + 15; a thread holds rows r0 and r0 + 8 of them (mma's C layout).
 template <int D>
 __global__ void __launch_bounds__(BWD_THREADS)
@@ -1232,7 +1286,7 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                            __nv_bfloat16* __restrict__ dv, int S, int H, int KV,
                            float scale, int causal, int window) {
   constexpr int LDS = D + PAD;
-  constexpr int QT = bwd_qt<D>();
+  constexpr int QT = BWD_TILE;
   constexpr int NT = QT / 8;   // n8 tiles of scores (queries)
   constexpr int DT = D / 8;    // n8 tiles of dK, dV (channels)
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1336,7 +1390,7 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 // Shapes as flash_bwd_dkdv_bf16_kernel; dq: (B, S, H, D) bf16. grid:
 // (ceil(S / BWD_TILE), H, B), heaviest query tiles first; block: BWD_THREADS;
-// dynamic smem: bwd_dq_smem<D>(). Warp w owns queries q0 + 16 w .. + 15.
+// dynamic smem: bwd_dq_smem(D). Warp w owns queries q0 + 16 w .. + 15.
 template <int D>
 __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -1461,7 +1515,7 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
                             int KV, float scale, int causal, int window,
                             cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  constexpr size_t smem_kv = bwd_dkdv_smem<D>(), smem_q = bwd_dq_smem<D>();
+  constexpr size_t smem_kv = bwd_dkdv_smem(D), smem_q = bwd_dq_smem(D);
   static bool done[MAX_DEVICES] = {};
   cudaError_t err = smem_opt_in(done, flash_bwd_dkdv_bf16_kernel<D>, (int)smem_kv,
                                 flash_bwd_dq_bf16_kernel<D>, (int)smem_q);
@@ -1478,6 +1532,461 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
       static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dq), S, H, KV,
       scale, causal, window);
   return cudaGetLastError();
+}
+
+// ---- bfloat16 at D = 64, 80, 96, 112, 128: TMA + wgmma ----
+
+constexpr int BWD_KB = 64;  // keys of a dK/dV item; both consumer groups hold all of them
+
+// Barrier 1 over the two consumer warpgroups (barrier 0 is __syncthreads).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// dK/dV shared memory: the K and V tiles of the item (NB boxes of [64 keys]
+// [64 columns]), STAGES x (Q tile, dO tile) of BQ query rows, each stage's
+// -lse log2 e and delta (BQ floats each), one group's partial sum (64 x D
+// floats), then the barriers. STAGES is even: consumer group cw takes the
+// steps of parity cw, so each group owns its stages.
+template <int D>
+struct BwdKvSmem {
+  static constexpr int NB = (D + BOX_COLS - 1) / BOX_COLS;
+  static constexpr int BQ = D <= 64 ? 128 : 64;       // S^T, dP^T: BQ / 2 floats each a thread
+  static constexpr int STAGES = 4;
+  static constexpr int K_BOX = BWD_KB * 128;
+  static constexpr int Q_BOX = BQ * 128;
+  static constexpr int K_TILE = NB * K_BOX;
+  static constexpr int Q_TILE = NB * Q_BOX;
+  static constexpr int STATS = 2 * K_TILE + 2 * STAGES * Q_TILE;
+  static constexpr int RED = STATS + STAGES * 2 * BQ * 4;
+  static constexpr int BARS = RED + BWD_KB * D * 4;
+  static constexpr int N_BARS = 2 + 2 * STAGES;  // kv_full/empty, full[], empty[]
+  static constexpr int BYTES = 1024 + BARS + 8 * N_BARS;  // 1024: slack to align the base
+};
+
+// dQ shared memory: the item's Q and dO tiles (128 rows), STAGES x (K tile,
+// V tile) of 128 keys, the barriers.
+template <int D>
+struct BwdQSmem {
+  static constexpr int NB = (D + BOX_COLS - 1) / BOX_COLS;
+  static constexpr int STAGES = D <= 64 ? 4 : 2;
+  static constexpr int Q_TILE = NB * Q_BOX;
+  static constexpr int KV_TILE = NB * KV_BOX;
+  static constexpr int DATA = 2 * Q_TILE + 2 * STAGES * KV_TILE;
+  static constexpr int N_BARS = 2 + 2 * STAGES;  // q_full/empty, kv_full[], kv_empty[]
+  static constexpr int BYTES = 1024 + DATA + 8 * N_BARS;
+};
+
+template <int D>
+constexpr int bwd_wgmma_smem() {
+  return BwdKvSmem<D>::BYTES > BwdQSmem<D>::BYTES ? BwdKvSmem<D>::BYTES
+                                                  : BwdQSmem<D>::BYTES;
+}
+
+// An item of the dK/dV kernel: one (batch, KV head, 64-key tile) and, for
+// each of its G heads, the n_qt query tiles of BQ rows from q_begin that can
+// see its keys; step i is head kvh G + i / n_qt, tile i % n_qt. Numbered key
+// tile first: under a causal mask the first key tiles see the most queries.
+struct KvItem {
+  int k0, kvh, b, q_begin, n_qt, steps;
+};
+
+template <int BQ>
+__device__ __forceinline__ KvItem kv_item(int w, int B, int S, int KV, int G, int causal,
+                                          int window) {
+  KvItem it;
+  const int hb = w % (KV * B);
+  it.k0 = w / (KV * B) * BWD_KB;
+  it.kvh = hb % KV;
+  it.b = hb / KV;
+  it.q_begin = causal ? it.k0 : 0;
+  const int q_end = window > 0 ? min(S, it.k0 + BWD_KB - 1 + window) : S;
+  it.n_qt = (q_end - it.q_begin + BQ - 1) / BQ;  // >= 1: q_begin <= k0 < q_end
+  it.steps = G * it.n_qt;
+  return it;
+}
+
+// q, dout through tensor maps of (D, H, S, B) with boxes of (64, 1, BQ, 1);
+// k, v of (D, KV, S, B), boxes (64, 1, 64, 1); 128-byte swizzle. lse, delta:
+// (B, H, S) float32; dk, dv: (B, S, KV, D) bf16. Persistent: grid of
+// min(items, SMs) CTAs walking their items (item_index); block: WG_THREADS;
+// dynamic smem: BwdKvSmem<D>::BYTES. scale_log2 = scale * log2(e).
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                            __grid_constant__ const CUtensorMap tdo,
+                            __grid_constant__ const CUtensorMap tk,
+                            __grid_constant__ const CUtensorMap tv,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int B, int S, int H,
+                            int KV, float scale_log2, float scale, int causal,
+                            int window) {
+  using L = BwdKvSmem<D>;
+  constexpr int NB = L::NB, BQ = L::BQ, ST = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t base = (smem_u32(wg_smem) + 1023u) & ~1023u;
+  unsigned char* gbase = wg_smem + (base - smem_u32(wg_smem));  // base, as a generic pointer
+  const uint32_t k_tile = base, v_tile = base + L::K_TILE;
+  auto q_tile = [&](int s) { return base + (uint32_t)(2 * L::K_TILE + 2 * L::Q_TILE * s); };
+  auto do_tile = [&](int s) { return q_tile(s) + (uint32_t)L::Q_TILE; };
+  // stage s: BQ values of -lse log2 e, then BQ of delta
+  auto stats = [&](int s) { return reinterpret_cast<float*>(gbase + L::STATS) + 2 * BQ * s; };
+  // [D / 2][128]: one group's partial dV or dK, in its accumulator layout
+  float* red = reinterpret_cast<float*>(gbase + L::RED);
+  const uint32_t bars = base + L::BARS;
+  const uint32_t kv_full = bars, kv_empty = bars + 8;
+  auto full = [&](int s) { return bars + 8u * (2 + s); };
+  auto empty = [&](int s) { return bars + 8u * (2 + ST + s); };
+
+  const int G = H / KV;
+  const int n_items = (S + BWD_KB - 1) / BWD_KB * KV * B;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, WG_CONSUMERS);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full(s), 33);   // TMA's lane, and a loader warp's after its lse and delta stores
+      mbar_init(empty(s), 128);  // the consumer group that took the step
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer warpgroup, running ahead across items: lane 0 of warp 0
+    // issues the TMA loads; warp 1 + (s % 3) reads the lse and delta of
+    // the steps in stage s, so that up to three steps' global loads are in
+    // flight instead of one load round trip a step. Dealing stages, not
+    // steps, keeps each warp's waits on a stage's "empty" barrier in order:
+    // a parity wait cannot tell a phase from the one two before it.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+    if (threadIdx.x == 0) {
+      int g = 0;  // steps loaded so far, over all items
+      for (int r = 0; item_index(r) < n_items; ++r) {
+        const KvItem it = kv_item<BQ>(item_index(r), B, S, KV, G, causal, window);
+        if (r > 0) mbar_wait(kv_empty, (r - 1) & 1);
+        mbar_expect_tx(kv_full, 2 * L::K_TILE);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          tma_load(k_tile + c * L::K_BOX, &tk, kv_full, c * BOX_COLS, it.kvh, it.k0, it.b);
+          tma_load(v_tile + c * L::K_BOX, &tv, kv_full, c * BOX_COLS, it.kvh, it.k0, it.b);
+        }
+        for (int i = 0; i < it.steps; ++i, ++g) {
+          const int s = g % ST, round = g / ST;
+          const int h = it.kvh * G + i / it.n_qt;
+          const int q0 = it.q_begin + (i % it.n_qt) * BQ;
+          if (round > 0) mbar_wait(empty(s), (round - 1) & 1);
+          mbar_expect_tx(full(s), 2 * L::Q_TILE);
+#pragma unroll
+          for (int c = 0; c < NB; ++c) {
+            tma_load(q_tile(s) + c * L::Q_BOX, &tq, full(s), c * BOX_COLS, h, q0, it.b);
+            tma_load(do_tile(s) + c * L::Q_BOX, &tdo, full(s), c * BOX_COLS, h, q0, it.b);
+          }
+        }
+      }
+    } else if (warp > 0) {
+      int g = 0;
+      for (int r = 0; item_index(r) < n_items; ++r) {
+        const KvItem it = kv_item<BQ>(item_index(r), B, S, KV, G, causal, window);
+        for (int i = 0; i < it.steps; ++i) {
+          const int s = (g + i) % ST, round = (g + i) / ST;
+          if (s % 3 != warp - 1) continue;
+          const int h = it.kvh * G + i / it.n_qt;
+          const int q0 = it.q_begin + (i % it.n_qt) * BQ;
+          if (round > 0) mbar_wait(empty(s), (round - 1) & 1);
+          // queries past S: lse = +inf makes their P exactly 0
+          const size_t row = ((size_t)it.b * H + h) * S;
+          float* st = stats(s);
+          for (int j = lane; j < BQ; j += 32) {
+            const int qp = q0 + j;
+            st[j] = qp < S ? -lse[row + qp] * LOG2E : -INFINITY;
+            st[BQ + j] = qp < S ? delta[row + qp] : 0.f;
+          }
+          mbar_arrive(full(s));
+        }
+        g += it.steps;
+      }
+    }
+  } else {
+    // Consumers: group cw takes the steps of parity cw (counted over all
+    // items: each group owns the stages of its parity, so its waits on a
+    // stage's "full" barrier come in order), each over all 64 keys. Thread
+    // (warp w, lane = 4 g + t) holds key rows 16 w + g and + 8, and query
+    // columns 8 j + 2 t, + 1 of S^T and dP^T; rows 16 w + g, + 8 and
+    // columns 8 j + 2 t, + 1 of dK and dV.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int lane = tid & 31, w = tid >> 5;
+    const int t = lane & 3;
+    int g = 0;  // steps of earlier items
+    for (int r = 0; item_index(r) < n_items; ++r) {
+      const KvItem it = kv_item<BQ>(item_index(r), B, S, KV, G, causal, window);
+      const int kr0 = it.k0 + 16 * w + (lane >> 2);
+      float dka[D / 2], dva[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+      const int first = (cw + g) & 1;  // this group's first step of the item
+      if (first < it.steps) mbar_wait(kv_full, r & 1);
+      for (int i = first; i < it.steps; i += 2) {
+        const int gi = g + i, s = gi % ST;
+        const int q0 = it.q_begin + (i % it.n_qt) * BQ;
+        float sacc[BQ / 2], dpacc[BQ / 2];
+        mbar_wait(full(s), (gi / ST) & 1);
+        issue_ss<BQ, D>(sacc, k_tile, L::K_BOX, q_tile(s), L::Q_BOX);
+        issue_ss<BQ, D>(dpacc, v_tile, L::K_BOX, do_tile(s), L::Q_BOX);
+        wgmma_wait<1>();  // S^T is done; dP^T may still run
+        fence_regs(sacc);
+        const float* st = stats(s);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 nl = *reinterpret_cast<const float2*>(st + 8 * j + 2 * t);
+          sacc[4 * j] = ex2(fmaf(sacc[4 * j], scale_log2, nl.x));
+          sacc[4 * j + 1] = ex2(fmaf(sacc[4 * j + 1], scale_log2, nl.y));
+          sacc[4 * j + 2] = ex2(fmaf(sacc[4 * j + 2], scale_log2, nl.x));
+          sacc[4 * j + 3] = ex2(fmaf(sacc[4 * j + 3], scale_log2, nl.y));
+        }
+        // keys past S need no mask: their rows of dK and dV are not stored
+        if ((causal && q0 < it.k0 + BWD_KB - 1) ||
+            (window > 0 && it.k0 <= q0 + BQ - 1 - window)) {
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = kr0 + 8 * (e >> 1), qp = q0 + 8 * j + 2 * t + (e & 1);
+              if ((causal && key > qp) || (window > 0 && key <= qp - window))
+                sacc[4 * j + e] = 0.f;
+            }
+        }
+        wgmma_wait<0>();
+        fence_regs(dpacc);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 dl = *reinterpret_cast<const float2*>(st + BQ + 8 * j + 2 * t);
+          dpacc[4 * j] = sacc[4 * j] * (dpacc[4 * j] - dl.x);
+          dpacc[4 * j + 1] = sacc[4 * j + 1] * (dpacc[4 * j + 1] - dl.y);
+          dpacc[4 * j + 2] = sacc[4 * j + 2] * (dpacc[4 * j + 2] - dl.x);
+          dpacc[4 * j + 3] = sacc[4 * j + 3] * (dpacc[4 * j + 3] - dl.y);
+        }
+        uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+        pack_a<BQ>(sacc, pa);
+        pack_a<BQ>(dpacc, dsa);
+        issue_rs<D, BQ / 16>(dva, pa, do_tile(s), L::Q_BOX);
+        issue_rs<D, BQ / 16>(dka, dsa, q_tile(s), L::Q_BOX);
+        wgmma_wait<0>();
+        fence_regs(dva);
+        fence_regs(dka);
+        mbar_arrive(empty(s));
+      }
+      g += it.steps;
+      mbar_arrive(kv_empty);
+
+      // Group 1 hands its dV to group 0, then group 0 its dK to group 1,
+      // through one buffer. A thread's partner holds the same elements in
+      // the same registers.
+      float* part = red + tid;
+      if (cw == 1) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) part[i * 128] = dva[i];
+      }
+      consumers_sync();
+      if (cw == 0) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dva[i] += part[i * 128];
+      }
+      consumers_sync();
+      if (cw == 0) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) part[i * 128] = dka[i];
+      }
+      consumers_sync();
+      if (cw == 1) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dka[i] += part[i * 128];
+      }
+      consumers_sync();  // the next item's partial sums may overwrite these
+
+      const size_t kv_row = (size_t)KV * D;
+      auto store = [&](const float (&acc)[D / 2], __nv_bfloat16* out, float f) {
+        __nv_bfloat16* o0 =
+            out + ((size_t)it.b * S + kr0) * kv_row + (size_t)it.kvh * D + 2 * t;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          if (kr0 < S)
+            *reinterpret_cast<uint32_t*>(o0 + 8 * jj) =
+                pack_bf16(acc[4 * jj] * f, acc[4 * jj + 1] * f);
+          if (kr0 + 8 < S)
+            *reinterpret_cast<uint32_t*>(o0 + 8 * kv_row + 8 * jj) =
+                pack_bf16(acc[4 * jj + 2] * f, acc[4 * jj + 3] * f);
+        }
+      };
+      if (cw == 0)
+        store(dva, dv, 1.f);
+      else
+        store(dka, dk, scale);
+    }
+  }
+}
+
+// q, dout through tensor maps of (D, H, S, B) with boxes of (64, 1, 128, 1);
+// k, v of (D, KV, S, B), boxes (64, 1, 128, 1). dq: (B, S, H, D) bf16. An
+// item is the forward's (work_item): persistent grid of min(items, SMs)
+// CTAs; block: WG_THREADS; dynamic smem: BwdQSmem<D>::BYTES.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                          __grid_constant__ const CUtensorMap tdo,
+                          __grid_constant__ const CUtensorMap tk,
+                          __grid_constant__ const CUtensorMap tv,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int B, int S, int H, int KV,
+                          float scale_log2, float scale, int causal, int window) {
+  using L = BwdQSmem<D>;
+  constexpr int NB = L::NB, ST = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t base = (smem_u32(wg_smem) + 1023u) & ~1023u;
+  const uint32_t q_tile = base, do_tile = base + L::Q_TILE;
+  auto k_tile = [&](int s) { return base + (uint32_t)(2 * L::Q_TILE + 2 * L::KV_TILE * s); };
+  auto v_tile = [&](int s) { return k_tile(s) + (uint32_t)L::KV_TILE; };
+  const uint32_t bars = base + L::DATA;
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto kv_full = [&](int s) { return bars + 8u * (2 + s); };
+  auto kv_empty = [&](int s) { return bars + 8u * (2 + ST + s); };
+
+  const int HB = H * B;
+  const int n_qt = (S + WG_BQ - 1) / WG_BQ;
+  const int n_items = n_qt * HB;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, WG_CONSUMERS);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(kv_full(s), 1);
+      mbar_init(kv_empty(s), WG_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread; the next item's Q and dO wait until this
+    // item's last S and dP are done, its K and V tiles run ahead.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int g = 0;  // K/V tiles loaded so far, over all items
+      for (int r = 0; item_index(r) < n_items; ++r) {
+        const WorkItem it = work_item(item_index(r), S, H, KV, HB, n_qt, causal, window);
+        if (r > 0) mbar_wait(q_empty, (r - 1) & 1);
+        mbar_expect_tx(q_full, 2 * L::Q_TILE);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          tma_load(q_tile + c * Q_BOX, &tq, q_full, c * BOX_COLS, it.h, it.q0, it.b);
+          tma_load(do_tile + c * Q_BOX, &tdo, q_full, c * BOX_COLS, it.h, it.q0, it.b);
+        }
+        for (int j = 0; j < it.n_tiles; ++j, ++g) {
+          const int s = g % ST, round = g / ST;
+          const int k0 = it.k_begin + j * WG_BK;
+          if (round > 0) mbar_wait(kv_empty(s), (round - 1) & 1);
+          mbar_expect_tx(kv_full(s), 2 * L::KV_TILE);
+#pragma unroll
+          for (int c = 0; c < NB; ++c) {
+            tma_load(k_tile(s) + c * KV_BOX, &tk, kv_full(s), c * BOX_COLS, it.kvh, k0, it.b);
+            tma_load(v_tile(s) + c * KV_BOX, &tv, kv_full(s), c * BOX_COLS, it.kvh, k0, it.b);
+          }
+        }
+      }
+    }
+  } else {
+    // Consumers: group cw owns query rows q0 + 64 cw .. + 63 of each item;
+    // thread (warp w, lane = 4 g + t) rows 16 w + g and + 8 of them, key
+    // columns 8 j + 2 t, + 1 of S and dP, columns of dQ likewise.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int lane = tid & 31, w = tid >> 5;
+    const int t = lane & 3;
+    int g = 0;  // K/V tiles consumed so far, over all items
+    for (int r = 0; item_index(r) < n_items; ++r) {
+      const WorkItem it = work_item(item_index(r), S, H, KV, HB, n_qt, causal, window);
+      const int qlo = it.q0 + 64 * cw;
+      const int row0 = qlo + 16 * w + (lane >> 2);
+      const size_t row = ((size_t)it.b * H + it.h) * S;
+      // rows past S: lse = +inf makes their P exactly 0
+      const float nl0 = row0 < S ? -lse[row + row0] * LOG2E : -INFINITY;
+      const float nl1 = row0 + 8 < S ? -lse[row + row0 + 8] * LOG2E : -INFINITY;
+      const float d0 = row0 < S ? delta[row + row0] : 0.f;
+      const float d1 = row0 + 8 < S ? delta[row + row0 + 8] : 0.f;
+      const uint32_t q_rows = q_tile + 64 * cw * 128;  // this group's 64 rows of each box
+      const uint32_t do_rows = do_tile + 64 * cw * 128;
+      float dqa[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+      mbar_wait(q_full, r & 1);
+      for (int j = 0; j < it.n_tiles; ++j, ++g) {
+        const int s = g % ST;
+        const int k0 = it.k_begin + j * WG_BK;
+        float sacc[WG_BK / 2], dpacc[WG_BK / 2];
+        mbar_wait(kv_full(s), (g / ST) & 1);
+        issue_ss<WG_BK, D>(sacc, q_rows, Q_BOX, k_tile(s), KV_BOX);
+        issue_ss<WG_BK, D>(dpacc, do_rows, Q_BOX, v_tile(s), KV_BOX);
+        wgmma_wait<1>();  // S is done; dP may still run
+        fence_regs(sacc);
+#pragma unroll
+        for (int jj = 0; jj < WG_BK / 8; ++jj) {
+          sacc[4 * jj] = ex2(fmaf(sacc[4 * jj], scale_log2, nl0));
+          sacc[4 * jj + 1] = ex2(fmaf(sacc[4 * jj + 1], scale_log2, nl0));
+          sacc[4 * jj + 2] = ex2(fmaf(sacc[4 * jj + 2], scale_log2, nl1));
+          sacc[4 * jj + 3] = ex2(fmaf(sacc[4 * jj + 3], scale_log2, nl1));
+        }
+        // zero-filled keys past S score 0, not -inf: the last tile is masked
+        if (k0 + WG_BK > S || (causal && k0 + WG_BK - 1 > qlo) ||
+            (window > 0 && k0 <= qlo + 63 - window)) {
+#pragma unroll
+          for (int jj = 0; jj < WG_BK / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = k0 + 8 * jj + 2 * t + (e & 1);
+              const int qp = e < 2 ? row0 : row0 + 8;
+              if (!(key < S && (!causal || key <= qp) && (window <= 0 || key > qp - window)))
+                sacc[4 * jj + e] = 0.f;
+            }
+        }
+        wgmma_wait<0>();
+        fence_regs(dpacc);
+        if (j == it.n_tiles - 1) mbar_arrive(q_empty);  // Q and dO of this item are read
+#pragma unroll
+        for (int jj = 0; jj < WG_BK / 8; ++jj) {
+          dpacc[4 * jj] = sacc[4 * jj] * (dpacc[4 * jj] - d0);
+          dpacc[4 * jj + 1] = sacc[4 * jj + 1] * (dpacc[4 * jj + 1] - d0);
+          dpacc[4 * jj + 2] = sacc[4 * jj + 2] * (dpacc[4 * jj + 2] - d1);
+          dpacc[4 * jj + 3] = sacc[4 * jj + 3] * (dpacc[4 * jj + 3] - d1);
+        }
+        uint32_t dsa[WG_BK / 16][4];
+        pack_a<WG_BK>(dpacc, dsa);
+        issue_rs<D, WG_BK / 16>(dqa, dsa, k_tile(s), KV_BOX);
+        wgmma_wait<0>();
+        fence_regs(dqa);
+        mbar_arrive(kv_empty(s));
+      }
+      const size_t q_row = (size_t)H * D;
+      __nv_bfloat16* o0 = dq + ((size_t)it.b * S + row0) * q_row + (size_t)it.h * D + 2 * t;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        if (row0 < S)
+          *reinterpret_cast<uint32_t*>(o0 + 8 * jj) =
+              pack_bf16(dqa[4 * jj] * scale, dqa[4 * jj + 1] * scale);
+        if (row0 + 8 < S)
+          *reinterpret_cast<uint32_t*>(o0 + 8 * q_row + 8 * jj) =
+              pack_bf16(dqa[4 * jj + 2] * scale, dqa[4 * jj + 3] * scale);
+      }
+    }
+  }
 }
 
 // ---- float32: FMAs on shared-memory tiles ----
@@ -1756,24 +2265,6 @@ cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_bwd_bf16(const void* q, const void* k, const void* v,
-                              const void* dout, const float* lse, const float* delta,
-                              void* dq, void* dk, void* dv, int B, int S, int H,
-                              int KV, int D, float scale, int causal, int window,
-                              cudaStream_t stream) {
-  switch (D) {
-#define REPRO_FLASH_CASE(DD)                                                       \
-  case DD:                                                                         \
-    return launch_bwd_bf16<DD>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV, \
-                               scale, causal, window, stream);
-    REPRO_FLASH_CASE(16) REPRO_FLASH_CASE(32) REPRO_FLASH_CASE(48)
-    REPRO_FLASH_CASE(64) REPRO_FLASH_CASE(80) REPRO_FLASH_CASE(96)
-    REPRO_FLASH_CASE(112) REPRO_FLASH_CASE(128)
-#undef REPRO_FLASH_CASE
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 // cuTensorMapEncodeTiled is a driver-API call. It is reached through the
 // runtime's cudaGetDriverEntryPoint, so the library needs no -lcuda and
 // loads wherever the CUDA runtime does.
@@ -1853,6 +2344,84 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, H, KV, scale * LOG2E,
       causal, window, lse);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse, const float* delta,
+                             void* dq, void* dk, void* dv, int B, int S, int H, int KV,
+                             float scale, int causal, int window, cudaStream_t stream) {
+  using LK = BwdKvSmem<D>;
+  using LQ = BwdQSmem<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  // dK/dV: Q and dO in boxes of BQ rows, K and V of 64; dQ: 128 rows each
+  CUtensorMap kq, kdo, kk, kv, qq, qdo, qk, qv;
+  if (!make_map(&kq, encode, q, B, S, H, D, LK::BQ) ||
+      !make_map(&kdo, encode, dout, B, S, H, D, LK::BQ) ||
+      !make_map(&kk, encode, k, B, S, KV, D, BWD_KB) ||
+      !make_map(&kv, encode, v, B, S, KV, D, BWD_KB) ||
+      !make_map(&qq, encode, q, B, S, H, D, WG_BQ) ||
+      !make_map(&qdo, encode, dout, B, S, H, D, WG_BQ) ||
+      !make_map(&qk, encode, k, B, S, KV, D, WG_BK) ||
+      !make_map(&qv, encode, v, B, S, KV, D, WG_BK))
+    return cudaErrorInvalidValue;
+  // once per device and head dim: the shared-memory opt-ins and the SM count
+  static int sms_of[MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  int sms = sms_of[device];
+  if (sms == 0) {
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, LK::BYTES);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, LQ::BYTES);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    sms_of[device] = sms;
+  }
+  using bf = __nv_bfloat16;
+  const long long kv_items = (long long)((S + BWD_KB - 1) / BWD_KB) * KV * B;
+  flash_bwd_dkdv_wgmma_kernel<D><<<(int)(kv_items < sms ? kv_items : sms), WG_THREADS,
+                                   LK::BYTES, stream>>>(
+      kq, kdo, kk, kv, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), B, S, H,
+      KV, scale * LOG2E, scale, causal, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long q_items = (long long)((S + WG_BQ - 1) / WG_BQ) * H * B;
+  flash_bwd_dq_wgmma_kernel<D><<<(int)(q_items < sms ? q_items : sms), WG_THREADS,
+                                 LQ::BYTES, stream>>>(
+      qq, qdo, qk, qv, lse, delta, static_cast<bf*>(dq), B, S, H, KV, scale * LOG2E,
+      scale, causal, window);
+  return cudaGetLastError();
+}
+
+// bf16 backward: mma.sync at D = 16, 32, 48, TMA + wgmma from 64.
+cudaError_t dispatch_bwd_bf16(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse, const float* delta,
+                              void* dq, void* dk, void* dv, int B, int S, int H,
+                              int KV, int D, float scale, int causal, int window,
+                              cudaStream_t stream) {
+  switch (D) {
+#define REPRO_FLASH_CASE(DD)                                                       \
+  case DD:                                                                         \
+    return launch_bwd_bf16<DD>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV, \
+                               scale, causal, window, stream);
+    REPRO_FLASH_CASE(16) REPRO_FLASH_CASE(32) REPRO_FLASH_CASE(48)
+#undef REPRO_FLASH_CASE
+#define REPRO_FLASH_CASE(DD)                                                        \
+  case DD:                                                                          \
+    return launch_bwd_wgmma<DD>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV, \
+                                scale, causal, window, stream);
+    REPRO_FLASH_CASE(64) REPRO_FLASH_CASE(80) REPRO_FLASH_CASE(96)
+    REPRO_FLASH_CASE(112) REPRO_FLASH_CASE(128)
+#undef REPRO_FLASH_CASE
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // The kernel flash_attention_fwd runs for (dtype, D), and its dynamic
@@ -1968,9 +2537,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                                 scale, causal, window, st);
 }
 
-// Name of the kernels flash_attention_bwd runs for (dtype, D): "mma.sync"
-// (bf16) or "fma" (float32), or NULL where it refuses them; *smem_bytes is
-// the larger dynamic shared memory of its two tile kernels.
+// Name of the kernels flash_attention_bwd runs for (dtype, D): "wgmma"
+// (bf16 at D = 64..128), "mma.sync" (bf16 at 16, 32, 48) or "fma" (float32),
+// or NULL where it refuses them; *smem_bytes is the larger dynamic shared
+// memory of its two tile kernels.
 const char* flash_attention_bwd_route(int dtype, int D, int* smem_bytes) {
   *smem_bytes = 0;
   if (D % 16 != 0 || D < 16 || D > DMAX) return nullptr;
@@ -1979,11 +2549,14 @@ const char* flash_attention_bwd_route(int dtype, int D, int* smem_bytes) {
     return "fma";
   }
   if (dtype != 1) return nullptr;
-  const int pad = D + PAD, qt = D <= 64 ? 64 : 32;  // bwd_qt<D>()
-  const int kv = (int)(sizeof(__nv_bfloat16) * (2 * BWD_TILE + 2 * qt) * pad + sizeof(float) * 2 * qt);
-  const int qq = (int)(sizeof(__nv_bfloat16) * 4 * BWD_TILE * pad);
-  *smem_bytes = kv > qq ? kv : qq;
-  return "mma.sync";
+  switch (D) {
+    case 64: *smem_bytes = bwd_wgmma_smem<64>(); return "wgmma";
+    case 80: *smem_bytes = bwd_wgmma_smem<80>(); return "wgmma";
+    case 96: *smem_bytes = bwd_wgmma_smem<96>(); return "wgmma";
+    case 112: *smem_bytes = bwd_wgmma_smem<112>(); return "wgmma";
+    case 128: *smem_bytes = bwd_wgmma_smem<128>(); return "wgmma";
+    default: *smem_bytes = (int)bwd_dkdv_smem(D); return "mma.sync";
+  }
 }
 
 const char* flash_attention_error_string(int code) {

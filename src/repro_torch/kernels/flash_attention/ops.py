@@ -10,8 +10,9 @@ each runs its plain version (``ref``); on CUDA tensors it launches the
 kernels or raises. The C forward picks its kernel by (dtype, head_dim): bf16
 at 64, 80, 96, 112 and 128 runs the TMA + wgmma kernel (bound by operations:
 it reaches the tensor cores' rate), bf16 at 16, 32 and 48 the mma.sync
-kernel, float32 the FMA kernel; the backward runs mma.sync kernels for bf16
-and FMA kernels for float32, three launches a call. ``flash_attention.launches``
+kernel, float32 the FMA kernel. The backward is three launches a call (delta,
+dK/dV, dQ, no atomics): bf16 at 64..128 runs TMA + wgmma kernels, bf16 at 16,
+32 and 48 mma.sync kernels, float32 FMA kernels. ``flash_attention.launches``
 counts forward calls that launched (with or without lse),
 ``flash_attention_bwd.launches`` backward calls.
 """
@@ -54,9 +55,11 @@ def _lib() -> ctypes.CDLL:
 
 def kernel_route(dtype: torch.dtype, head_dim: int, backward: bool = False):
     """(name, dynamic shared memory in bytes) of the kernel the C forward
-    (or, with ``backward``, the C backward) runs for ``dtype`` and
-    ``head_dim``: "wgmma", "mma.sync" or "fma"; name None where it refuses
-    them. Builds the library (card machine only)."""
+    (or, with ``backward``, the larger of the C backward's two tile
+    kernels) runs for ``dtype`` and ``head_dim``: "wgmma" (bf16 at 64, 80,
+    96, 112, 128, both ways), "mma.sync" (bf16 at 16, 32, 48) or "fma"
+    (float32); name None where it refuses them. Builds the library (card
+    machine only)."""
     smem = ctypes.c_int(0)
     lib = _lib()
     route = lib.flash_attention_bwd_route if backward else lib.flash_attention_route

@@ -168,16 +168,19 @@ def test_flash_kernel_is_deterministic_on_card(D):
 
 
 # The backward kernels (and the forward's lse): every head dim the forward
-# takes, float32 (FMA) and bf16 (mma.sync); GQA groups 1, 3 and 6 of H = 6;
-# S of 1, one below and one past a 64-row tile, and 200; causal, window 64,
-# non-causal, non-causal with a window of 50. Gradients within 2e-4 (float32)
+# takes, float32 (FMA) and bf16 (wgmma at 64..128, mma.sync below); GQA
+# groups 1, 3 and 6 of H = 6; S of 1, on both sides of a 64-row tile (the
+# dK/dV item's keys) and a 128-row one (the dQ item's queries and keys),
+# 200 and 257 (S % 4 != 0: lse and delta rows start unaligned); causal,
+# window 64 and 100 (not a multiple of a tile), non-causal, non-causal with
+# a window of 50. Gradients within 2e-4 (float32)
 # or 2e-2 (bf16) of each gradient's largest magnitude, against the plain
 # backward fed the kernel forward's own o and lse; a gradient that cancels to
 # rounding noise (dq and dk are 0 at S = 1) is held at 1e-2 of the largest
 # magnitude of the three.
 BWD_D = [16, 32, 48, 64, 80, 96, 112, 128]
-BWD_S = [1, 63, 65, 200]
-BWD_MASKS = [(True, None), (True, 64), (False, None), (False, 50)]
+BWD_S = [1, 63, 65, 127, 128, 129, 200, 257]
+BWD_MASKS = [(True, None), (True, 64), (True, 100), (False, None), (False, 50)]
 BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 
@@ -225,7 +228,9 @@ def test_flash_backward_matches_plain_on_card(dtype, D, S, causal, window, KV):
 @pytest.mark.parametrize("B,S,H,KV,D,causal,window", [
     (8, 2048, 15, 5, 64, True, None),      # smollm-360m's training shape
     (1, 2048, 32, 8, 128, True, None),     # Llama widths
-    (1, 2048, 32, 8, 80, True, 1000)])     # D = 80 with a window inside S
+    (1, 2048, 32, 8, 80, True, 1000),      # D = 80 with a window inside S
+    (2, 1000, 15, 3, 64, True, None)])     # G = 5, B = 2: TMA's fill past S
+                                           # must not read the next sequence
 @pytest.mark.parametrize("amp", [1, 8])
 def test_flash_backward_matches_plain_at_training_shapes_on_card(
         B, S, H, KV, D, causal, window, amp):
@@ -273,10 +278,41 @@ def test_flash_autograd_function_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_backward_replays_from_cuda_graph_on_card(D):
+    """The backward captured in a CUDA graph (its tensor maps are kernel
+    arguments, encoded at capture) replays to the eager call's bits, and
+    reads the captured inputs anew: after an in-place change of dO a replay
+    equals an eager call on the new dO."""
+    _cuda_or_skip()
+    q, k, v = _flash_inputs(9, 2, 1000, 6, 2, D, "bfloat16")
+    rng = np.random.default_rng(10)
+    do, do2 = _inputs(rng, "bfloat16", (2, 1000, 6, D), (2, 1000, 6, D))
+    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    want = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    do.copy_(do2)
+    graph.replay()
+    want2 = flash_attention_bwd(q, k, v, out, lse, do2, causal=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want2))
+    assert not torch.equal(want2[0], want[0])
+
+
+@pytest.mark.cuda
 def test_flash_backward_routes_on_card():
+    """bf16 at 64..128 takes the TMA + wgmma kernels, below 64 mma.sync;
+    float32 the FMA kernels."""
     _cuda_or_skip()
     for D in BWD_D:
-        assert flash_route(torch.bfloat16, D, backward=True)[0] == "mma.sync"
+        want = "wgmma" if D >= 64 else "mma.sync"
+        assert flash_route(torch.bfloat16, D, backward=True)[0] == want
         assert flash_route(torch.float32, D, backward=True)[0] == "fma"
     assert flash_route(torch.bfloat16, 72, backward=True)[0] is None
 
