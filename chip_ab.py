@@ -2,7 +2,7 @@
 """Time kernels of several checkouts on one card, at the served shapes,
 with ``chip_smoke.py``'s clocks.
 
-    python3 chip_ab.py [--only flash,flash_bwd,decode,gla] <parent checkout>/src src src <parent checkout>/src
+    python3 chip_ab.py [--only flash,flash_bwd,flash_f32,train_f32,decode,gla] <parent checkout>/src src src <parent checkout>/src
 
 Each argument is a directory that holds a ``repro_torch`` package. Each runs
 in a process of its own: its kernels are built, held against their plain
@@ -12,17 +12,21 @@ encoder B=4 S=1024 H=16 non-causal, phi-2's B=1 S=2048 MHA 32/32 causal,
 h2o-danube-1.8b's B=1 S=2048 GQA 32/8 causal in its 4096 window) and, to
 show what the shared template does to them, Zamba2's D=64 and Llama-3-8B's
 D=128 rows at S=2048 (``chip_smoke.flash_case``, SDPA both ways),
-``flash_attention_bwd`` at the training shapes of phase 3
+``flash_attention_bwd`` at the bf16 training shapes of phase 3
 (``chip_smoke.FLASH_BWD_SHAPES``: smollm-360m's B=8 S=2048 GQA 15/5 D=64,
-Llama's widths, h2o-danube's D=80 window, float32; ``flash_bwd_case``: held
+Llama's widths, h2o-danube's D=80 window; ``flash_bwd_case``: held
 against the plain backward, two launches bit-identical, eager and graph
-ms, SDPA's backward), ``decode_attention`` at Llama-3-8B's decode shapes
-(``chip_smoke.max_err``, ``seq_err`` and ``decode_times``, SDPA both ways),
-and ``gla_scan`` at RWKV6-1.6B's prefill shapes (rwkv, H=32, T 128,
+ms, SDPA's backward), the float32 forward and backward (``--only
+flash_f32``: ``chip_smoke.FLASH_F32_SHAPES``, smollm-360m's training shape,
+Llama's widths and the small row, beside SDPA's float32 calls and both
+bounds), phase 17d's float32 training steps (``--only train_f32``:
+``chip_smoke.phase_train_f32``, its gates held), ``decode_attention`` at
+Llama-3-8B's decode shapes (``chip_smoke.max_err``, ``seq_err`` and
+``decode_times``, SDPA both ways), and ``gla_scan`` at RWKV6-1.6B's prefill shapes (rwkv, H=32, T 128,
 1000 and 2048) and Zamba2's widths (ssd, H=64, T=2048), bf16 q/k/v,
 float32 log_w and u, and the float32 kernel at RWKV6's T=2048 with
 float32 q/k/v (``chip_smoke.GLA_TOL`` and ``gla_times``). ``--only`` picks
-some of the four (default: all). Listing
+some of the six (default: all). Listing
 the trees as parent, change, change, parent shows the card's drift within
 the call. One JSON line per (tree, shape); a kernel that disagrees with
 its plain version exits non-zero.
@@ -45,7 +49,7 @@ GLA_SHAPES = (("rwkv", 32, 128, "bfloat16"), ("rwkv", 32, 1000, "bfloat16"),
               ("rwkv", 32, 2048, "float32"))  # (mode, H, T, q/k/v) at B = 1, K = V = 64
 
 
-KERNELS = ("flash", "flash_bwd", "decode", "gla")
+KERNELS = ("flash", "flash_bwd", "flash_f32", "train_f32", "decode", "gla")
 
 
 def one(src: Path, only):
@@ -79,6 +83,26 @@ def flash_bwd(cs, src: Path):
         row.update(cs.flash_bwd_case(B, S, H, KV, D, dtype, causal, window, gen,
                                      timed=True))
         print(json.dumps(row), flush=True)
+
+
+def flash_f32(cs, src: Path):
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for key, (B, S, H, KV, D, dtype, causal, window) in cs.FLASH_F32_SHAPES.items():
+        for way, case in (("forward", cs.flash_case), ("backward", cs.flash_bwd_case)):
+            row = dict(src=str(src), kernel=f"flash_attention float32 {way}", shape=key,
+                       B=B, S=S, H=H, KV=KV, D=D, causal=causal, window=window)
+            row.update(case(B, S, H, KV, D, dtype, causal, window, gen, timed=True))
+            print(json.dumps(row), flush=True)
+
+
+def train_f32(cs, src: Path):
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps(dict(src=str(src), kernel="phase 17d",
+                          launches=cs.phase_train_f32())), flush=True)
 
 
 def decode(cs, src: Path):
@@ -139,7 +163,7 @@ def main():
         return one(Path(args[1]).resolve(), only)
     import torch
     if not args or not torch.cuda.is_available():
-        sys.exit("usage: chip_ab.py [--only flash,flash_bwd,decode,gla] SRC [SRC ...] (on a "
+        sys.exit(f"usage: chip_ab.py [--only {','.join(KERNELS)}] SRC [SRC ...] (on a "
                  "machine with a card)")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -8,17 +8,19 @@ result:
 
 1. card: name and power limit (nvidia-smi), device name and count; TF32 off;
 2. build: the four CUDA kernels with nvcc (``repro_torch.kernels._build``),
-   with ptxas' registers, shared memory and spills per kernel, and the
-   kernel (and dynamic shared memory) that ``flash_attention``,
-   ``decode_attention`` and ``gla_scan`` pick for each dtype and width;
+   with ptxas' registers, shared memory and spills per kernel, the kernel
+   (and dynamic shared memory) that ``flash_attention``,
+   ``decode_attention`` and ``gla_scan`` pick for each dtype and width, and
+   the float32 flash kernels' tiles and ring depths at each head dim;
 3. kernels against their plain PyTorch versions on the card: the
    ``tests/test_kernels.py`` sweeps (attention: float32 at 2e-5, bfloat16 at
    2e-2; gla_scan: 2e-4 and 5e-2, strong decay) and the served models' own
    shapes, each timed with CUDA events beside its bound, its plain version
    and, for attention, ``scaled_dot_product_attention`` (a yardstick the
    port never calls; no PyTorch call computes the GLA scan); every flash
-   and decode case names the path that ran it (``wgmma``, ``mma.sync`` or
-   ``fma``) and every gla_scan case its route (``mma`` or ``fma``); the
+   and decode case names the path that ran it (``wgmma``, ``wgmma.3xtf32``,
+   ``mma.sync`` or ``fma``; a float32 flash case is held against the plain
+   version evaluated in float64) and every gla_scan case its route (``mma`` or ``fma``); the
    flash wgmma, decode mma.sync and gla_scan mma paths' own case lists run
    too (gla: strong, extreme and RWKV6-floor decays); the served attention
    and gla_scan shapes are also timed from a CUDA graph (device time
@@ -37,10 +39,15 @@ result:
    flash attention's backward kernels (and the forward's lse) against the
    plain backward (``attention_backward_reference``) over the card tests'
    grid (float32 at 2e-4, bf16 at 2e-2 of each gradient's largest
-   magnitude; two launches bit-identical), then timed at the training
-   shapes (smollm-360m's, Llama's widths, h2o-danube's D=80 window, one
-   float32) beside their bound, the plain backward and SDPA's backward; and
-   the forward at smollm-360m's H=15/KV=5;
+   magnitude; two launches bit-identical), then timed at the bf16 training
+   shapes (smollm-360m's, Llama's widths, h2o-danube's D=80 window) beside
+   their bound, the plain backward and SDPA's backward; the
+   forward at smollm-360m's H=15/KV=5; float32 forward and backward at
+   smollm-360m's training shape, Llama's widths and the small row
+   (``FLASH_F32_SHAPES``) beside SDPA's float32 calls, their bound at the
+   3xTF32 rate and at float32's FMA rate; and, for the next redesign's
+   ranking, the float32 decode at Llama-3-8B's decode shape and the bf16
+   D=32 flash forward and backward;
 4. Llama-3-8B at full width served through the launcher
    (``repro_torch.launch.serve.main``);
 5. the main path: Llama-3-8B at full width served by ``ServingEngine`` with
@@ -97,7 +104,14 @@ result:
    ms, tokens/s, MFU and checkpoint write seconds. 17a holds one step's
    gradients through the kernels against the plain einsum path (B=1), 17b
    gradient accumulation 4 against 1, both per leaf within 5e-2 relative
-   Frobenius; 17c: where a step's time goes (torch.profiler).
+   Frobenius; 17c: where a step's time goes (torch.profiler). 17d trains
+   the same widths in float32 (``cfg.replace(dtype="float32")``, float32
+   compute) through ``make_train_step``: 6 steps of SyntheticLM at seq 2048
+   batch 8 (phase 17's), flash's float32 kernels once per layer and step both ways,
+   finite losses, peak memory under 80 GB, one step's gradients through
+   the kernels against the einsum path (B=1) per leaf within
+   ``F32_GRAD_TOL`` and the loss within ``F32_LOSS_TOL``; it prints step ms,
+   tokens/s and one profiled step's device busy share and attention share.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches summed over the served phases and training); the last line is ``{"ok": true,
@@ -126,6 +140,7 @@ import torch  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12    # H100 SXM dense TF32 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 ARCH = "llama3-8b"
 RWKV_ARCH = "rwkv6-1.6b"
@@ -196,13 +211,22 @@ TRAIN_STEPS, RESTART_STEPS = 20, 24
 TRAIN_MARGIN = 0.3          # tests/test_train_serve_integration.py:40
 GRAD_TOL = 5e-2             # phase 17a/b: relative Frobenius per leaf
 MFU_PEAK_FLOPS = 989.4e12   # H100 SXM dense bf16, for the training MFU
-# phase 3's timed backward shapes, (B, S, H, KV, D, dtype, causal, window):
-# smollm-360m's training, Llama's widths, h2o-danube's D=80 window, float32
+# phase 3's timed bf16 backward shapes, (B, S, H, KV, D, dtype, causal,
+# window): smollm-360m's training, Llama's widths, h2o-danube's D=80 window
 FLASH_BWD_SHAPES = {
     "flash_bwd_smollm": (TRAIN_BATCH, TRAIN_SEQ, 15, 5, 64, torch.bfloat16, True, None),
     "flash_bwd_llama": (1, 2048, 32, 8, 128, torch.bfloat16, True, None),
-    "flash_bwd_danube": (1, 6000, 32, 8, 80, torch.bfloat16, True, 4096),
-    "flash_bwd_f32": (1, 1024, 8, 2, 64, torch.float32, True, None)}
+    "flash_bwd_danube": (1, 6000, 32, 8, 80, torch.bfloat16, True, 4096)}
+# float32 rows of phase 3 and chip_ab.py --only flash_f32, forward and
+# backward: smollm-360m's training shape, Llama's widths, the small row
+FLASH_F32_SHAPES = {
+    "smollm": (TRAIN_BATCH, TRAIN_SEQ, 15, 5, 64, torch.float32, True, None),
+    "llama": (1, 2048, 32, 8, 128, torch.float32, True, None),
+    "small": (1, 1024, 8, 2, 64, torch.float32, True, None)}
+# phase 17d: smollm-360m's widths trained in float32 at phase 17's batch
+F32_TRAIN_STEPS = 6
+F32_GRAD_TOL = 1e-4         # per leaf, relative Frobenius: the CPU parity tests'
+F32_LOSS_TOL = 1e-5         # relative
 MICROGRID_REPLACES = "src/repro/core/microgrid.py:45 (simulate, lax.scan)"
 MICROGRID_SOURCE = "src/repro_torch/kernels/microgrid_scan/csrc/microgrid_scan.cu"
 # dependent float32 operations that carry soc_wh from one step to the next
@@ -284,6 +308,14 @@ def bound(flops: float, nbytes: float, dtype) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def tf32x3_bound(flops: float, nbytes: float) -> tuple:
+    """A float32 product's bound at the card's fastest rate that keeps
+    float32's precision, the tensor cores split three ways (3xTF32: three
+    TF32 products a flop), or its bytes."""
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def randn(shape, dtype, gen):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
@@ -312,7 +344,7 @@ def phase_build():
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention.ops import \
         kernel_route as decode_route
-    from repro_torch.kernels.flash_attention.ops import kernel_route
+    from repro_torch.kernels.flash_attention.ops import kernel_route, tf32_plan
     from repro_torch.kernels.gla_scan.ops import kernel_route as gla_route
     print("== phase 2: build (nvcc, one process per kernel, in parallel)")
     t = time.perf_counter()
@@ -339,13 +371,17 @@ def phase_build():
     for dtype, D in [(torch.bfloat16, 128), (torch.bfloat16, 64),
                      (torch.bfloat16, 80), (torch.bfloat16, 96),
                      (torch.bfloat16, 112), (torch.bfloat16, 32),
-                     (torch.float32, 128)]:
+                     (torch.float32, 64), (torch.float32, 80),
+                     (torch.float32, 96), (torch.float32, 112),
+                     (torch.float32, 128), (torch.float32, 32)]:
         path, smem = kernel_route(dtype, D)
         print(f"  flash_attention route {dtype} D={D}: {path}, {smem} bytes "
               "dynamic smem per CTA")
         path, smem = kernel_route(dtype, D, backward=True)
         print(f"  flash_attention_bwd route {dtype} D={D}: {path}, {smem} "
               "bytes dynamic smem in its larger CTA")
+    for D in WGMMA_D:
+        print(f"  flash float32 (3xTF32) tiles D={D}: {tf32_plan(D)}")
     for qdt, cdt, D in [(torch.bfloat16, torch.bfloat16, 128),
                         (torch.bfloat16, torch.bfloat16, 64),
                         (torch.bfloat16, torch.bfloat16, 80),
@@ -402,7 +438,13 @@ def flash_case(B, S, H, KV, D, dtype, causal, window, gen, timed=False,
     kernel = lambda: flash_attention(q, k, v, causal=causal, window=window)
     out = kernel()
     torch.cuda.synchronize()
-    row = {"max_abs_err": max_err(out, plain(), dtype),
+    # a float32 kernel is held against the plain version on float64 inputs
+    # (at scores of +-60 float32's own rounding of the plain version reaches
+    # the tolerance)
+    wide = (lambda x: x.double()) if dtype == torch.float32 else (lambda x: x)
+    ref = tr(attention_reference(*(wide(tr(x)) for x in (q, k, v)),
+                                 causal=causal, window=window))
+    row = {"max_abs_err": max_err(out, ref, dtype),
            "path": kernel_route(dtype, D)[0]}
     if timed:
         qt, kt, vt = (tr(x).contiguous() for x in (q, k, v))
@@ -420,6 +462,9 @@ def flash_case(B, S, H, KV, D, dtype, causal, window, gen, timed=False,
                    library_ms=time_ms(library, 20), graph_ms=graph_ms(kernel),
                    library_graph_ms=graph_ms(library))
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
+        if dtype == torch.float32:   # 3xTF32's bound, the FMA rate's beside it
+            row["bound_fma_ms"] = row["bound_ms"]
+            row["bound_ms"], row["bound_by"] = tf32x3_bound(flops, nbytes)
     return row
 
 
@@ -501,6 +546,9 @@ def flash_bwd_case(B, S, H, KV, D, dtype, causal, window, gen, timed=False,
                    fwd_lse_ms=time_ms(lambda: flash_attention_fwd(
                        q, k, v, causal=causal, window=window), 20))
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
+        if dtype == torch.float32:   # 3xTF32's bound, the FMA rate's beside it
+            row["bound_fma_ms"] = row["bound_ms"]
+            row["bound_ms"], row["bound_by"] = tf32x3_bound(flops, nbytes)
         del sdpa
     return row
 
@@ -677,6 +725,8 @@ def fmt(row: dict) -> str:
                   f"library_ms={'none' if lib is None else f'{lib:.4f}'}",
                   f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})",
                   f"of_bound={row['bound_ms'] / row['ms']:.3f}"]
+        if "bound_fma_ms" in row:
+            parts.append(f"bound_fma_ms={row['bound_fma_ms']:.4f}")
     if "graph_ms" in row:
         parts.append(f"graph_ms={row['graph_ms']:.4f}")
         if "library_graph_ms" in row:
@@ -709,25 +759,26 @@ def phase_kernels() -> dict:
             row = decode_case(B, W, H, KV, D, dtype, lengths, None, gen)
             print(f"decode sweep B={B} W={W} H={H} KV={KV} D={D} {dtype}: "
                   f"{fmt(row)}")
-    print("-- flash, the wgmma path's cases (tests/test_torch_card.py: bf16, "
+    print("-- flash, the wgmma paths' cases (tests/test_torch_card.py: bf16 "
+          "and float32 (3xTF32), "
           f"D {'/'.join(map(str, WGMMA_D))}, H=8, GQA groups 1/4/8, B 1 and 2, "
           "causal / window 64 / window 1000 / non-causal, q x1 and x8), max "
-          "error per (D, S)")
-    for D in WGMMA_D:
-        for S in WGMMA_S:
-            worst, paths, n = 0.0, set(), 0
-            for B in (1, 2):
-                for group in (1, 4, 8):
-                    for causal, window in WGMMA_MASKS:
-                        for amp in (1, 8):
-                            row = flash_case(B, S, 8, 8 // group, D,
-                                             torch.bfloat16, causal, window,
-                                             gen, amp=amp)
-                            worst = max(worst, row["max_abs_err"])
-                            paths.add(row["path"])
-                            n += 1
-            print(f"flash wgmma cases D={D} S={S}: {n} cases, path="
-                  f"{'/'.join(sorted(paths))} max_err={worst:.3e}")
+          "error per (dtype, D, S)")
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in WGMMA_D:
+            for S in WGMMA_S:
+                worst, paths, n = 0.0, set(), 0
+                for B in (1, 2):
+                    for group in (1, 4, 8):
+                        for causal, window in WGMMA_MASKS:
+                            for amp in (1, 8):
+                                row = flash_case(B, S, 8, 8 // group, D, dtype,
+                                                 causal, window, gen, amp=amp)
+                                worst = max(worst, row["max_abs_err"])
+                                paths.add(row["path"])
+                                n += 1
+                print(f"flash wgmma cases {dtype} D={D} S={S}: {n} cases, "
+                      f"path={'/'.join(sorted(paths))} max_err={worst:.3e}")
     print("-- decode, the mma.sync path's cases (tests/test_torch_card.py: "
           f"bf16, W={DECODE_W}, KV=2, B 1 and 8, q x1 and x8, G 1/2/4/8 at D "
           f"64/128 and G 1/8 at D {'/'.join(map(str, DECODE_OTHER_D))}; the "
@@ -803,6 +854,8 @@ def phase_kernels() -> dict:
           f"(phase 17's forward): {fmt(row)}")
     rows["flash_smollm"] = row
     rows.update(phase_flash_backward(gen))
+    rows.update(flash_f32_rows(gen))
+    rows.update(unranked_rows(gen))
 
     print("-- gla_scan: the tests/test_kernels.py sweep (float32 tol 2e-4, "
           "bfloat16 tol 5e-2; log_w in the input dtype, strong decay)")
@@ -872,8 +925,9 @@ def phase_kernels() -> dict:
 
 def phase_flash_backward(gen) -> dict:
     """Phase 3's backward part: the tests' grid, then the training shapes."""
-    print("-- flash backward (tests/test_torch_card.py: float32 fma, bf16 "
-          "wgmma at D 64-128, mma.sync below; H=6, GQA groups 1/3/6, B=2, S "
+    print("-- flash backward (tests/test_torch_card.py: float32 wgmma.3xtf32 "
+          "and bf16 wgmma at D 64-128, fma and mma.sync below; H=6, GQA groups "
+          "1/3/6, B=2, S "
           "1/63/65/127/128/129/200/257, causal / window 64 / window 100 / "
           "non-causal / non-causal window 50), worst error of each "
           "gradient's largest magnitude per (dtype, D); tol float32 2e-4, "
@@ -896,8 +950,8 @@ def phase_flash_backward(gen) -> dict:
                   f"{'/'.join(sorted(paths))} rel_err={worst:.3e} "
                   f"lse_err={lse_worst:.3e}")
     print("-- flash backward at the training shapes (smollm-360m's, Llama's "
-          "widths, h2o-danube's D=80 with its 4096 window inside S=6000, one "
-          "float32); library = SDPA's backward alone")
+          "widths, h2o-danube's D=80 with its 4096 window inside S=6000), "
+          "bf16; library = SDPA's backward alone")
     rows = {}
     for key, args in FLASH_BWD_SHAPES.items():
         row = flash_bwd_case(*args, gen, timed=True)
@@ -905,6 +959,49 @@ def phase_flash_backward(gen) -> dict:
         print(f"flash backward {key[10:]} B={B} S={S} H={H} KV={KV} D={D} "
               f"{dtype} causal={causal} window={window}: {fmt(row)}")
         rows[key] = row
+    return rows
+
+
+def flash_f32_rows(gen) -> dict:
+    """float32 forward and backward at FLASH_F32_SHAPES, timed beside SDPA's
+    float32 calls and both bounds (3xTF32 and the FMA rate)."""
+    print("-- flash float32 at smollm-360m's training shape, Llama's widths "
+          "and the small row: forward (SDPA's forward beside it) and backward "
+          "(SDPA's backward alone); bound_ms at three TF32 products a flop "
+          "(3xTF32), bound_fma_ms at float32's FMA rate")
+    rows = {}
+    for key, args in FLASH_F32_SHAPES.items():
+        B, S, H, KV, D, dtype, causal, window = args
+        label = f"B={B} S={S} H={H} KV={KV} D={D} float32 causal={causal}"
+        row = flash_case(*args, gen, timed=True)
+        print(f"flash f32 forward {key} {label}: {fmt(row)}")
+        rows[f"flash_f32_{key}"] = row
+        row = flash_bwd_case(*args, gen, timed=True)
+        print(f"flash f32 backward {key} {label}: {fmt(row)}")
+        rows[f"flash_bwd_f32_{key}"] = row
+    return rows
+
+
+def unranked_rows(gen) -> dict:
+    """Kernels timed here for their first rows in PERF.md: the float32 decode
+    (split and combine) at Llama-3-8B's decode shape, and the bf16 D=32
+    mma.sync forward and backward."""
+    print("-- rows for the next redesign's ranking: float32 decode at B=8 "
+          "W=4096 H=32 KV=8 D=128, bf16 flash D=32 forward and backward")
+    rows = {}
+    ragged = torch.linspace(1, 4096, 8).round().int()
+    row = decode_case(8, 4096, 32, 8, 128, torch.float32, ragged, None, gen,
+                      timed=True)
+    print(f"decode float32 B=8 W=4096 H=32 KV=8 D=128 lengths="
+          f"{ragged.tolist()}: {fmt(row)}")
+    rows["decode_f32"] = row
+    args = (1, 2048, 32, 8, 32, torch.bfloat16, True, None)
+    row = flash_case(*args, gen, timed=True)
+    print(f"flash bf16 D=32 forward B=1 S=2048 H=32 KV=8 causal: {fmt(row)}")
+    rows["flash_d32"] = row
+    row = flash_bwd_case(*args, gen, timed=True)
+    print(f"flash bf16 D=32 backward B=1 S=2048 H=32 KV=8 causal: {fmt(row)}")
+    rows["flash_bwd_d32"] = row
     return rows
 
 
@@ -1948,10 +2045,10 @@ def check_train_counts(n_layers: int, steps: int, remat: bool = False) -> dict:
     return got
 
 
-def grad_gap(got: dict, want: dict, what: str) -> float:
+def grad_gap(got: dict, want: dict, what: str, tol: float = GRAD_TOL) -> float:
     """Worst relative Frobenius distance over the leaves (a leaf whose
     gradient is 0 relative to 1e-3 of the largest leaf's norm); fails above
-    GRAD_TOL."""
+    ``tol``."""
     floor = 1e-3 * max(float(torch.linalg.vector_norm(w.float()))
                        for w in want.values())
     gaps = {name: float(torch.linalg.vector_norm((got[name] - w).float())
@@ -1959,8 +2056,8 @@ def grad_gap(got: dict, want: dict, what: str) -> float:
             for name, w in want.items()}
     name, worst = max(gaps.items(), key=lambda kv: kv[1])
     print(f"{what}: worst leaf gradient gap {worst:.3e} ({name}; median "
-          f"{float(np.median(list(gaps.values()))):.3e}; tol {GRAD_TOL:.0e})")
-    if not worst <= GRAD_TOL:
+          f"{float(np.median(list(gaps.values()))):.3e}; tol {tol:.0e})")
+    if not worst <= tol:
         fail(f"{what}: gradient of {name} differs by {worst:.3e}")
     return worst
 
@@ -2108,6 +2205,91 @@ def phase_train_checks(cfg):
     del params, state, batch
 
 
+def phase_train_f32() -> dict:
+    """Phase 17d: smollm-360m at its published widths trained in float32
+    (float32 masters and compute) through ``make_train_step``, which every
+    trainer path runs (the launcher has no dtype flag, as the reference's
+    has none): F32_TRAIN_STEPS steps of SyntheticLM at seq TRAIN_SEQ batch
+    TRAIN_BATCH, flash's float32 forward and backward once per layer and
+    step; then one profiled step and one step's gradients at B=1 through
+    the kernels against the einsum path. Returns the launches of the timed
+    steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import kernel_route
+    from repro_torch.models import build_model
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import (batch_to, make_train_step,
+                                           make_value_and_grad, param_dict)
+    cfg = get_config(TRAIN_ARCH).replace(dtype="float32")
+    L, B, S = cfg.n_layers, TRAIN_BATCH, TRAIN_SEQ
+    D = cfg.d_model // cfg.attention.n_heads
+    print(f"== phase 17d: full-width {TRAIN_ARCH} in float32 (masters and "
+          f"compute) through make_train_step: SyntheticLM seq {S} batch {B} "
+          f"seed 0, {F32_TRAIN_STEPS} steps; flash routes forward "
+          f"{kernel_route(torch.float32, D)[0]}, backward "
+          f"{kernel_route(torch.float32, D, backward=True)[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    params = param_dict(model.init(0, device="cuda", dtype=torch.float32))
+    start = params
+    state = adamw_init(params)
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=10,
+                                              total_steps=100))
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                global_batch=B, seed=0))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, times = [], []
+    for i in range(F32_TRAIN_STEPS):
+        batch = ds.batch(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t)
+    counts = check_train_counts(L, F32_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_s = float(np.median(times[2:6]))
+    print("losses " + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"step {step_s * 1e3:.2f} ms (median of steps 2-5, each to its "
+          f"float(loss)); {B * S / step_s:.0f} tokens/s; "
+          f"max_memory_allocated {peak:.2f} GB")
+    if not np.all(np.isfinite(losses)):
+        fail("phase 17d: a loss is not finite")
+    if not peak < 80:
+        fail(f"phase 17d: peak device memory {peak:.2f} GB")
+    batch = ds.batch(0)
+    traced = profile_work("float32 train step",
+                          lambda: float(step(params, state, batch)[2]["loss"]),
+                          "flash kernels", ("flash_fwd", "flash_bwd"))
+    if traced is None:
+        fail("phase 17d: the profiler recorded no device activity")
+    by_name, wall_ms = traced
+    busy = sum(by_name.values())
+    ms = sum(v for n, v in by_name.items() if "flash_" in n)
+    print(f"flash forward and backward: {ms:.2f} ms ({ms / busy:.1%} of "
+          f"device busy, {ms / wall_ms:.1%} of wall)")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = batch_to({k: v[:1] for k, v in ds.batch(0).items()}, "cuda")
+    loss_k, _, grads_k = make_value_and_grad(model)(start, one)
+    loss_e, _, grads_e = make_value_and_grad(
+        build_model(cfg, attn_impl="einsum"))(start, one)
+    gap = abs(float(loss_k) - float(loss_e)) / abs(float(loss_e))
+    print(f"one step at B=1, kernels vs einsum: loss {float(loss_k):.7f} vs "
+          f"{float(loss_e):.7f}, {gap:.3e} relative (tol {F32_LOSS_TOL:.0e})")
+    grad_gap(grads_k, grads_e, "float32 kernels vs einsum", tol=F32_GRAD_TOL)
+    if not gap <= F32_LOSS_TOL:
+        fail(f"phase 17d: kernel and einsum losses differ by {gap:.3e}")
+    del grads_k, grads_e, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def serve_and_check(name: str, phase: int, kernel_names: tuple, **cut):
     """Phases 13-15: the model at full width served by the engine (its
     launches counted), its consistency checks and where its time goes."""
@@ -2213,6 +2395,7 @@ def main():
         torch.cuda.empty_cache()
     if 17 in phases:
         add_counts(served, phase_train())
+        add_counts(served, phase_train_f32())
     print(f"chip_smoke phases {sorted(phases)} passed in "
           f"{time.perf_counter() - t0:.1f} s")
     print(f"kernel launches over the main paths' phases (served models, "

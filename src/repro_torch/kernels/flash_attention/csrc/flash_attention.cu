@@ -64,8 +64,13 @@
 //     accumulate); the score accumulators are reused in registers as the A
 //     operand of P V, as in FlashAttention-2. Loads are synchronous and
 //     single-buffered.
-//   - float32 (tests and float32 models): float32 FMAs on shared-memory
-//     tiles, which keep full float32 precision (TF32 tensor cores would not).
+//   - float32 at D = 64, 80, 96, 112 and 128 (float32 models, training in
+//     float32): flash_fwd_tf32_kernel, the same shape on the tensor cores in
+//     TF32 with every operand split into a hi and a lo part (3xTF32; see
+//     "float32 at D = 64, 80, 96, 112, 128" below): one TF32 pass keeps about
+//     three digits, the split float32's.
+//   - float32 at D = 16, 32 and 48 (no model): float32 FMAs on shared-memory
+//     tiles.
 // A refused launch or a failed tensor-map encode returns its error; there is
 // no fallback from one kernel to another.
 #include <cuda.h>  // CUtensorMap and its enums; no link against libcuda
@@ -825,15 +830,16 @@ __device__ __forceinline__ void pack_a(const float (&acc)[N / 2], uint32_t (&a)[
   }
 }
 
-// One tile of the online softmax for rows row0 and row1 = row0 + 8 of a
-// thread (lane = 4 g + t holds keys k0 + 8 j + 2 t, + 1 of every n8 block
-// j). Masks only when `masked`; updates m (log2 units) and the per-lane
+// One tile of BK keys of the online softmax for rows row0 and row1 = row0 +
+// 8 of a thread (lane = 4 g + t holds keys k0 + 8 j + 2 t, + 1 of every n8
+// block j). Masks only when `masked`; updates m (log2 units) and the per-lane
 // partial l; leaves the probabilities in sacc (pack_a makes them P V's A
 // operand) and returns the factors by which the previous accumulator must
 // be scaled. A row with no unmasked score
 // yet keeps m = -inf and takes 0 as its exp2 reference, so every exp2 is of
 // -inf or of a finite number, never of inf - inf.
-__device__ __forceinline__ void softmax_tile(float (&sacc)[WG_BK / 2],
+template <int BK = WG_BK>
+__device__ __forceinline__ void softmax_tile(float (&sacc)[BK / 2],
                                              float& m0, float& m1, float& l0,
                                              float& l1, float& alpha0, float& alpha1,
                                              bool masked, int k0, int row0, int t,
@@ -841,7 +847,7 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[WG_BK / 2],
                                              float scale_log2) {
   if (masked) {
 #pragma unroll
-    for (int j = 0; j < WG_BK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + 8 * j + 2 * t + (e & 1);
@@ -853,11 +859,11 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[WG_BK / 2],
   }
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < WG_BK / 8; ++j) {
+  for (int j = 0; j < BK / 8; ++j) {
     mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
     mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
   }
-  // a row's WG_BK scores lie in the 4 lanes of its quad
+  // a row's BK scores lie in the 4 lanes of its quad
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
@@ -872,7 +878,7 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[WG_BK / 2],
   m1 = mn1;
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < WG_BK / 8; ++j) {
+  for (int j = 0; j < BK / 8; ++j) {
     sacc[4 * j] = ex2(fmaf(sacc[4 * j], scale_log2, -ref0));
     sacc[4 * j + 1] = ex2(fmaf(sacc[4 * j + 1], scale_log2, -ref0));
     sacc[4 * j + 2] = ex2(fmaf(sacc[4 * j + 2], scale_log2, -ref1));
@@ -892,6 +898,7 @@ struct WorkItem {
   int q0, h, b, kvh, k_begin, n_tiles;
 };
 
+template <int BK = WG_BK>  // keys a tile
 __device__ __forceinline__ WorkItem work_item(int w, int S, int H, int KV, int HB,
                                               int n_qt, int causal, int window) {
   WorkItem it;
@@ -903,8 +910,8 @@ __device__ __forceinline__ WorkItem work_item(int w, int S, int H, int KV, int H
   int k_begin = 0, k_end = S;
   if (causal) k_end = min(S, it.q0 + WG_BQ);
   if (window > 0) k_begin = max(0, it.q0 - window + 1);
-  it.k_begin = (k_begin / WG_BK) * WG_BK;
-  it.n_tiles = (k_end - it.k_begin + WG_BK - 1) / WG_BK;  // >= 1: k_begin <= q0 < k_end
+  it.k_begin = (k_begin / BK) * BK;
+  it.n_tiles = (k_end - it.k_begin + BK - 1) / BK;  // >= 1: k_begin <= q0 < k_end
   return it;
 }
 
@@ -1180,7 +1187,10 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 //   kernel); the two groups' exp2 and products overlap each other's.
 // bf16 at D = 16, 32 and 48 (no trained model): mma.sync m16n8k16 with P and
 // dS re-packed to bf16 as A operands (FlashAttention-2's register reuse),
-// synchronous single-buffered loads. float32: FMAs on shared-memory tiles.
+// synchronous single-buffered loads. float32 at D = 64..128:
+// flash_bwd_dkdv_tf32_kernel and flash_bwd_dq_tf32_kernel, the bf16 kernels'
+// design in TF32 with the 3xTF32 split (below); at 16, 32 and 48 FMAs on
+// shared-memory tiles.
 
 constexpr int BWD_THREADS = 128;  // bf16: 4 warps x 16 rows
 constexpr int BWD_TILE = 64;      // keys per dK/dV CTA, queries per dQ CTA, keys per dQ step
@@ -1591,16 +1601,16 @@ struct KvItem {
   int k0, kvh, b, q_begin, n_qt, steps;
 };
 
-template <int BQ>
+template <int BQ, int KB = BWD_KB>
 __device__ __forceinline__ KvItem kv_item(int w, int B, int S, int KV, int G, int causal,
                                           int window) {
   KvItem it;
   const int hb = w % (KV * B);
-  it.k0 = w / (KV * B) * BWD_KB;
+  it.k0 = w / (KV * B) * KB;
   it.kvh = hb % KV;
   it.b = hb / KV;
   it.q_begin = causal ? it.k0 : 0;
-  const int q_end = window > 0 ? min(S, it.k0 + BWD_KB - 1 + window) : S;
+  const int q_end = window > 0 ? min(S, it.k0 + KB - 1 + window) : S;
   it.n_qt = (q_end - it.q_begin + BQ - 1) / BQ;  // >= 1: q_begin <= k0 < q_end
   it.steps = G * it.n_qt;
   return it;
@@ -1989,7 +1999,1117 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   }
 }
 
-// ---- float32: FMAs on shared-memory tiles ----
+// ---- float32 at D = 64, 80, 96, 112, 128: TMA + wgmma in TF32, 3xTF32 ----
+//
+// Replaces, at these head dims, the FMA kernels (flash_fwd_f32_kernel
+// above, flash_bwd_*_f32_kernel below): the same functions, on the tensor
+// cores. float32 FMAs reach 67 TFLOP/s on this card, TF32 wgmma 495. One
+// TF32 pass keeps 11 bits of each operand, about three digits, and would
+// break the float32 tolerances; so every product here is split (3xTF32):
+// x = hi + lo with hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and
+// a b = hi hi + hi lo + lo hi, each in TF32 with float32 accumulation (but
+// see "Accumulation" below). The dropped lo lo
+// and lo's own rounding leave ~2^-22 of |a b| a product, against float32
+// FMA's 2^-24: the kernels run at most 495 / 3 = 165 TFLOP/s of the
+// function's flops, and their bound here is 3 flops / 495 TFLOP/s.
+//
+// The structure is the bf16 kernels' (above): persistent grid heaviest
+// first, a producer warpgroup and two consumer warpgroups, TMA rings with
+// full/empty mbarriers, P and dS in the accumulator layout, no atomics.
+// What float32 changes, and what the design does about it:
+//   - wgmma reads a tf32 operand from shared memory K-major only (the
+//     transpose bits exist for 16-bit types alone), and tf32 has no register
+//     B operand. The bf16 kernels read V (P V), K (dS K), dO (P^T dO) and Q
+//     (dS^T Q) MN-major as they lie; here those tiles are transposed in
+//     shared memory. Every shared-memory operand also needs a hi and a lo
+//     copy. So the producer warpgroup's warps 1-3 (the converters) split
+//     each tile after its TMA load lands, off the consumers' path: hi over
+//     the raw tile in place and lo beside it (K-major, the TMA's 128-byte
+//     swizzle), and, for the MN-major uses, hi and lo transposed into
+//     [D][rows] tiles without swizzle (8 x 16-byte core matrices), then
+//     fence.proxy.async and arrive on the stage's "full" barrier. The tensor
+//     core never sees an unrounded float, so nothing rests on how it would
+//     drop the low bits.
+//   - A operands come from registers: P, dS, P^T and dS^T from the
+//     accumulators; the item's fixed tiles (Q and dO in the forward and dQ,
+//     K and V in dK/dV) from their raw TMA tiles, split in registers two
+//     k-steps at a time (two buffers, one commit group a chunk), so they
+//     need neither a hi/lo copy nor a transposed one in shared memory. A
+//     tf32 A fragment holds columns t and t + 4 of an 8-column k-step, an
+//     accumulator columns 2t and 2t + 1: the transposed tiles store row r of
+//     a k-step at position r / 2 (even r) or 4 + r / 2 (odd), so the
+//     accumulator's registers are the A fragment as they stand.
+//   - Shared memory: float32 tiles are twice bf16's, and hi/lo doubles them
+//     again; at D = 128 a 128-key stage of K and V^T would need 256 KB. The
+//     tiles and ring depths below are the largest that fit 227 KB
+//     (FwdTf32Smem, BwdQTf32Smem, BwdKvTf32Smem; flash_attention_tf32_plan
+//     reports them): 64-key tiles at D = 64 and 32 above for the forward,
+//     32 and 16 for dQ; dK/dV items of 128 keys to D = 96 (32-query steps
+//     at 64, 16 above) and of 64 keys from 112.
+//   - Splitting costs the converters more instructions and shared-memory
+//     traffic than the products cost the tensor cores: a dK/dV step splits
+//     four tiles (Q, dO, Q^T, dO^T) for S^T, dP^T, dV and dK. With 64-key
+//     items whose two groups take alternate steps the split set the pace
+//     (on an H100: dK/dV 3.97 ms of a 5.70 ms backward at smollm-360m's
+//     training shape); with 128 keys, 64 a group, both groups share every
+//     step's split and it fell to 2.34 ms.
+//   - TMA: a 128-byte box is 32 float32 columns, so a tile row is f_nb(D)
+//     boxes (D = 80 takes three, the last zero-filled past D); a tf32 k-step
+//     is 8 columns, so a product issues D / 8 k-steps of three wgmmas.
+//   - Registers: a split A operand is two 32-bit words an element, so the
+//     item's tiles are split a chunk at a time instead of held; the
+//     producer warpgroup keeps 40 registers (the converters need them), the
+//     consumers 232.
+//   - Accumulation: the tensor core truncates each sum it accumulates
+//     toward zero. One chain of 3 D / 8 accumulations for a score, or of
+//     3 S / 8 for an output row, drifted by up to 17 float32 ulps on an
+//     H100 (lse 6.5e-5 off at scores of +-60, outputs 4.6e-5 at D = 128),
+//     past the 2e-5 tolerance, which the split's own error is not. So lo-hi
+//     and hi-lo go to an accumulator of their own (2^-11 of the sum: its
+//     drift is negligible), hi-hi of S and dP to two chains (even and odd
+//     k-steps), and each tile's P V (forward) and dS K (dQ) to a fresh
+//     accumulator added to the running sum in float32, round to nearest;
+//     so do each step's dV and dK (one chain over an item's steps left a
+//     per-leaf gradient gap of 1.9e-4 in a float32 training step, against
+//     2.1e-6 for the FMA kernels), in halves of D from 112 (registers).
+
+constexpr int F_BOX = 32;           // 128-byte swizzle: boxes of 32 float32 columns
+constexpr int F_CONVERTERS = 96;    // producer warps 1-3 split the tiles
+constexpr int F_SMEM_MAX = 232448;  // a block's opt-in shared memory on sm_90
+
+__host__ __device__ constexpr int f_nb(int D) { return (D + F_BOX - 1) / F_BOX; }
+// Bytes of one R-row tile as TMA lands it, and of its hi or lo copy: f_nb(D)
+// boxes of [R rows][128 bytes], 128-byte swizzled.
+__host__ __device__ constexpr int f_nat(int D, int R) { return f_nb(D) * R * 128; }
+// Bytes of one transposed tile: D rows of R tf32 values.
+__host__ __device__ constexpr int f_trans(int D, int R) { return D * R * 4; }
+
+// Forward: the item's Q (128 rows, raw), then STAGES x (K hi, K lo, V raw,
+// V^T hi, V^T lo) of BK keys, then the barriers.
+template <int D>
+struct FwdTf32Smem {
+  static constexpr int NB = f_nb(D);
+  static constexpr int BK = D <= 64 ? 64 : 32;
+  static constexpr int STAGES = 2;
+  static constexpr int Q_TILE = f_nat(D, WG_BQ);
+  static constexpr int NAT = f_nat(D, BK), TR = f_trans(D, BK);
+  static constexpr int STAGE = 3 * NAT + 2 * TR;
+  static constexpr int BARS = Q_TILE + STAGES * STAGE;
+  static constexpr int N_BARS = 2 + 3 * STAGES;  // q_full/empty, raw_full[], full[], empty[]
+  static constexpr int BYTES = 1024 + BARS + 8 * N_BARS;
+  static_assert(BYTES <= F_SMEM_MAX, "forward tiles exceed shared memory");
+};
+
+// dQ: the item's Q and dO (128 rows, raw), then STAGES x (K hi, K lo, V hi,
+// V lo, K^T hi, K^T lo) of BK keys, then the barriers.
+template <int D>
+struct BwdQTf32Smem {
+  static constexpr int NB = f_nb(D);
+  static constexpr int BK = D <= 64 ? 32 : 16;
+  static constexpr int STAGES = D <= 96 ? 3 : 2;
+  static constexpr int Q_TILE = f_nat(D, WG_BQ);
+  static constexpr int NAT = f_nat(D, BK), TR = f_trans(D, BK);
+  static constexpr int STAGE = 4 * NAT + 2 * TR;
+  static constexpr int BARS = 2 * Q_TILE + STAGES * STAGE;
+  static constexpr int N_BARS = 2 + 3 * STAGES;
+  static constexpr int BYTES = 1024 + BARS + 8 * N_BARS;
+  static_assert(BYTES <= F_SMEM_MAX, "dQ tiles exceed shared memory");
+};
+
+// dK/dV: the item's K and V (KB keys, raw), then STAGES x (Q hi, Q lo, dO
+// hi, dO lo, Q^T hi, Q^T lo, dO^T hi, dO^T lo) of BQ queries, each stage's
+// -lse log2 e and delta, then the barriers. A step's tiles take more
+// splitting than its products take time on the tensor cores, so up to
+// D = 96 an item is 128 keys, 64 a consumer group, and both groups take
+// every step (one split a step for 128 keys). From D = 112 two stages of
+// that width do not fit: an item is 64 keys, both groups hold all of them
+// and take alternate steps, group cw in stage cw, and at the item's end one
+// group's partial dV or dK passes through K's and V's raw tiles.
+template <int D>
+struct BwdKvTf32Smem {
+  static constexpr int NB = f_nb(D);
+  static constexpr int KB = D <= 96 ? 2 * BWD_KB : BWD_KB;
+  static constexpr int BQ = D <= 64 ? 32 : 16;
+  static constexpr int STAGES = 2;
+  static constexpr int K_TILE = f_nat(D, KB);
+  static constexpr int NAT = f_nat(D, BQ), TR = f_trans(D, BQ);
+  static constexpr int STAGE = 4 * NAT + 4 * TR;
+  static constexpr int STATS = 2 * K_TILE + STAGES * STAGE;
+  static constexpr int BARS = STATS + STAGES * 2 * BQ * 4;
+  static constexpr int N_BARS = 2 + 3 * STAGES;  // kv_full/empty, raw_full[], full[], empty[]
+  static constexpr int BYTES = 1024 + BARS + 8 * N_BARS;
+  static_assert(BYTES <= F_SMEM_MAX, "dK/dV tiles exceed shared memory");
+  static_assert(KB > BWD_KB || BWD_KB * D * 4 <= 2 * K_TILE, "the partial sum fits over K and V");
+};
+
+// float32 -> tf32, rounded to nearest (ties away), low 13 bits 0
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// Orders this thread's shared-memory writes before the async proxy's
+// (wgmma's, TMA's) accesses that a later barrier lets through.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor without swizzle (layout type 0): 8-row x
+// 16-byte core matrices, lbo bytes apart along K, sbo bytes apart along M/N.
+__device__ __forceinline__ uint64_t plain_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// Byte offset of (row r, column c) in a TMA tile of R rows (f_nb boxes of
+// 32 columns, 128-byte swizzle: 16-byte chunk c / 4 of a row at chunk
+// (c / 4) ^ (r % 8)).
+__device__ __forceinline__ int nat_off(int R, int r, int c) {
+  return (c >> 5) * R * 128 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// Byte offset of (row n, k-position k) in a transposed tile of R columns:
+// core matrix (n / 8, k / 4) at (n / 8) R 32 + (k / 4) 128, so lbo = 128 and
+// sbo = 32 R.
+__device__ __forceinline__ int trans_off(int R, int n, int k) {
+  return (n >> 3) * (R * 32) + ((k >> 2) << 7) + ((n & 7) << 4) + ((k & 3) << 2);
+}
+
+// Split one TMA tile of R rows (its first D columns) into tf32 hi and lo,
+// by the F_CONVERTERS threads (ct = 0..95). NAT: hi over the raw values in
+// place, lo into `lo` at the same offsets. TRANS: hi and lo transposed into
+// thi and tlo, row r of the tile at k-position (r & ~7) + (r & 7) / 2 +
+// 4 (r & 1) (see the note above). A warp's 32 stores of a transposed tile
+// span 8 rows n and 4 positions k: 32 banks; a warp walks one column
+// block's rows, so both offsets step by constants. Pad columns past D are
+// not read by any product.
+template <int R, int D, bool NAT, bool TRANS>
+__device__ __forceinline__ void split_tile(unsigned char* raw, unsigned char* lo,
+                                           unsigned char* thi, unsigned char* tlo, int ct) {
+  if constexpr (!TRANS) {
+    for (int i = ct; i < f_nat(D, R) / 16; i += F_CONVERTERS) {
+      const float4 x = reinterpret_cast<const float4*>(raw)[i];
+      uint4 h, l;
+      split_tf32(x.x, h.x, l.x);
+      split_tf32(x.y, h.y, l.y);
+      split_tf32(x.z, h.z, l.z);
+      split_tf32(x.w, h.w, l.w);
+      reinterpret_cast<uint4*>(raw)[i] = h;
+      reinterpret_cast<uint4*>(lo)[i] = l;
+    }
+  } else {
+    const int lane = ct & 31;
+    // unit u: column block u / 2 (8 columns, lane & 7 of them), rows of
+    // parity u & 1 (2 (lane >> 3) + u % 2 of each 8-row block)
+    for (int u = ct >> 5; u < D / 4; u += F_CONVERTERS / 32) {
+      const int c = (u >> 1) * 8 + (lane & 7), par = u & 1;
+      int off = nat_off(R, 2 * (lane >> 3) + par, c);
+      int toff = trans_off(R, c, (lane >> 3) + 4 * par);
+#pragma unroll 4
+      for (int rb = 0; rb < R; rb += 8, off += 8 * 128, toff += 2 * 128) {
+        uint32_t h, l;
+        split_tf32(*reinterpret_cast<const float*>(raw + off), h, l);
+        if constexpr (NAT) {
+          *reinterpret_cast<uint32_t*>(raw + off) = h;
+          *reinterpret_cast<uint32_t*>(lo + off) = l;
+        }
+        *reinterpret_cast<uint32_t*>(thi + toff) = h;
+        *reinterpret_cast<uint32_t*>(tlo + toff) = l;
+      }
+    }
+  }
+}
+
+#define ACC8(i)                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+// d (64 x N, float32) {=, +=} A (64 x 8, tf32 in registers: a0 (row g, col
+// t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4) of warp w's 16 rows)
+// * B (8 x N, tf32 in shared memory, K-major). accumulate = 0 overwrites d.
+// tf32 has no transpose bits: both shared-memory operands are K-major.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : ACC8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<56>(float (&d)[28], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
+      "}, {%28, %29, %30, %31}, %32, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<80>(float (&d)[40], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<96>(float (&d)[48], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<112>(float (&d)[56], const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+#undef ACC8
+
+// The tf32 hi/lo A fragment of k-step kk from a raw TMA tile: rows row and
+// row + 8 (row % 8 = g) of the 64 that start at `a` (a generic pointer into
+// box 0; boxes a_box bytes apart), columns 8 kk + t and 8 kk + t + 4.
+__device__ __forceinline__ void load_split_a(const unsigned char* a, int a_box, int row,
+                                             int g, int t, int kk, uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) {
+  const unsigned char* p = a + (kk >> 2) * a_box + row * 128 + (t << 2);
+  const int c0 = ((2 * (kk & 3)) ^ g) << 4, c1 = ((2 * (kk & 3) + 1) ^ g) << 4;
+  split_tf32(*reinterpret_cast<const float*>(p + c0), hi[0], lo[0]);
+  split_tf32(*reinterpret_cast<const float*>(p + c0 + 1024), hi[1], lo[1]);
+  split_tf32(*reinterpret_cast<const float*>(p + c1), hi[2], lo[2]);
+  split_tf32(*reinterpret_cast<const float*>(p + c1 + 1024), hi[3], lo[3]);
+}
+
+constexpr int F_KC = 2;  // k-steps of a split A chunk (one commit group)
+
+// Chunk c (k-steps F_KC c ..) of a product A B^T (64 x N): A split from a
+// raw tile into this chunk's buffer (hi, lo), B's hi and lo K-major tiles
+// of N rows (128-byte swizzle, boxes b_box bytes apart). The tensor core
+// truncates each sum it accumulates toward zero, so a long chain of
+// accumulations drifts: lo-hi and hi-lo go to their own accumulator `sm`
+// (2^-11 of the product: its drift is negligible) and hi-hi to `a`, or with
+// TWO, even k-steps to `a` and odd ones to `b`; the caller adds them in
+// float32 (round to nearest). Each accumulator's first product overwrites
+// it. `cc` counts the chunks of the call: from the third on, the chunk two
+// back (which used these registers) is waited for first.
+template <int N, bool TWO>
+__device__ __forceinline__ void split_chunk(float (&a)[N / 2], float (&b)[N / 2],
+                                            float (&sm)[N / 2], uint32_t (&hi)[F_KC][4],
+                                            uint32_t (&lo)[F_KC][4], const unsigned char* ar,
+                                            int a_box, int row, int g, int t, uint32_t bhi,
+                                            uint32_t blo, uint32_t b_box, int c, int cc) {
+  if (cc >= 2) wgmma_wait<1>();
+#pragma unroll
+  for (int i = 0; i < F_KC; ++i)
+    load_split_a(ar, a_box, row, g, t, c * F_KC + i, hi[i], lo[i]);
+  const uint64_t dh = sw128_desc(bhi, 16, 1024), dl = sw128_desc(blo, 16, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < F_KC; ++i) {
+    const int kk = c * F_KC + i;
+    const uint32_t off = (kk >> 2) * b_box + (kk & 3) * 32;
+    wgmma_tf32<N>(sm, hi[i], desc_plus(dl, off), kk > 0);
+    wgmma_tf32<N>(sm, lo[i], desc_plus(dh, off), 1);
+    if (TWO && i == 1)  // F_KC = 2: an odd k-step
+      wgmma_tf32<N>(b, hi[i], desc_plus(dh, off), kk >= 2);
+    else
+      wgmma_tf32<N>(a, hi[i], desc_plus(dh, off), kk >= (TWO ? 2 : 1));
+  }
+  wgmma_commit();
+}
+
+// acc0 = A0 B0^T and, with PAIR, then acc1 = A1 B1^T (64 x N each over D
+// columns, D / 8 k-steps), each as split_chunk's accumulators (acc, b, sm;
+// add_chains sums them): A from raw tiles split in registers a chunk at a
+// time (two buffers), B from hi/lo K-major tiles. On return at most the
+// last two chunks (of the last product) are in flight.
+template <int N, int D, bool PAIR, bool TWO>
+__device__ __forceinline__ void issue_split(float (&acc0)[N / 2], float (&b0)[N / 2],
+                                            float (&sm0)[N / 2], float (&acc1)[N / 2],
+                                            float (&b1)[N / 2], float (&sm1)[N / 2],
+                                            const unsigned char* a0, const unsigned char* a1,
+                                            int a_box, int row, int g, int t, uint32_t b0hi,
+                                            uint32_t b0lo, uint32_t b1hi, uint32_t b1lo,
+                                            uint32_t b_box) {
+  static_assert(F_KC == 2, "TWO deals the two k-steps of a chunk to two chains");
+  constexpr int CH = D / 8 / F_KC;
+  uint32_t hi[2][F_KC][4], lo[2][F_KC][4];
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+    split_chunk<N, TWO>(acc0, b0, sm0, hi[c & 1], lo[c & 1], a0, a_box, row, g, t, b0hi, b0lo,
+                        b_box, c, c);
+  if constexpr (PAIR) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      split_chunk<N, TWO>(acc1, b1, sm1, hi[(CH + c) & 1], lo[(CH + c) & 1], a1, a_box, row,
+                          g, t, b1hi, b1lo, b_box, c, CH + c);
+  }
+}
+
+// acc += b + sm (with TWO) or acc += sm, in float32, once the products are
+// done.
+template <int N, bool TWO>
+__device__ __forceinline__ void add_chains(float (&acc)[N / 2], const float (&b)[N / 2],
+                                           const float (&sm)[N / 2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = TWO ? acc[i] + b[i] + sm[i] : acc[i] + sm[i];
+}
+
+// An accumulator of 64 x N as tf32 hi/lo A fragments, k-step kk = columns
+// 8 kk .. 8 kk + 7 in the transposed tiles' order: registers 4 kk and
+// 4 kk + 2 (column 2t of rows g, g + 8) at position t, 4 kk + 1 and 4 kk + 3
+// (column 2t + 1) at t + 4.
+template <int N>
+__device__ __forceinline__ void split_acc(const float (&acc)[N / 2], uint32_t (&hi)[N / 8][4],
+                                          uint32_t (&lo)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    split_tf32(acc[4 * kk], hi[kk][0], lo[kk][0]);
+    split_tf32(acc[4 * kk + 2], hi[kk][1], lo[kk][1]);
+    split_tf32(acc[4 * kk + 1], hi[kk][2], lo[kk][2]);
+    split_tf32(acc[4 * kk + 3], hi[kk][3], lo[kk][3]);
+  }
+}
+
+// acc (64 x N) {=, +=} A (64 x 8 KS, split, registers) B (8 KS x N), B a
+// transposed tile pair (hi, lo) of N rows and 8 KS positions; with `fresh`
+// the first product overwrites acc. Issued and committed, not waited for.
+template <int N, int KS>
+__device__ __forceinline__ void issue_rs_tf32(float (&acc)[N / 2], const uint32_t (&hi)[KS][4],
+                                              const uint32_t (&lo)[KS][4], uint32_t bhi,
+                                              uint32_t blo, bool fresh) {
+  const uint64_t dh = plain_desc(bhi, 128, 32 * 8 * KS), dl = plain_desc(blo, 128, 32 * 8 * KS);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_tf32<N>(acc, hi[kk], desc_plus(dl, kk * 256), kk > 0 || !fresh);
+    wgmma_tf32<N>(acc, lo[kk], desc_plus(dh, kk * 256), 1);
+    wgmma_tf32<N>(acc, hi[kk], desc_plus(dh, kk * 256), 1);
+  }
+  wgmma_commit();
+}
+
+// Stores rows row0 and row0 + 8 (those below S) of a 64 x D float32
+// accumulator times f, at `out` (row0's first column; rows `stride` floats
+// apart).
+template <int D>
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[D / 2], float* out,
+                                               size_t stride, int row0, int S, int t, float f) {
+  float* o0 = out + 2 * t;
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj) {
+    if (row0 < S)
+      *reinterpret_cast<float2*>(o0 + 8 * jj) = make_float2(acc[4 * jj] * f, acc[4 * jj + 1] * f);
+    if (row0 + 8 < S)
+      *reinterpret_cast<float2*>(o0 + 8 * stride + 8 * jj) =
+          make_float2(acc[4 * jj + 2] * f, acc[4 * jj + 3] * f);
+  }
+}
+
+// q through a tensor map of (D, H, S, B) with boxes of (32, 1, 128, 1), k
+// and v of (D, KV, S, B) with boxes (32, 1, BK, 1), float32, 128-byte
+// swizzle; o: (B, S, H, D) float32; lse as flash_fwd_wgmma_kernel's. An
+// item is the bf16 forward's (128 queries, 64 a consumer group) over key
+// tiles of BK. Persistent grid of min(items, SMs) CTAs; block WG_THREADS;
+// dynamic smem FwdTf32Smem<D>::BYTES.
+template <int D, bool LSE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_tf32_kernel(__grid_constant__ const CUtensorMap tq,
+                      __grid_constant__ const CUtensorMap tk,
+                      __grid_constant__ const CUtensorMap tv, float* __restrict__ o,
+                      int B, int S, int H, int KV, float scale_log2, int causal,
+                      int window, float* __restrict__ lse) {
+  using L = FwdTf32Smem<D>;
+  constexpr int NB = L::NB, BK = L::BK, ST = L::STAGES;
+  constexpr int Q_BOXB = WG_BQ * 128, K_BOXB = BK * 128;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t base = (smem_u32(wg_smem) + 1023u) & ~1023u;
+  unsigned char* gbase = wg_smem + (base - smem_u32(wg_smem));
+  auto stage = [&](int s) { return (uint32_t)(L::Q_TILE + L::STAGE * s); };  // offsets
+  auto k_hi = [&](int s) { return stage(s); };
+  auto k_lo = [&](int s) { return stage(s) + L::NAT; };
+  auto v_raw = [&](int s) { return stage(s) + 2 * L::NAT; };
+  auto vt_hi = [&](int s) { return stage(s) + 3 * L::NAT; };
+  auto vt_lo = [&](int s) { return stage(s) + 3 * L::NAT + L::TR; };
+  const uint32_t bars = base + L::BARS;
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto raw_full = [&](int s) { return bars + 8u * (2 + s); };
+  auto full = [&](int s) { return bars + 8u * (2 + ST + s); };
+  auto empty = [&](int s) { return bars + 8u * (2 + 2 * ST + s); };
+
+  const int HB = H * B;
+  const int n_qt = (S + WG_BQ - 1) / WG_BQ;
+  const int n_items = n_qt * HB;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, WG_CONSUMERS);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(raw_full(s), 1);
+      mbar_init(full(s), F_CONVERTERS);
+      mbar_init(empty(s), WG_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer warpgroup: lane 0 of warp 0 issues the TMA loads, running
+    // ahead across items (the next item's Q waits until this item's last
+    // Q K^T is done); warps 1-3 split each stage's K (hi in place, lo) and
+    // V (V^T hi, lo) once it lands.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int g = 0;  // key tiles loaded so far, over all items
+      for (int r = 0; item_index(r) < n_items; ++r) {
+        const WorkItem it =
+            work_item<BK>(item_index(r), S, H, KV, HB, n_qt, causal, window);
+        if (r > 0) mbar_wait(q_empty, (r - 1) & 1);
+        mbar_expect_tx(q_full, L::Q_TILE);
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          tma_load(base + c * Q_BOXB, &tq, q_full, c * F_BOX, it.h, it.q0, it.b);
+        for (int j = 0; j < it.n_tiles; ++j, ++g) {
+          const int s = g % ST, round = g / ST;
+          const int k0 = it.k_begin + j * BK;
+          if (round > 0) mbar_wait(empty(s), (round - 1) & 1);
+          mbar_expect_tx(raw_full(s), 2 * L::NAT);
+#pragma unroll
+          for (int c = 0; c < NB; ++c) {
+            tma_load(base + k_hi(s) + c * K_BOXB, &tk, raw_full(s), c * F_BOX, it.kvh, k0, it.b);
+            tma_load(base + v_raw(s) + c * K_BOXB, &tv, raw_full(s), c * F_BOX, it.kvh, k0, it.b);
+          }
+        }
+      }
+    } else if (threadIdx.x >= 32) {
+      const int ct = threadIdx.x - 32;
+      int g = 0;
+      for (int r = 0; item_index(r) < n_items; ++r) {
+        const WorkItem it =
+            work_item<BK>(item_index(r), S, H, KV, HB, n_qt, causal, window);
+        for (int j = 0; j < it.n_tiles; ++j, ++g) {
+          const int s = g % ST;
+          mbar_wait(raw_full(s), (g / ST) & 1);
+          split_tile<BK, D, true, false>(gbase + k_hi(s), gbase + k_lo(s), nullptr, nullptr, ct);
+          split_tile<BK, D, false, true>(gbase + v_raw(s), nullptr, gbase + vt_hi(s),
+                                         gbase + vt_lo(s), ct);
+          fence_async_smem();
+          mbar_arrive(full(s));
+        }
+      }
+    }
+  } else {
+    // Consumers: group cw owns query rows q0 + 64 cw .. + 63 of each item
+    // (thread (warp w, lane = 4 g + t): rows 16 w + g and + 8, accumulator
+    // columns 8 j + 2t, + 1). A tile: S = Q K^T (Q split from the raw tile
+    // a chunk at a time), the online softmax of the bf16 kernel in exp2, the
+    // accumulator rescaled, then O += P V with P split from the
+    // accumulator and V^T's hi and lo from the stage. The two groups'
+    // products and softmax overlap each other.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int lane = tid & 31, w = tid >> 5;
+    const int gr = lane >> 2, t = lane & 3;
+    const unsigned char* qa = gbase + 64 * cw * 128;  // this group's rows of Q's box 0
+    int g = 0;  // key tiles consumed so far, over all items
+    for (int r = 0; item_index(r) < n_items; ++r) {
+      const WorkItem it = work_item<BK>(item_index(r), S, H, KV, HB, n_qt, causal, window);
+      const int qlo = it.q0 + 64 * cw;
+      const int row0 = qlo + 16 * w + gr;
+      float oacc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // m in log2 units
+      mbar_wait(q_full, r & 1);
+      for (int j = 0; j < it.n_tiles; ++j, ++g) {
+        const int s = g % ST;
+        const int k0 = it.k_begin + j * BK;
+        float sacc[BK / 2], sb[BK / 2], ssm[BK / 2], alpha0, alpha1;
+        mbar_wait(full(s), (g / ST) & 1);
+        issue_split<BK, D, false, true>(sacc, sb, ssm, sacc, sb, ssm, qa, qa, Q_BOXB,
+                                        16 * w + gr, gr, t, base + k_hi(s), base + k_lo(s), 0,
+                                        0, K_BOXB);
+        wgmma_wait<0>();
+        fence_regs(sacc);
+        fence_regs(sb);
+        fence_regs(ssm);
+        add_chains<BK, true>(sacc, sb, ssm);
+        if (j == it.n_tiles - 1) mbar_arrive(q_empty);  // Q of this item is read
+        // zero-filled keys past S score 0, not -inf: the last tile is masked
+        const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > qlo) ||
+                            (window > 0 && k0 <= qlo + 63 - window);
+        softmax_tile<BK>(sacc, m0, m1, l0, l1, alpha0, alpha1, masked, k0, row0, t, S,
+                         causal, window, scale_log2);
+        // the tile's P V into an accumulator of its own (one chain of
+        // truncating accumulations over all of S would drift), then
+        // O = alpha O + P V in float32
+        uint32_t ph[BK / 8][4], pl[BK / 8][4];
+        split_acc<BK>(sacc, ph, pl);
+        float pv[D / 2];
+        issue_rs_tf32<D, BK / 8>(pv, ph, pl, base + vt_hi(s), base + vt_lo(s), true);
+        wgmma_wait<0>();
+        fence_regs(pv);
+        mbar_arrive(empty(s));
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          oacc[4 * jj] = fmaf(oacc[4 * jj], alpha0, pv[4 * jj]);
+          oacc[4 * jj + 1] = fmaf(oacc[4 * jj + 1], alpha0, pv[4 * jj + 1]);
+          oacc[4 * jj + 2] = fmaf(oacc[4 * jj + 2], alpha1, pv[4 * jj + 2]);
+          oacc[4 * jj + 3] = fmaf(oacc[4 * jj + 3], alpha1, pv[4 * jj + 3]);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      const size_t q_row = (size_t)H * D;
+      float* o0 = o + ((size_t)it.b * S + row0) * q_row + (size_t)it.h * D;
+      const float inv0 = 1.f / fmaxf(l0, 1e-37f), inv1 = 1.f / fmaxf(l1, 1e-37f);
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        if (row0 < S)
+          *reinterpret_cast<float2*>(o0 + 8 * jj + 2 * t) =
+              make_float2(oacc[4 * jj] * inv0, oacc[4 * jj + 1] * inv0);
+        if (row0 + 8 < S)
+          *reinterpret_cast<float2*>(o0 + 8 * q_row + 8 * jj + 2 * t) =
+              make_float2(oacc[4 * jj + 2] * inv1, oacc[4 * jj + 3] * inv1);
+      }
+      if constexpr (LSE) {
+        float* lrow = lse + ((size_t)it.b * H + it.h) * S;
+        if (t == 0 && row0 < S) lrow[row0] = m0 * LN2 + logf(l0);
+        if (t == 0 && row0 + 8 < S) lrow[row0 + 8] = m1 * LN2 + logf(l1);
+      }
+    }
+  }
+}
+
+// q, dout through tensor maps of (D, H, S, B) with boxes of (32, 1, 128, 1);
+// k, v of (D, KV, S, B), boxes (32, 1, BK, 1); float32, 128-byte swizzle.
+// dq: (B, S, H, D) float32. An item is the forward's (128 queries, 64 a
+// consumer group) over key tiles of BK: S = Q K^T and dP = dO V^T with Q
+// and dO split from their raw tiles, K and V from the stage's hi/lo, then
+// dQ += dS K with K^T's hi and lo. Persistent grid of min(items, SMs) CTAs;
+// block WG_THREADS; dynamic smem BwdQTf32Smem<D>::BYTES.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dq_tf32_kernel(__grid_constant__ const CUtensorMap tq,
+                         __grid_constant__ const CUtensorMap tdo,
+                         __grid_constant__ const CUtensorMap tk,
+                         __grid_constant__ const CUtensorMap tv,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dq, int B, int S, int H, int KV,
+                         float scale_log2, float scale, int causal, int window) {
+  using L = BwdQTf32Smem<D>;
+  constexpr int NB = L::NB, BK = L::BK, ST = L::STAGES;
+  constexpr int Q_BOXB = WG_BQ * 128, K_BOXB = BK * 128;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t base = (smem_u32(wg_smem) + 1023u) & ~1023u;
+  unsigned char* gbase = wg_smem + (base - smem_u32(wg_smem));
+  const uint32_t do_raw = L::Q_TILE;  // offsets; Q's raw tile is at 0
+  auto stage = [&](int s) { return (uint32_t)(2 * L::Q_TILE + L::STAGE * s); };
+  auto k_hi = [&](int s) { return stage(s); };
+  auto k_lo = [&](int s) { return stage(s) + L::NAT; };
+  auto v_hi = [&](int s) { return stage(s) + 2 * L::NAT; };
+  auto v_lo = [&](int s) { return stage(s) + 3 * L::NAT; };
+  auto kt_hi = [&](int s) { return stage(s) + 4 * L::NAT; };
+  auto kt_lo = [&](int s) { return stage(s) + 4 * L::NAT + L::TR; };
+  const uint32_t bars = base + L::BARS;
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto raw_full = [&](int s) { return bars + 8u * (2 + s); };
+  auto full = [&](int s) { return bars + 8u * (2 + ST + s); };
+  auto empty = [&](int s) { return bars + 8u * (2 + 2 * ST + s); };
+
+  const int HB = H * B;
+  const int n_qt = (S + WG_BQ - 1) / WG_BQ;
+  const int n_items = n_qt * HB;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, WG_CONSUMERS);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(raw_full(s), 1);
+      mbar_init(full(s), F_CONVERTERS);
+      mbar_init(empty(s), WG_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: lane 0 of warp 0 loads Q and dO once an item and K, V a
+    // tile; warps 1-3 split K (hi in place, lo, K^T hi and lo) and V (hi in
+    // place, lo).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int g = 0;
+      for (int r = 0; item_index(r) < n_items; ++r) {
+        const WorkItem it =
+            work_item<BK>(item_index(r), S, H, KV, HB, n_qt, causal, window);
+        if (r > 0) mbar_wait(q_empty, (r - 1) & 1);
+        mbar_expect_tx(q_full, 2 * L::Q_TILE);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          tma_load(base + c * Q_BOXB, &tq, q_full, c * F_BOX, it.h, it.q0, it.b);
+          tma_load(base + do_raw + c * Q_BOXB, &tdo, q_full, c * F_BOX, it.h, it.q0, it.b);
+        }
+        for (int j = 0; j < it.n_tiles; ++j, ++g) {
+          const int s = g % ST, round = g / ST;
+          const int k0 = it.k_begin + j * BK;
+          if (round > 0) mbar_wait(empty(s), (round - 1) & 1);
+          mbar_expect_tx(raw_full(s), 2 * L::NAT);
+#pragma unroll
+          for (int c = 0; c < NB; ++c) {
+            tma_load(base + k_hi(s) + c * K_BOXB, &tk, raw_full(s), c * F_BOX, it.kvh, k0, it.b);
+            tma_load(base + v_hi(s) + c * K_BOXB, &tv, raw_full(s), c * F_BOX, it.kvh, k0, it.b);
+          }
+        }
+      }
+    } else if (threadIdx.x >= 32) {
+      const int ct = threadIdx.x - 32;
+      int g = 0;
+      for (int r = 0; item_index(r) < n_items; ++r) {
+        const WorkItem it =
+            work_item<BK>(item_index(r), S, H, KV, HB, n_qt, causal, window);
+        for (int j = 0; j < it.n_tiles; ++j, ++g) {
+          const int s = g % ST;
+          mbar_wait(raw_full(s), (g / ST) & 1);
+          split_tile<BK, D, true, true>(gbase + k_hi(s), gbase + k_lo(s), gbase + kt_hi(s),
+                                        gbase + kt_lo(s), ct);
+          split_tile<BK, D, true, false>(gbase + v_hi(s), gbase + v_lo(s), nullptr, nullptr, ct);
+          fence_async_smem();
+          mbar_arrive(full(s));
+        }
+      }
+    }
+  } else {
+    // Consumers: group cw owns query rows q0 + 64 cw .. + 63 of each item;
+    // thread (warp w, lane = 4 g + t) rows 16 w + g and + 8, key columns
+    // 8 j + 2 t, + 1 of S and dP, columns of dQ likewise.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int lane = tid & 31, w = tid >> 5;
+    const int gr = lane >> 2, t = lane & 3;
+    const unsigned char* qa = gbase + 64 * cw * 128;  // this group's rows of box 0
+    const unsigned char* da = gbase + do_raw + 64 * cw * 128;
+    int g = 0;
+    for (int r = 0; item_index(r) < n_items; ++r) {
+      const WorkItem it = work_item<BK>(item_index(r), S, H, KV, HB, n_qt, causal, window);
+      const int qlo = it.q0 + 64 * cw;
+      const int row0 = qlo + 16 * w + gr;
+      const size_t row = ((size_t)it.b * H + it.h) * S;
+      // rows past S: lse = +inf makes their P exactly 0
+      const float nl0 = row0 < S ? -lse[row + row0] * LOG2E : -INFINITY;
+      const float nl1 = row0 + 8 < S ? -lse[row + row0 + 8] * LOG2E : -INFINITY;
+      const float d0 = row0 < S ? delta[row + row0] : 0.f;
+      const float d1 = row0 + 8 < S ? delta[row + row0 + 8] : 0.f;
+      float dqa[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+      mbar_wait(q_full, r & 1);
+      for (int j = 0; j < it.n_tiles; ++j, ++g) {
+        const int s = g % ST;
+        const int k0 = it.k_begin + j * BK;
+        float sacc[BK / 2], sb[BK / 2], ssm[BK / 2], dpacc[BK / 2], db[BK / 2], dsm[BK / 2];
+        mbar_wait(full(s), (g / ST) & 1);
+        issue_split<BK, D, true, true>(sacc, sb, ssm, dpacc, db, dsm, qa, da, Q_BOXB,
+                                       16 * w + gr, gr, t, base + k_hi(s), base + k_lo(s),
+                                       base + v_hi(s), base + v_lo(s), K_BOXB);
+        wgmma_wait<1>();  // S is done; dP's last chunk may still run
+        fence_regs(sacc);
+        fence_regs(sb);
+        fence_regs(ssm);
+        add_chains<BK, true>(sacc, sb, ssm);
+#pragma unroll
+        for (int jj = 0; jj < BK / 8; ++jj) {
+          sacc[4 * jj] = ex2(fmaf(sacc[4 * jj], scale_log2, nl0));
+          sacc[4 * jj + 1] = ex2(fmaf(sacc[4 * jj + 1], scale_log2, nl0));
+          sacc[4 * jj + 2] = ex2(fmaf(sacc[4 * jj + 2], scale_log2, nl1));
+          sacc[4 * jj + 3] = ex2(fmaf(sacc[4 * jj + 3], scale_log2, nl1));
+        }
+        // zero-filled keys past S score 0, not -inf: the last tile is masked
+        if (k0 + BK > S || (causal && k0 + BK - 1 > qlo) ||
+            (window > 0 && k0 <= qlo + 63 - window)) {
+#pragma unroll
+          for (int jj = 0; jj < BK / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = k0 + 8 * jj + 2 * t + (e & 1);
+              const int qp = e < 2 ? row0 : row0 + 8;
+              if (!(key < S && (!causal || key <= qp) && (window <= 0 || key > qp - window)))
+                sacc[4 * jj + e] = 0.f;
+            }
+        }
+        wgmma_wait<0>();
+        fence_regs(dpacc);
+        fence_regs(db);
+        fence_regs(dsm);
+        add_chains<BK, true>(dpacc, db, dsm);
+        if (j == it.n_tiles - 1) mbar_arrive(q_empty);  // Q and dO of this item are read
+#pragma unroll
+        for (int jj = 0; jj < BK / 8; ++jj) {
+          dpacc[4 * jj] = sacc[4 * jj] * (dpacc[4 * jj] - d0);
+          dpacc[4 * jj + 1] = sacc[4 * jj + 1] * (dpacc[4 * jj + 1] - d0);
+          dpacc[4 * jj + 2] = sacc[4 * jj + 2] * (dpacc[4 * jj + 2] - d1);
+          dpacc[4 * jj + 3] = sacc[4 * jj + 3] * (dpacc[4 * jj + 3] - d1);
+        }
+        uint32_t dh[BK / 8][4], dl[BK / 8][4];
+        split_acc<BK>(dpacc, dh, dl);
+        float dqt[D / 2];  // the tile's dS K apart, as the forward's P V
+        issue_rs_tf32<D, BK / 8>(dqt, dh, dl, base + kt_hi(s), base + kt_lo(s), true);
+        wgmma_wait<0>();
+        fence_regs(dqt);
+        mbar_arrive(empty(s));
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dqa[i] += dqt[i];
+      }
+      const size_t q_row = (size_t)H * D;
+      store_rows_f32<D>(dqa, dq + ((size_t)it.b * S + row0) * q_row + (size_t)it.h * D,
+                        q_row, row0, S, t, scale);
+    }
+  }
+}
+
+// q, dout through tensor maps of (D, H, S, B) with boxes of (32, 1, BQ, 1);
+// k, v of (D, KV, S, B), boxes (32, 1, KB, 1); float32, 128-byte swizzle.
+// dk, dv: (B, S, KV, D) float32. An item is (batch, KV head, KB-key tile)
+// over steps of BQ queries (BwdKvTf32Smem: with 128 keys group cw takes
+// keys 64 cw .. of every step, with 64 both take all keys and group cw the
+// steps of parity cw): S^T = K Q^T and dP^T = V dO^T with K and V split
+// from their raw tiles, Q and dO from the stage's hi/lo, then dV += P^T dO
+// and dK += dS^T Q with dO^T's and Q^T's hi and lo. Persistent grid of
+// min(items, SMs) CTAs; block WG_THREADS; dynamic smem
+// BwdKvTf32Smem<D>::BYTES.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dkdv_tf32_kernel(__grid_constant__ const CUtensorMap tq,
+                           __grid_constant__ const CUtensorMap tdo,
+                           __grid_constant__ const CUtensorMap tk,
+                           __grid_constant__ const CUtensorMap tv,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv, int B, int S,
+                           int H, int KV, float scale_log2, float scale, int causal,
+                           int window) {
+  using L = BwdKvTf32Smem<D>;
+  constexpr int NB = L::NB, BQ = L::BQ, ST = L::STAGES, KB = L::KB;
+  constexpr bool WIDE = KB > BWD_KB;  // 128-key items, every step for both groups
+  constexpr int NT = D > 96 ? D / 2 : D;  // columns of a step's dV or dK part
+  constexpr int K_BOXB = KB * 128, Q_BOXB = BQ * 128;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t base = (smem_u32(wg_smem) + 1023u) & ~1023u;
+  unsigned char* gbase = wg_smem + (base - smem_u32(wg_smem));
+  const uint32_t v_raw = L::K_TILE;  // offsets; K's raw tile is at 0
+  auto stage = [&](int s) { return (uint32_t)(2 * L::K_TILE + L::STAGE * s); };
+  auto q_hi = [&](int s) { return stage(s); };
+  auto q_lo = [&](int s) { return stage(s) + L::NAT; };
+  auto do_hi = [&](int s) { return stage(s) + 2 * L::NAT; };
+  auto do_lo = [&](int s) { return stage(s) + 3 * L::NAT; };
+  auto qt_hi = [&](int s) { return stage(s) + 4 * L::NAT; };
+  auto qt_lo = [&](int s) { return stage(s) + 4 * L::NAT + L::TR; };
+  auto dot_hi = [&](int s) { return stage(s) + 4 * L::NAT + 2 * L::TR; };
+  auto dot_lo = [&](int s) { return stage(s) + 4 * L::NAT + 3 * L::TR; };
+  // stage s: BQ values of -lse log2 e, then BQ of delta
+  auto stats = [&](int s) { return reinterpret_cast<float*>(gbase + L::STATS) + 2 * BQ * s; };
+  // [D / 2][128] (64-key items): one group's partial dV or dK, over K's and
+  // V's raw tiles
+  float* red = reinterpret_cast<float*>(gbase);
+  const uint32_t bars = base + L::BARS;
+  const uint32_t kv_full = bars, kv_empty = bars + 8;
+  auto raw_full = [&](int s) { return bars + 8u * (2 + s); };
+  auto full = [&](int s) { return bars + 8u * (2 + ST + s); };
+  auto empty = [&](int s) { return bars + 8u * (2 + 2 * ST + s); };
+
+  const int G = H / KV;
+  const int n_items = (S + KB - 1) / KB * KV * B;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, WG_CONSUMERS);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(raw_full(s), 1);
+      mbar_init(full(s), F_CONVERTERS);
+      mbar_init(empty(s), WIDE ? WG_CONSUMERS : 128);  // the groups that took the step
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: lane 0 of warp 0 loads K and V once an item (once both
+    // groups are done with the last ones, and their partial sums) and
+    // each step's Q and dO; warps 1-3 read the step's lse and delta
+    // (issued before the wait, so the loads overlap the TMA's) and split Q
+    // and dO (hi in place, lo, transposed hi and lo).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int g = 0;
+      for (int r = 0; item_index(r) < n_items; ++r) {
+        const KvItem it = kv_item<BQ, KB>(item_index(r), B, S, KV, G, causal, window);
+        if (r > 0) mbar_wait(kv_empty, (r - 1) & 1);
+        mbar_expect_tx(kv_full, 2 * L::K_TILE);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          tma_load(base + c * K_BOXB, &tk, kv_full, c * F_BOX, it.kvh, it.k0, it.b);
+          tma_load(base + v_raw + c * K_BOXB, &tv, kv_full, c * F_BOX, it.kvh, it.k0, it.b);
+        }
+        for (int i = 0; i < it.steps; ++i, ++g) {
+          const int s = g % ST, round = g / ST;
+          const int h = it.kvh * G + i / it.n_qt;
+          const int q0 = it.q_begin + (i % it.n_qt) * BQ;
+          if (round > 0) mbar_wait(empty(s), (round - 1) & 1);
+          mbar_expect_tx(raw_full(s), 2 * L::NAT);
+#pragma unroll
+          for (int c = 0; c < NB; ++c) {
+            tma_load(base + q_hi(s) + c * Q_BOXB, &tq, raw_full(s), c * F_BOX, h, q0, it.b);
+            tma_load(base + do_hi(s) + c * Q_BOXB, &tdo, raw_full(s), c * F_BOX, h, q0, it.b);
+          }
+        }
+      }
+    } else if (threadIdx.x >= 32) {
+      const int ct = threadIdx.x - 32;
+      int g = 0;
+      for (int r = 0; item_index(r) < n_items; ++r) {
+        const KvItem it = kv_item<BQ, KB>(item_index(r), B, S, KV, G, causal, window);
+        for (int i = 0; i < it.steps; ++i, ++g) {
+          const int s = g % ST;
+          const int h = it.kvh * G + i / it.n_qt;
+          const int q0 = it.q_begin + (i % it.n_qt) * BQ;
+          // queries past S: lse = +inf makes their P exactly 0
+          float nl = 0.f, dl = 0.f;
+          if (ct < BQ) {
+            const size_t row = ((size_t)it.b * H + h) * S;
+            const int qp = q0 + ct;
+            nl = qp < S ? -lse[row + qp] * LOG2E : -INFINITY;
+            dl = qp < S ? delta[row + qp] : 0.f;
+          }
+          mbar_wait(raw_full(s), (g / ST) & 1);
+          if (ct < BQ) {
+            stats(s)[ct] = nl;
+            stats(s)[BQ + ct] = dl;
+          }
+          split_tile<BQ, D, true, true>(gbase + q_hi(s), gbase + q_lo(s), gbase + qt_hi(s),
+                                        gbase + qt_lo(s), ct);
+          split_tile<BQ, D, true, true>(gbase + do_hi(s), gbase + do_lo(s), gbase + dot_hi(s),
+                                        gbase + dot_lo(s), ct);
+          fence_async_smem();
+          mbar_arrive(full(s));
+        }
+      }
+    }
+  } else {
+    // Consumers: with 128-key items group cw takes keys 64 cw .. 64 cw + 63
+    // of every step; with 64 it takes all keys of the steps of parity cw
+    // (counted over all items). Thread (warp w, lane = 4 g + t) holds key
+    // rows 16 w + g and + 8 of the group's, query columns 8 j + 2 t, + 1 of
+    // S^T and dP^T, and rows 16 w + g, + 8, columns 8 j + 2 t, + 1 of dK
+    // and dV.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int lane = tid & 31, w = tid >> 5;
+    const int gr = lane >> 2, t = lane & 3;
+    int g = 0;  // steps of earlier items
+    for (int r = 0; item_index(r) < n_items; ++r) {
+      const KvItem it = kv_item<BQ, KB>(item_index(r), B, S, KV, G, causal, window);
+      const int kg0 = it.k0 + (WIDE ? 64 * cw : 0);  // the group's first key
+      const int kr0 = kg0 + 16 * w + gr;
+      const unsigned char* ka = gbase + (WIDE ? 64 * cw * 128 : 0);  // its rows, box 0
+      float dka[D / 2], dva[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+      const int first = WIDE ? 0 : (cw + g) & 1;  // this group's first step of the item
+      if (first < it.steps) mbar_wait(kv_full, r & 1);
+      for (int i = first; i < it.steps; i += WIDE ? 1 : 2) {
+        const int gi = g + i, s = gi % ST;
+        const int q0 = it.q_begin + (i % it.n_qt) * BQ;
+        float sacc[BQ / 2], ssm[BQ / 2], dpacc[BQ / 2], dsm[BQ / 2];
+        mbar_wait(full(s), (gi / ST) & 1);
+        issue_split<BQ, D, true, false>(sacc, sacc, ssm, dpacc, dpacc, dsm, ka,
+                                        ka + v_raw, K_BOXB, 16 * w + gr, gr, t,
+                                        base + q_hi(s), base + q_lo(s), base + do_hi(s),
+                                        base + do_lo(s), Q_BOXB);
+        wgmma_wait<1>();  // S^T is done; dP^T's last chunk may still run
+        fence_regs(sacc);
+        fence_regs(ssm);
+        add_chains<BQ, false>(sacc, sacc, ssm);
+        const float* st = stats(s);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 nl = *reinterpret_cast<const float2*>(st + 8 * j + 2 * t);
+          sacc[4 * j] = ex2(fmaf(sacc[4 * j], scale_log2, nl.x));
+          sacc[4 * j + 1] = ex2(fmaf(sacc[4 * j + 1], scale_log2, nl.y));
+          sacc[4 * j + 2] = ex2(fmaf(sacc[4 * j + 2], scale_log2, nl.x));
+          sacc[4 * j + 3] = ex2(fmaf(sacc[4 * j + 3], scale_log2, nl.y));
+        }
+        // keys past S need no mask: their rows of dK and dV are not stored
+        if ((causal && q0 < kg0 + 63) || (window > 0 && kg0 <= q0 + BQ - 1 - window)) {
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = kr0 + 8 * (e >> 1), qp = q0 + 8 * j + 2 * t + (e & 1);
+              if ((causal && key > qp) || (window > 0 && key <= qp - window))
+                sacc[4 * j + e] = 0.f;
+            }
+        }
+        wgmma_wait<0>();
+        fence_regs(dpacc);
+        fence_regs(dsm);
+        add_chains<BQ, false>(dpacc, dpacc, dsm);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 dl = *reinterpret_cast<const float2*>(st + BQ + 8 * j + 2 * t);
+          dpacc[4 * j] = sacc[4 * j] * (dpacc[4 * j] - dl.x);
+          dpacc[4 * j + 1] = sacc[4 * j + 1] * (dpacc[4 * j + 1] - dl.y);
+          dpacc[4 * j + 2] = sacc[4 * j + 2] * (dpacc[4 * j + 2] - dl.x);
+          dpacc[4 * j + 3] = sacc[4 * j + 3] * (dpacc[4 * j + 3] - dl.y);
+        }
+        uint32_t ph[BQ / 8][4], pl[BQ / 8][4], dh[BQ / 8][4], dlo[BQ / 8][4];
+        split_acc<BQ>(sacc, ph, pl);
+        split_acc<BQ>(dpacc, dh, dlo);
+        // dV += P^T dO and dK += dS^T Q, each step's product in a fresh
+        // accumulator added in float32 (one chain over all of an item's
+        // steps drifts, as the forward's P V would); NT columns at a time
+        // (half of D from 112: registers), rows NT h .. of the transposed
+        // tiles
+        auto step_part = [&](float (&acc)[D / 2], const uint32_t (&a_hi)[BQ / 8][4],
+                             const uint32_t (&a_lo)[BQ / 8][4], uint32_t b_hi, uint32_t b_lo,
+                             int h) {
+          float part[NT / 2];
+          const uint32_t rows = h * NT * BQ * 4;
+          issue_rs_tf32<NT, BQ / 8>(part, a_hi, a_lo, b_hi + rows, b_lo + rows, true);
+          wgmma_wait<0>();
+          fence_regs(part);
+#pragma unroll
+          for (int i = 0; i < NT / 2; ++i) acc[h * NT / 2 + i] += part[i];
+        };
+#pragma unroll
+        for (int h = 0; h < D / NT; ++h)
+          step_part(dva, ph, pl, base + dot_hi(s), base + dot_lo(s), h);
+#pragma unroll
+        for (int h = 0; h < D / NT; ++h)
+          step_part(dka, dh, dlo, base + qt_hi(s), base + qt_lo(s), h);
+        mbar_arrive(empty(s));
+      }
+      g += it.steps;
+      if constexpr (WIDE) {
+        mbar_arrive(kv_empty);  // this group is done with K's and V's raw tiles
+      } else {
+        // Both groups are done with K's and V's raw tiles; group 1 hands its
+        // dV to group 0, then group 0 its dK to group 1, through them. A
+        // thread's partner holds the same elements in the same registers.
+        consumers_sync();
+        float* part = red + tid;
+        if (cw == 1) {
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) part[i * 128] = dva[i];
+        }
+        consumers_sync();
+        if (cw == 0) {
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) dva[i] += part[i * 128];
+        }
+        consumers_sync();
+        if (cw == 0) {
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) part[i * 128] = dka[i];
+        }
+        consumers_sync();
+        if (cw == 1) {
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) dka[i] += part[i * 128];
+        }
+        fence_async_smem();  // the next item's TMA loads K and V over `red`
+        consumers_sync();
+        mbar_arrive(kv_empty);
+      }
+
+      const size_t kv_row = (size_t)KV * D;
+      const size_t at = ((size_t)it.b * S + kr0) * kv_row + (size_t)it.kvh * D;
+      if (WIDE || cw == 0) store_rows_f32<D>(dva, dv + at, kv_row, kr0, S, t, 1.f);
+      if (WIDE || cw == 1) store_rows_f32<D>(dka, dk + at, kv_row, kr0, S, t, scale);
+    }
+  }
+}
+
+// ---- float32 at D = 16, 32, 48: FMAs on shared-memory tiles ----
 
 // K, V (or Q, dO) tiles padded to D + 1 columns, two [64][65] tiles of P and
 // dS (one for dQ), and lse, delta of the query tile.
@@ -2292,18 +3412,22 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map over a contiguous (B, S, heads, D) bf16 tensor, dimensions
-// innermost first: (D, heads, S, B). S stays its own dimension, so the zero
-// fill past S never reads the next sequence's rows.
+// A 4-D map over a contiguous (B, S, heads, D) bf16 (or, with f32, float32)
+// tensor, dimensions innermost first: (D, heads, S, B); a box is 128 bytes
+// of a row (64 bf16 or 32 float32 columns) by `rows`. S stays its own
+// dimension, so the zero fill past S never reads the next sequence's rows.
 bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B,
-              int S, int heads, int D, int rows) {
+              int S, int heads, int D, int rows, bool f32 = false) {
+  const cuuint64_t e = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {BOX_COLS, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * e, (cuuint64_t)heads * D * e,
+                                 (cuuint64_t)S * heads * D * e};
+  const cuuint32_t box[4] = {f32 ? (cuuint32_t)F_BOX : (cuuint32_t)BOX_COLS, 1,
+                             (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(ptr),
                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -2400,6 +3524,143 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// Once per device and kernel (it costs host time on every call otherwise):
+// the kernel's shared-memory opt-in, and the SM count into *sms.
+template <typename K>
+cudaError_t opt_in_once(int (&sms_of)[MAX_DEVICES], K* kernel, int bytes, int* sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (sms_of[device] == 0) {
+    int n = 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    sms_of[device] = n;
+  }
+  *sms = sms_of[device];
+  return cudaSuccess;
+}
+
+template <int D, bool LSE>
+cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v, void* o,
+                            float* lse, int B, int S, int H, int KV, float scale,
+                            int causal, int window, cudaStream_t stream) {
+  using L = FwdTf32Smem<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, encode, q, B, S, H, D, WG_BQ, true) ||
+      !make_map(&tk, encode, k, B, S, KV, D, L::BK, true) ||
+      !make_map(&tv, encode, v, B, S, KV, D, L::BK, true))
+    return cudaErrorInvalidValue;
+  static int sms_of[MAX_DEVICES] = {};
+  int sms = 0;
+  cudaError_t err = opt_in_once(sms_of, flash_fwd_tf32_kernel<D, LSE>, L::BYTES, &sms);
+  if (err != cudaSuccess) return err;
+  const long long items = (long long)((S + WG_BQ - 1) / WG_BQ) * H * B;
+  flash_fwd_tf32_kernel<D, LSE><<<(int)(items < sms ? items : sms), WG_THREADS, L::BYTES,
+                                  stream>>>(tq, tk, tv, static_cast<float*>(o), B, S, H, KV,
+                                            scale * LOG2E, causal, window, lse);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse, const float* delta,
+                            void* dq, void* dk, void* dv, int B, int S, int H, int KV,
+                            float scale, int causal, int window, cudaStream_t stream) {
+  using LK = BwdKvTf32Smem<D>;
+  using LQ = BwdQTf32Smem<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  // dK/dV: Q and dO in boxes of BQ rows, K and V of KB; dQ: Q and dO of
+  // 128, K and V of BK
+  CUtensorMap kq, kdo, kk, kv, qq, qdo, qk, qv;
+  if (!make_map(&kq, encode, q, B, S, H, D, LK::BQ, true) ||
+      !make_map(&kdo, encode, dout, B, S, H, D, LK::BQ, true) ||
+      !make_map(&kk, encode, k, B, S, KV, D, LK::KB, true) ||
+      !make_map(&kv, encode, v, B, S, KV, D, LK::KB, true) ||
+      !make_map(&qq, encode, q, B, S, H, D, WG_BQ, true) ||
+      !make_map(&qdo, encode, dout, B, S, H, D, WG_BQ, true) ||
+      !make_map(&qk, encode, k, B, S, KV, D, LQ::BK, true) ||
+      !make_map(&qv, encode, v, B, S, KV, D, LQ::BK, true))
+    return cudaErrorInvalidValue;
+  static int kv_sms_of[MAX_DEVICES] = {}, q_sms_of[MAX_DEVICES] = {};
+  int sms = 0;
+  cudaError_t err = opt_in_once(kv_sms_of, flash_bwd_dkdv_tf32_kernel<D>, LK::BYTES, &sms);
+  if (err == cudaSuccess)
+    err = opt_in_once(q_sms_of, flash_bwd_dq_tf32_kernel<D>, LQ::BYTES, &sms);
+  if (err != cudaSuccess) return err;
+  const long long kv_items = (long long)((S + LK::KB - 1) / LK::KB) * KV * B;
+  flash_bwd_dkdv_tf32_kernel<D><<<(int)(kv_items < sms ? kv_items : sms), WG_THREADS,
+                                  LK::BYTES, stream>>>(
+      kq, kdo, kk, kv, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), B, S, H,
+      KV, scale * LOG2E, scale, causal, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long q_items = (long long)((S + WG_BQ - 1) / WG_BQ) * H * B;
+  flash_bwd_dq_tf32_kernel<D><<<(int)(q_items < sms ? q_items : sms), WG_THREADS, LQ::BYTES,
+                                stream>>>(qq, qdo, qk, qv, lse, delta, static_cast<float*>(dq),
+                                          B, S, H, KV, scale * LOG2E, scale, causal, window);
+  return cudaGetLastError();
+}
+
+#define REPRO_TF32_D(X) X(64) X(80) X(96) X(112) X(128)
+
+template <bool LSE>
+cudaError_t dispatch_fwd_tf32(const void* q, const void* k, const void* v, void* o,
+                              float* lse, int B, int S, int H, int KV, int D, float scale,
+                              int causal, int window, cudaStream_t stream) {
+  switch (D) {
+#define REPRO_FLASH_CASE(DD) \
+  case DD: return launch_fwd_tf32<DD, LSE>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, stream);
+    REPRO_TF32_D(REPRO_FLASH_CASE)
+#undef REPRO_FLASH_CASE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_bwd_tf32(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse, const float* delta,
+                              void* dq, void* dk, void* dv, int B, int S, int H, int KV,
+                              int D, float scale, int causal, int window,
+                              cudaStream_t stream) {
+  switch (D) {
+#define REPRO_FLASH_CASE(DD)                                                       \
+  case DD:                                                                         \
+    return launch_bwd_tf32<DD>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV, \
+                               scale, causal, window, stream);
+    REPRO_TF32_D(REPRO_FLASH_CASE)
+#undef REPRO_FLASH_CASE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The float32 wgmma kernels' plan at head dim D (forward keys a tile and
+// stages, dQ keys a tile and stages, dK/dV keys an item, queries a step and
+// stages, and the three kernels' dynamic shared memory), or false where D
+// has none.
+bool tf32_plan(int D, int (&plan)[10]) {
+  switch (D) {
+#define REPRO_FLASH_CASE(DD)                                                       \
+  case DD: {                                                                       \
+    using F = FwdTf32Smem<DD>;                                                     \
+    using Q = BwdQTf32Smem<DD>;                                                    \
+    using K = BwdKvTf32Smem<DD>;                                                   \
+    const int p[10] = {F::BK, F::STAGES, Q::BK, Q::STAGES, K::KB, K::BQ,           \
+                       K::STAGES, F::BYTES, Q::BYTES, K::BYTES};                   \
+    for (int i = 0; i < 10; ++i) plan[i] = p[i];                                   \
+    return true;                                                                   \
+  }
+    REPRO_TF32_D(REPRO_FLASH_CASE)
+#undef REPRO_FLASH_CASE
+    default: return false;
+  }
+}
+
 // bf16 backward: mma.sync at D = 16, 32, 48, TMA + wgmma from 64.
 cudaError_t dispatch_bwd_bf16(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse, const float* delta,
@@ -2426,11 +3687,16 @@ cudaError_t dispatch_bwd_bf16(const void* q, const void* k, const void* v,
 
 // The kernel flash_attention_fwd runs for (dtype, D), and its dynamic
 // shared memory in bytes.
-enum Route { ROUTE_NONE, ROUTE_FMA, ROUTE_MMA, ROUTE_WGMMA };
+enum Route { ROUTE_NONE, ROUTE_FMA, ROUTE_MMA, ROUTE_WGMMA, ROUTE_TF32 };
 
 Route route(int dtype, int D, size_t* smem) {
   if (D % 16 != 0 || D < 16 || D > DMAX) return ROUTE_NONE;
   if (dtype == 0) {
+    int plan[10];
+    if (tf32_plan(D, plan)) {
+      *smem = plan[7];
+      return ROUTE_TF32;
+    }
     *smem = smem_bytes(D);
     return ROUTE_FMA;
   }
@@ -2481,6 +3747,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                         causal, window, st)
                      : launch_f32<false>(q, k, v, o, l, B, S, H, KV, D, scale,
                                          causal, window, st));
+    case ROUTE_TF32:
+      return (int)(l ? dispatch_fwd_tf32<true>(q, k, v, o, l, B, S, H, KV, D,
+                                               scale, causal, window, st)
+                     : dispatch_fwd_tf32<false>(q, k, v, o, l, B, S, H, KV, D,
+                                                scale, causal, window, st));
     case ROUTE_WGMMA:
       return (int)(l ? dispatch_wgmma<true>(q, k, v, o, l, B, S, H, KV, D,
                                             scale, causal, window, st)
@@ -2494,15 +3765,28 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-// Name of the kernel flash_attention_fwd runs for (dtype, D): "wgmma",
-// "mma.sync" or "fma", or NULL where it refuses them; *smem_bytes is that
-// kernel's dynamic shared memory per CTA.
+// Name of the kernel flash_attention_fwd runs for (dtype, D): "wgmma" (bf16
+// at 64..128), "wgmma.3xtf32" (float32 at 64..128), "mma.sync" (bf16 at 16,
+// 32, 48) or "fma" (float32 at 16, 32, 48), or NULL where it refuses them;
+// *smem_bytes is that kernel's dynamic shared memory per CTA.
 const char* flash_attention_route(int dtype, int D, int* smem_bytes) {
   size_t smem = 0;
   const Route r = route(dtype, D, &smem);
   *smem_bytes = (int)smem;
-  return r == ROUTE_WGMMA ? "wgmma" : r == ROUTE_MMA ? "mma.sync"
-         : r == ROUTE_FMA ? "fma" : nullptr;
+  return r == ROUTE_WGMMA ? "wgmma" : r == ROUTE_TF32 ? "wgmma.3xtf32"
+         : r == ROUTE_MMA ? "mma.sync" : r == ROUTE_FMA ? "fma" : nullptr;
+}
+
+// The float32 wgmma kernels' tiles at head dim D: plan = {forward keys a
+// tile, forward ring stages, dQ keys a tile, dQ stages, dK/dV keys an
+// item, dK/dV queries a step, dK/dV stages, and the forward's, dQ's and
+// dK/dV's dynamic shared memory in bytes}. Returns 0, or -1 where D has no
+// such kernels.
+int flash_attention_tf32_plan(int D, int* plan) {
+  int p[10];
+  if (!tf32_plan(D, p)) return -1;
+  for (int i = 0; i < 10; ++i) plan[i] = p[i];
+  return 0;
 }
 
 // The backward of flash_attention_fwd: dq (B, S, H, D), dk and dv (B, S, KV,
@@ -2530,6 +3814,9 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
         dl, rows, S, H, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (dtype == 0 && D >= 64)
+    return (int)dispatch_bwd_tf32(q, k, v, dout, l, dl, dq, dk, dv, B, S, H, KV, D,
+                                  scale, causal, window, st);
   if (dtype == 0)
     return (int)launch_bwd_f32(q, k, v, dout, l, dl, dq, dk, dv, B, S, H, KV, D,
                                scale, causal, window, st);
@@ -2538,13 +3825,19 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
 }
 
 // Name of the kernels flash_attention_bwd runs for (dtype, D): "wgmma"
-// (bf16 at D = 64..128), "mma.sync" (bf16 at 16, 32, 48) or "fma" (float32),
-// or NULL where it refuses them; *smem_bytes is the larger dynamic shared
-// memory of its two tile kernels.
+// (bf16 at D = 64..128), "wgmma.3xtf32" (float32 at 64..128), "mma.sync"
+// (bf16 at 16, 32, 48) or "fma" (float32 at 16, 32, 48), or NULL where it
+// refuses them; *smem_bytes is the larger dynamic shared memory of its two
+// tile kernels.
 const char* flash_attention_bwd_route(int dtype, int D, int* smem_bytes) {
   *smem_bytes = 0;
   if (D % 16 != 0 || D < 16 || D > DMAX) return nullptr;
   if (dtype == 0) {
+    int plan[10];
+    if (tf32_plan(D, plan)) {
+      *smem_bytes = plan[8] > plan[9] ? plan[8] : plan[9];
+      return "wgmma.3xtf32";
+    }
     *smem_bytes = (int)bwd_f32_smem(D, true);
     return "fma";
   }

@@ -9,12 +9,15 @@ counterpart of the reference's custom-VJP ``_flash_core``. On CPU tensors
 each runs its plain version (``ref``); on CUDA tensors it launches the
 kernels or raises. The C forward picks its kernel by (dtype, head_dim): bf16
 at 64, 80, 96, 112 and 128 runs the TMA + wgmma kernel (bound by operations:
-it reaches the tensor cores' rate), bf16 at 16, 32 and 48 the mma.sync
-kernel, float32 the FMA kernel. The backward is three launches a call (delta,
-dK/dV, dQ, no atomics): bf16 at 64..128 runs TMA + wgmma kernels, bf16 at 16,
-32 and 48 mma.sync kernels, float32 FMA kernels. ``flash_attention.launches``
-counts forward calls that launched (with or without lse),
-``flash_attention_bwd.launches`` backward calls.
+it reaches the tensor cores' rate), float32 at the same head dims the TMA +
+wgmma kernel in TF32 with every operand split into a hi and a lo part
+(3xTF32: three products a multiply, float32's precision on the tensor
+cores), bf16 at 16, 32 and 48 the mma.sync kernel, float32 there the FMA
+kernel. The backward is three launches a call (delta, dK/dV, dQ, no
+atomics), routed alike: TMA + wgmma kernels (bf16, and 3xTF32 for float32)
+at 64..128, mma.sync (bf16) and FMA (float32) kernels at 16, 32 and 48.
+``flash_attention.launches`` counts forward calls that launched (with or
+without lse), ``flash_attention_bwd.launches`` backward calls.
 """
 from __future__ import annotations
 
@@ -47,6 +50,8 @@ def _lib() -> ctypes.CDLL:
         for route in (lib.flash_attention_route, lib.flash_attention_bwd_route):
             route.argtypes = [i, i, ctypes.POINTER(i)]
             route.restype = ctypes.c_char_p
+        lib.flash_attention_tf32_plan.argtypes = [i, ctypes.POINTER(i)]
+        lib.flash_attention_tf32_plan.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -57,14 +62,32 @@ def kernel_route(dtype: torch.dtype, head_dim: int, backward: bool = False):
     """(name, dynamic shared memory in bytes) of the kernel the C forward
     (or, with ``backward``, the larger of the C backward's two tile
     kernels) runs for ``dtype`` and ``head_dim``: "wgmma" (bf16 at 64, 80,
-    96, 112, 128, both ways), "mma.sync" (bf16 at 16, 32, 48) or "fma"
-    (float32); name None where it refuses them. Builds the library (card
-    machine only)."""
+    96, 112, 128, both ways), "wgmma.3xtf32" (float32 at those head dims),
+    "mma.sync" (bf16 at 16, 32, 48) or "fma" (float32 at 16, 32, 48); name
+    None where it refuses them. Builds the library (card machine only)."""
     smem = ctypes.c_int(0)
     lib = _lib()
     route = lib.flash_attention_bwd_route if backward else lib.flash_attention_route
     name = route(DTYPE_CODES[dtype], head_dim, ctypes.byref(smem))
     return (name.decode() if name else None), smem.value
+
+
+TF32_PLAN_KEYS = ("fwd_keys", "fwd_stages", "dq_keys", "dq_stages",
+                  "dkdv_keys", "dkdv_queries", "dkdv_stages", "fwd_smem",
+                  "dq_smem", "dkdv_smem")
+
+
+def tf32_plan(head_dim: int):
+    """The float32 (3xTF32) kernels' tiles at ``head_dim``, as the library
+    sizes them from its shared-memory budget: the forward's keys a tile and
+    ring stages, dQ's keys a tile and stages, dK/dV's keys an item, queries
+    a step and stages, and each kernel's dynamic shared memory in bytes; None where
+    the head dim has no such kernels. Builds the library (card machine
+    only)."""
+    plan = (ctypes.c_int * len(TF32_PLAN_KEYS))()
+    if _lib().flash_attention_tf32_plan(head_dim, plan) != 0:
+        return None
+    return dict(zip(TF32_PLAN_KEYS, plan))
 
 
 def _check_aligned(**tensors):

@@ -31,18 +31,20 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
 def attention_forward_reference(q, k, v, *, causal: bool = True,
                                 window: Optional[int] = None):
     """q: (B, H, S, D); k/v: (B, KV, S, D). Returns (o (B, H, S, D) in q's
-    dtype, lse (B, H, S) float32): each row's natural-log sum of
-    exp(q k^T / sqrt(D)) over its visible keys."""
+    dtype, lse (B, H, S)): each row's natural-log sum of exp(q k^T /
+    sqrt(D)) over its visible keys. It computes in float32, or in float64
+    for float64 inputs (lse in that dtype)."""
     B, H, S, D = q.shape
     KV = k.shape[1]
     group = H // KV
-    qg = q.reshape(B, KV, group, S, D).float()
-    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / math.sqrt(D)
+    dt = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(B, KV, group, S, D).to(dt)
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.to(dt)) / math.sqrt(D)
     pos = torch.arange(S, device=q.device)
     s = s.masked_fill(~_mask(pos, pos, causal, window), NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
     w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgst,bktd->bkgsd", w, v.float())
+    o = torch.einsum("bkgst,bktd->bkgsd", w, v.to(dt))
     return o.reshape(B, H, S, D).to(q.dtype), lse.reshape(B, H, S)
 
 

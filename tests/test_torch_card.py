@@ -30,16 +30,19 @@ from repro_torch.kernels.gla_scan.ops import kernel_route as gla_route
 from repro_torch.models import build_model
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+REF_DTYPE = {"float32": torch.float64, "bfloat16": torch.bfloat16}
 FLASH_SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 64),
                 (1, 200, 8, 1, 32),   # unpadded seq, MQA
                 (2, 64, 6, 3, 80)]    # odd heads / head_dim
 FLASH_MASKS = [(True, None), (True, 64), (False, None)]
-# The wgmma path (bf16 at head_dim 64, 80, 96, 112 and 128: one 64-column
+# The wgmma paths (bf16 at head_dim 64, 80, 96, 112 and 128: one 64-column
 # box per tile row at 64, two at the others, the second zero-filled past D
-# below 128): S on both sides of the 64-row consumer and 128-row tiles,
-# batch 1 and 2, GQA groups 1, 4 and 8 of H = 8, causal, windows 64 and
-# 1000, non-causal; q scaled x8 as well, so that scores (standard deviation
-# 8) reach about +-60 and exercise the exp2 rescaling.
+# below 128; float32 at the same head dims in TF32 with the 3xTF32 split:
+# 32-column boxes, two to four a row, 64-key tiles at D = 64 and 32 above):
+# S on both sides of the 64-row consumer and 128-row tiles, batch 1 and 2,
+# GQA groups 1, 4 and 8 of H = 8, causal, windows 64 and 1000, non-causal;
+# q scaled x8 as well, so that scores (standard deviation 8) reach about
+# +-60 and exercise the exp2 rescaling.
 WGMMA_D = [64, 80, 96, 112, 128]
 WGMMA_S = [1, 63, 64, 127, 128, 129, 1000, 2048]
 WGMMA_MASKS = [(True, None), (True, 64), (True, 1000), (False, None)]
@@ -48,7 +51,8 @@ FLASH_CASES = (
     [(B, S, H, KV, D, dtype, causal, window, 1)
      for B, S, H, KV, D in FLASH_SHAPES for dtype in DTYPES
      for causal, window in FLASH_MASKS]
-    + [(B, S, 8, 8 // group, D, "bfloat16", causal, window, amp)
+    + [(B, S, 8, 8 // group, D, dtype, causal, window, amp)
+       for dtype in ("bfloat16", "float32")
        for D in WGMMA_D for S in WGMMA_S for B in (1, 2)
        for group in (1, 4, 8) for causal, window in WGMMA_MASKS
        for amp in (1, 8)])
@@ -124,9 +128,13 @@ def _flash_cases_hold(B, S, H, KV, D, dtype, causal, window, amp):
     torch.cuda.synchronize()
     assert flash_attention.launches == n + 1
     tr = lambda x: x.transpose(1, 2)
-    ref = tr(attention_reference(tr(q), tr(k), tr(v), causal=causal,
-                                 window=window))
-    np.testing.assert_allclose(_np(out), _np(ref), **_tol(dtype))
+    # float32 kernels against the plain version evaluated in float64: at
+    # scores of +-60 (q x8) float32's own rounding of the plain version
+    # reaches the 2e-5 tolerance
+    q, k, v = (tr(x).to(REF_DTYPE[dtype]) for x in (q, k, v))
+    ref = tr(attention_reference(q, k, v, causal=causal, window=window))
+    np.testing.assert_allclose(_np(out), ref.double().cpu().numpy(),
+                               **_tol(dtype))
 
 
 @pytest.mark.cuda
@@ -142,13 +150,14 @@ def test_flash_kernel_matches_plain_at_hubert_shape_on_card(amp):
 @pytest.mark.cuda
 def test_flash_routes_by_dtype_and_head_dim_on_card():
     """bf16 at 64..128 takes the TMA + wgmma kernel, below 64 mma.sync;
-    float32 the FMA kernel; a head dim off the grid of 16 none."""
+    float32 at 64..128 the TMA + wgmma kernel in 3xTF32, below 64 the FMA
+    kernel; a head dim off the grid of 16 none."""
     _cuda_or_skip()
     for D in WGMMA_D:
         assert flash_route(torch.bfloat16, D)[0] == "wgmma"
+        assert flash_route(torch.float32, D)[0] == "wgmma.3xtf32"
     for D in (16, 32, 48):
         assert flash_route(torch.bfloat16, D)[0] == "mma.sync"
-    for D in [16, 32, 48] + WGMMA_D:
         assert flash_route(torch.float32, D)[0] == "fma"
     assert flash_route(torch.bfloat16, 72)[0] is None
     # at D = 80..128 a tile is two 64-column boxes: D = 128's shared memory
@@ -156,19 +165,46 @@ def test_flash_routes_by_dtype_and_head_dim_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("D", WGMMA_D)
-def test_flash_kernel_is_deterministic_on_card(D):
+def test_flash_kernel_is_deterministic_on_card(D, dtype):
     """Two launches on the same input give the same bits."""
     _cuda_or_skip()
-    q, k, v = _flash_inputs(4, 2, 1000, 8, 2, D, "bfloat16", 8)
+    q, k, v = _flash_inputs(4, 2, 1000, 8, 2, D, dtype, 8)
     a = flash_attention(q, k, v, causal=True, window=None)
     b = flash_attention(q, k, v, causal=True, window=None)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_forward_replays_from_cuda_graph_on_card(D, dtype):
+    """The forward with lse captured in a CUDA graph replays to the eager
+    call's bits and reads the captured q anew after an in-place change."""
+    _cuda_or_skip()
+    q, k, v = _flash_inputs(11, 2, 1000, 6, 2, D, dtype)
+    q2 = _inputs(np.random.default_rng(12), dtype, (2, 1000, 6, D))[0]
+    want = flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = flash_attention_fwd(q, k, v, causal=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    q.copy_(q2)
+    graph.replay()
+    want2 = flash_attention_fwd(q2, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want2))
+    assert not torch.equal(want2[0], want[0])
+
+
 # The backward kernels (and the forward's lse): every head dim the forward
-# takes, float32 (FMA) and bf16 (wgmma at 64..128, mma.sync below); GQA
+# takes, float32 (3xTF32 wgmma at 64..128, FMA below) and bf16 (wgmma at
+# 64..128, mma.sync below); GQA
 # groups 1, 3 and 6 of H = 6; S of 1, on both sides of a 64-row tile (the
 # dK/dV item's keys) and a 128-row one (the dQ item's queries and keys),
 # 200 and 257 (S % 4 != 0: lse and delta rows start unaligned); causal,
@@ -278,16 +314,17 @@ def test_flash_autograd_function_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("D", [64, 128])
-def test_flash_backward_replays_from_cuda_graph_on_card(D):
+def test_flash_backward_replays_from_cuda_graph_on_card(D, dtype):
     """The backward captured in a CUDA graph (its tensor maps are kernel
     arguments, encoded at capture) replays to the eager call's bits, and
     reads the captured inputs anew: after an in-place change of dO a replay
     equals an eager call on the new dO."""
     _cuda_or_skip()
-    q, k, v = _flash_inputs(9, 2, 1000, 6, 2, D, "bfloat16")
+    q, k, v = _flash_inputs(9, 2, 1000, 6, 2, D, dtype)
     rng = np.random.default_rng(10)
-    do, do2 = _inputs(rng, "bfloat16", (2, 1000, 6, D), (2, 1000, 6, D))
+    do, do2 = _inputs(rng, dtype, (2, 1000, 6, D), (2, 1000, 6, D))
     out, lse = flash_attention_fwd(q, k, v, causal=True)
     want = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
     torch.cuda.synchronize()
@@ -308,12 +345,14 @@ def test_flash_backward_replays_from_cuda_graph_on_card(D):
 @pytest.mark.cuda
 def test_flash_backward_routes_on_card():
     """bf16 at 64..128 takes the TMA + wgmma kernels, below 64 mma.sync;
-    float32 the FMA kernels."""
+    float32 at 64..128 the TMA + wgmma kernels in 3xTF32, below 64 the FMA
+    kernels."""
     _cuda_or_skip()
     for D in BWD_D:
         want = "wgmma" if D >= 64 else "mma.sync"
         assert flash_route(torch.bfloat16, D, backward=True)[0] == want
-        assert flash_route(torch.float32, D, backward=True)[0] == "fma"
+        want = "wgmma.3xtf32" if D >= 64 else "fma"
+        assert flash_route(torch.float32, D, backward=True)[0] == want
     assert flash_route(torch.bfloat16, 72, backward=True)[0] is None
 
 
@@ -332,6 +371,25 @@ def test_flash_wrapper_refuses_misaligned_views_on_card(D):
     with pytest.raises(ValueError, match="16 bytes"):
         flash_attention(q, k, k)
     assert flash_attention.launches == launches
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_refuses_misaligned_float32_view_on_card():
+    """The float32 TMA route at D = 64: a view one float into its storage
+    is refused before any launch, forward and backward."""
+    _cuda_or_skip()
+    B, S, H, D = 1, 64, 2, 64
+    n = B * S * H * D
+    q = torch.zeros(n + 4, dtype=torch.float32, device="cuda")[1:n + 1]
+    q = q.view(B, S, H, D)
+    k = torch.zeros(B, S, H, D, dtype=torch.float32, device="cuda")
+    lse = torch.zeros(B, H, S, dtype=torch.float32, device="cuda")
+    launches = flash_attention.launches, flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention_bwd(q, k, k, k, lse, k)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == launches
 
 
 @pytest.mark.cuda

@@ -171,3 +171,122 @@ def test_decode_check_refuses_misaligned_views():
         _check(q, kc, ok, lengths, None)
     with pytest.raises(ValueError, match="16 bytes"):
         _check(q, ok, kc, lengths, None)
+
+
+# The float32 flash kernels at D = 64..128 run on the tensor cores in TF32
+# with every operand split into hi = tf32(x) and lo = tf32(x - hi) (3xTF32:
+# a b = hi lo + lo hi + hi hi). The tensor core adds each k-step's products
+# to its accumulator and truncates the sum toward zero, so a long chain of
+# accumulations drifts: the kernels put lo-hi and hi-lo in an accumulator of
+# their own, deal hi-hi over one or two chains (S, dP), and take each tile's
+# P V, dS K, P^T dO and dS^T Q into a fresh accumulator added to the running
+# sum in float32.
+# These tests repeat that arithmetic on the CPU (exact products, sums
+# truncated to float32 a k-step at a time) and hold it to the kernels'
+# tolerances at the hardest case the card tests take (q x8: scores of about
+# +-60): the forward at 2e-5, the gradients at 2e-4 of each gradient's
+# largest magnitude, both against float64.
+def _tf32(x):
+    """float32 -> tf32 as cvt.rna.tf32.f32 rounds (finite inputs): to
+    nearest, ties away from zero, the low 13 bits cleared."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _rz(x):
+    """float64 -> float32, truncated toward zero."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _tc(a, b, chains, acc=None):
+    """a @ b as the kernels issue it, a k-step of 8 at a time: chains = 0
+    puts all three products into one accumulator (``acc`` continues it);
+    otherwise lo-hi and hi-lo go to one accumulator and hi-hi to ``chains``
+    by k-step, added in float32 at the end."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    z = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    sm, hh = z, [z] * max(chains, 1)
+    if acc is not None:
+        hh[0] = acc
+    for i, k in enumerate(range(0, a.shape[-1], 8)):
+        s = slice(k, k + 8)
+        wg = lambda c, x, y: _rz(c.double() + x[..., s].double() @ y[..., s, :].double())
+        if chains == 0:
+            hh[0] = wg(wg(wg(hh[0], ah, bl), al, bh), ah, bh)
+        else:
+            sm = wg(wg(sm, ah, bl), al, bh)
+            hh[i % chains] = wg(hh[i % chains], ah, bh)
+    out = hh[0]
+    for c in hh[1:] + ([sm] if chains else []):
+        out = out + c
+    return out
+
+
+def _attention_as_kernels(q, k, v, do, tile=32):
+    """Causal forward (online softmax over key tiles) and backward (dK/dV
+    over query steps, dQ over key tiles, each step's or tile's product
+    apart) with the kernels' products; (B, H, S, D), k and v of KV heads."""
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    kr, vr = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    scale = 1.0 / np.sqrt(D)
+    pos = torch.arange(S)
+    mask = pos[None, :] <= pos[:, None]
+    s = (_tc(q, kr.transpose(-1, -2), 2) * scale).masked_fill(~mask, -np.inf)
+    m = torch.full((B, H, S, 1), -np.inf)
+    l, o = torch.zeros(B, H, S, 1), torch.zeros(B, H, S, D)
+    for k0 in range(0, S, tile):
+        mn = torch.maximum(m, s[..., k0:k0 + tile].amax(-1, keepdim=True))
+        p = torch.exp(s[..., k0:k0 + tile] - mn)
+        alpha = torch.exp(m - mn)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _tc(p, vr[..., k0:k0 + tile, :], 0)
+        m = mn
+    o, lse = o / l, m + torch.log(l)
+    dsT = _tc(kr, q.transpose(-1, -2), 1) * scale
+    pT = torch.where(mask.T, torch.exp(dsT - lse.transpose(-1, -2)), 0.0)
+    dpT = _tc(vr, do.transpose(-1, -2), 1)
+    dsT = pT * (dpT - (do * o).sum(-1)[..., None, :])
+    dq = torch.zeros_like(q)
+    for k0 in range(0, S, tile):
+        dq = dq + _tc(dsT[..., k0:k0 + tile, :].transpose(-1, -2),
+                      kr[..., k0:k0 + tile, :], 0)
+    dkv = []
+    for a, b in ((dsT, q), (pT, do)):
+        a = a.reshape(B, -1, G, S, S).permute(0, 1, 3, 2, 4).reshape(B, -1, S, G * S)
+        b = b.reshape(B, -1, G, S, D).reshape(B, -1, G * S, D)
+        acc = torch.zeros(a.shape[:-1] + (D,))
+        for q0 in range(0, G * S, tile):
+            acc = acc + _tc(a[..., q0:q0 + tile], b[..., q0:q0 + tile, :], 0)
+        dkv.append(acc)
+    return o, (dq * scale, dkv[0] * scale, dkv[1])
+
+
+def _attention_f64(q, k, v, do):
+    """The same causal attention and gradients in float64, by autograd."""
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    q, k, v = (x.double().requires_grad_() for x in (q, k, v))
+    s = q @ k.repeat_interleave(G, 1).transpose(-1, -2) / np.sqrt(D)
+    s = s.masked_fill(~(torch.arange(S)[None, :] <= torch.arange(S)[:, None]), -np.inf)
+    o = torch.softmax(s, -1) @ v.repeat_interleave(G, 1)
+    return o.detach(), torch.autograd.grad(o, (q, k, v), do.double())
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_tf32x3_split_meets_float32_tolerances(D):
+    rng = np.random.default_rng(D)
+    B, H, KV, S = 1, 4, 2, 256
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                   for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D),
+                             (B, H, S, D)))
+    q = q * 8
+    o, grads = _attention_as_kernels(q, k, v, do)
+    o64, want = _attention_f64(q, k, v, do)
+    np.testing.assert_allclose(o.double().numpy(), o64.numpy(), rtol=2e-5, atol=2e-5)
+    largest = max(float(w.abs().max()) for w in want)
+    for got, w in zip(grads, want):
+        scale = max(float(w.abs().max()), 1e-2 * largest)
+        assert float((got.double() - w).abs().max()) / scale <= 2e-4
