@@ -2,7 +2,7 @@
 """Time kernels of several checkouts on one card, at the served shapes,
 with ``chip_smoke.py``'s clocks.
 
-    python3 chip_ab.py [--only flash,flash_bwd,flash_f32,train_f32,decode,gla] <parent checkout>/src src src <parent checkout>/src
+    python3 chip_ab.py [--only flash,flash_bwd,flash_small,flash_f32,train_f32,decode,gla] <parent checkout>/src src src <parent checkout>/src
 
 Each argument is a directory that holds a ``repro_torch`` package. Each runs
 in a process of its own: its kernels are built, held against their plain
@@ -16,7 +16,12 @@ D=128 rows at S=2048 (``chip_smoke.flash_case``, SDPA both ways),
 (``chip_smoke.FLASH_BWD_SHAPES``: smollm-360m's B=8 S=2048 GQA 15/5 D=64,
 Llama's widths, h2o-danube's D=80 window; ``flash_bwd_case``: held
 against the plain backward, two launches bit-identical, eager and graph
-ms, SDPA's backward), the float32 forward and backward (``--only
+ms, SDPA's backward), bf16 forward and backward at the small head dims
+(``--only flash_small``: D = 16, 32 and 48 at ``chip_smoke.FLASH_SMALL``,
+B=1 S=2048 GQA 32/8 causal, no served model; bound the larger of the
+tensor cores' operations and one exp2 a visible pair
+(``chip_smoke.exp2_ms``); the backward's device
+time by kernel), the float32 forward and backward (``--only
 flash_f32``: ``chip_smoke.FLASH_F32_SHAPES``, smollm-360m's training shape,
 Llama's widths and the small row, beside SDPA's float32 calls and both
 bounds), phase 17d's float32 training steps (``--only train_f32``:
@@ -26,7 +31,7 @@ Llama-3-8B's decode shapes (``chip_smoke.max_err``, ``seq_err`` and
 1000 and 2048) and Zamba2's widths (ssd, H=64, T=2048), bf16 q/k/v,
 float32 log_w and u, and the float32 kernel at RWKV6's T=2048 with
 float32 q/k/v (``chip_smoke.GLA_TOL`` and ``gla_times``). ``--only`` picks
-some of the six (default: all). Listing
+some of the seven (default: all). Listing
 the trees as parent, change, change, parent shows the card's drift within
 the call. One JSON line per (tree, shape); a kernel that disagrees with
 its plain version exits non-zero.
@@ -49,7 +54,8 @@ GLA_SHAPES = (("rwkv", 32, 128, "bfloat16"), ("rwkv", 32, 1000, "bfloat16"),
               ("rwkv", 32, 2048, "float32"))  # (mode, H, T, q/k/v) at B = 1, K = V = 64
 
 
-KERNELS = ("flash", "flash_bwd", "flash_f32", "train_f32", "decode", "gla")
+KERNELS = ("flash", "flash_bwd", "flash_small", "flash_f32", "train_f32", "decode",
+           "gla")
 
 
 def one(src: Path, only):
@@ -83,6 +89,23 @@ def flash_bwd(cs, src: Path):
         row.update(cs.flash_bwd_case(B, S, H, KV, D, dtype, causal, window, gen,
                                      timed=True))
         print(json.dumps(row), flush=True)
+
+
+def flash_small(cs, src: Path):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, S, H, KV = cs.FLASH_SMALL
+    for D in cs.SMALL_D:
+        for way in ("forward", "backward"):
+            row = dict(src=str(src), kernel=f"flash_attention bf16 {way}", B=B, S=S,
+                       H=H, KV=KV, D=D, causal=True, window=None)
+            if way == "forward":
+                row.update(cs.flash_case(B, S, H, KV, D, torch.bfloat16, True, None,
+                                         gen, timed=True))
+            else:
+                row.update(cs.flash_bwd_case(B, S, H, KV, D, torch.bfloat16, True,
+                                             None, gen, timed=True, by_kernel=True))
+            print(json.dumps(row), flush=True)
 
 
 def flash_f32(cs, src: Path):

@@ -18,9 +18,10 @@ result:
    shapes, each timed with CUDA events beside its bound, its plain version
    and, for attention, ``scaled_dot_product_attention`` (a yardstick the
    port never calls; no PyTorch call computes the GLA scan); every flash
-   and decode case names the path that ran it (``wgmma``, ``wgmma.3xtf32``,
-   ``mma.sync`` or ``fma``; a float32 flash case is held against the plain
-   version evaluated in float64) and every gla_scan case its route (``mma`` or ``fma``); the
+   and decode case names the path that ran it (flash: ``wgmma``,
+   ``wgmma.3xtf32`` or ``fma``; decode: ``mma.sync`` or ``fma``; a float32
+   flash case is held against the plain version evaluated in float64) and
+   every gla_scan case its route (``mma`` or ``fma``); the
    flash wgmma, decode mma.sync and gla_scan mma paths' own case lists run
    too (gla: strong, extreme and RWKV6-floor decays); the served attention
    and gla_scan shapes are also timed from a CUDA graph (device time
@@ -45,9 +46,14 @@ result:
    forward at smollm-360m's H=15/KV=5; float32 forward and backward at
    smollm-360m's training shape, Llama's widths and the small row
    (``FLASH_F32_SHAPES``) beside SDPA's float32 calls, their bound at the
-   3xTF32 rate and at float32's FMA rate; and, for the next redesign's
-   ranking, the float32 decode at Llama-3-8B's decode shape and the bf16
-   D=32 flash forward and backward;
+   3xTF32 rate and at float32's FMA rate; the small head dims (16, 32, 48,
+   no served model) at B=1 S=2048 GQA 32/8 causal, bf16 (wgmma) and
+   float32 (FMA), forward and backward; every bf16 flash row's bound is the
+   larger of its tensor-core operations and its exp2 (one a visible pair,
+   split between the special-function units and a cubic on the FMA
+   pipes), both printed, with the special-function units' time alone and
+   SDPA's backward timed from a CUDA graph too; and, for the next
+   redesign's ranking, the float32 decode at Llama-3-8B's decode shape;
 4. Llama-3-8B at full width served through the launcher
    (``repro_torch.launch.serve.main``);
 5. the main path: Llama-3-8B at full width served by ``ServingEngine`` with
@@ -141,6 +147,19 @@ import torch  # noqa: E402
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12    # H100 SXM dense TF32 tensor-core rate
+# H100 SXM per SM and clock (the CUDA programming guide's throughput table,
+# compute capability 9.0): exp2 on the special-function units 16, float32
+# add, multiply and FMA 128; 132 SMs at the 1.83 GHz that gives the bf16
+# peak above
+SM_CLOCKS_PER_S = 132 * 1.83e9
+SFU_PER_CLOCK, FMA_PER_CLOCK = 16, 128
+# An exp2 may instead run on the FMA pipes as a Cody-Waite cubic
+# (FlashAttention-4's softmax): a round-to-integer add, two subtractions
+# and three FMA (the exponent's shift and add go to the integer pipe). Each
+# visible pair also takes at least two FMA-pipe instructions beside its
+# exp2: the scaling FMA and the row sum's add (forward), the scaling FMA
+# and dS's product (backward).
+POLY_EXP2_FMAS, SOFTMAX_FMAS = 6, 2
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 ARCH = "llama3-8b"
 RWKV_ARCH = "rwkv6-1.6b"
@@ -162,8 +181,11 @@ FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 DECODE_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
 GLA_REPLACES = "src/repro/kernels/gla_scan/kernel.py:103"
 GLA_SOURCE = "src/repro_torch/kernels/gla_scan/csrc/gla_scan.cu"
-# the wgmma flash path's cases, as in tests/test_torch_card.py
+# the wgmma flash path's cases, as in tests/test_torch_card.py: bf16 at
+# every head dim, float32 (3xTF32) from 64
 WGMMA_D = (64, 80, 96, 112, 128)
+SMALL_D = (16, 32, 48)
+WGMMA_D_OF = {torch.bfloat16: SMALL_D + WGMMA_D, torch.float32: WGMMA_D}
 WGMMA_S = (1, 63, 64, 127, 128, 129, 1000, 2048)
 WGMMA_MASKS = ((True, None), (True, 64), (True, 1000), (False, None))
 # the decode mma.sync path's cases, as in tests/test_torch_card.py: W = 1024,
@@ -223,6 +245,9 @@ FLASH_F32_SHAPES = {
     "smollm": (TRAIN_BATCH, TRAIN_SEQ, 15, 5, 64, torch.float32, True, None),
     "llama": (1, 2048, 32, 8, 128, torch.float32, True, None),
     "small": (1, 1024, 8, 2, 64, torch.float32, True, None)}
+# phase 3's small head dims and chip_ab.py --only flash_small: (B, S, H, KV)
+# of the rows at D = 16, 32 and 48, causal
+FLASH_SMALL = (1, 2048, 32, 8)
 # phase 17d: smollm-360m's widths trained in float32 at phase 17's batch
 F32_TRAIN_STEPS = 6
 F32_GRAD_TOL = 1e-4         # per leaf, relative Frobenius: the CPU parity tests'
@@ -259,18 +284,20 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 20) -> float:
+def graph_ms(fn, iters: int = 20, stream=None) -> float:
     """Mean milliseconds per call of ``fn`` replayed from a CUDA graph of
     ``iters`` calls: the device's time without the host's cost of each
-    launch, which bounds ``time_ms`` for small kernels."""
-    side = torch.cuda.Stream()
+    launch, which bounds ``time_ms`` for small kernels. ``stream``: the
+    capture stream, the one an autograd backward's forward ran on (its
+    backward ops run there)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     return time_ms(graph.replay, 5, warmup=1) / iters
@@ -368,12 +395,8 @@ def phase_build():
         if "registers" not in b.log:
             print(f"  {name}: library reused from an earlier build, "
                   "ptxas output not recorded")
-    for dtype, D in [(torch.bfloat16, 128), (torch.bfloat16, 64),
-                     (torch.bfloat16, 80), (torch.bfloat16, 96),
-                     (torch.bfloat16, 112), (torch.bfloat16, 32),
-                     (torch.float32, 64), (torch.float32, 80),
-                     (torch.float32, 96), (torch.float32, 112),
-                     (torch.float32, 128), (torch.float32, 32)]:
+    for dtype, D in [(torch.bfloat16, D) for D in SMALL_D + WGMMA_D] + [
+            (torch.float32, D) for D in SMALL_D + WGMMA_D]:
         path, smem = kernel_route(dtype, D)
         print(f"  flash_attention route {dtype} D={D}: {path}, {smem} bytes "
               "dynamic smem per CTA")
@@ -399,9 +422,9 @@ def phase_build():
 
 
 def kernel_label(mangled: str) -> str:
-    """``_ZN<n>_GLOBAL__N_...22flash_fwd_wgmma_kernelILi128EE...`` ->
-    ``flash_fwd_wgmma_kernel<128>``: the last name of a mangled (possibly
-    nested) function name and its integer template arguments."""
+    """``_ZN<n>_GLOBAL__N_...22flash_fwd_wgmma_kernelILi128ELb0EE...`` ->
+    ``flash_fwd_wgmma_kernel<128, 0>``: the last name of a mangled (possibly
+    nested) function name and its integer and bool template arguments."""
     i = mangled.find("_Z")
     if i < 0:
         return mangled[:60]
@@ -413,10 +436,10 @@ def kernel_label(mangled: str) -> str:
         names.append(mangled[start:i])
     if not names:
         return mangled[:60]
-    args = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[i:])
     if not args:
         return names[-1]
-    ints = re.findall(r"Li(\d+)E", args.group(1))
+    ints = re.findall(r"L[ib](\d+)E", args.group(1))
     return f"{names[-1]}<{', '.join(ints)}>"
 
 
@@ -456,16 +479,47 @@ def flash_case(B, S, H, KV, D, dtype, causal, window, gen, timed=False,
         library = lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=True)
-        flops = 4.0 * D * H * B * visible_pairs(S, causal, window)
+        pairs = H * B * visible_pairs(S, causal, window)
+        flops = 4.0 * D * pairs
         nbytes = (2 * B * S * H * D + 2 * B * S * KV * D) * q.element_size()
         row.update(ms=time_ms(kernel, 20), plain_ms=time_ms(plain, 5),
                    library_ms=time_ms(library, 20), graph_ms=graph_ms(kernel),
                    library_graph_ms=graph_ms(library))
-        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
-        if dtype == torch.float32:   # 3xTF32's bound, the FMA rate's beside it
-            row["bound_fma_ms"] = row["bound_ms"]
-            row["bound_ms"], row["bound_by"] = tf32x3_bound(flops, nbytes)
+        flash_bound(row, flops, nbytes, pairs, dtype)
     return row
+
+
+def flash_bound(row, flops, nbytes, exp2s, dtype):
+    """A flash row's ``bound_ms``. bf16: the larger of the tensor cores'
+    operations (``bound_ops_ms``), ``exp2s`` exp2 (``bound_exp2_ms``; one a
+    visible pair, the least the softmax needs; ``exp2_ms``) and the bytes;
+    ``bound_term`` names the larger (``bound_by`` keeps the contract's
+    "operations" for exp2). ``sfu_exp2_ms`` beside: the same exp2 on the
+    special-function units alone. float32: three TF32 products a flop
+    (3xTF32), the FMA rate's time beside it (``bound_fma_ms``)."""
+    if dtype == torch.float32:
+        row["bound_fma_ms"] = bound(flops, nbytes, dtype)[0]
+        row["bound_ms"], row["bound_by"] = tf32x3_bound(flops, nbytes)
+        return
+    terms = {"operations": flops / PEAK_BF16_FLOPS * 1e3,
+             "exp2": exp2_ms(exp2s), "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    row["bound_ops_ms"], row["bound_exp2_ms"] = terms["operations"], terms["exp2"]
+    row["sfu_exp2_ms"] = exp2s / (SFU_PER_CLOCK * SM_CLOCKS_PER_S) * 1e3
+    row["bound_term"] = max(terms, key=terms.get)
+    row["bound_ms"] = terms[row["bound_term"]]
+    row["bound_by"] = "bytes" if row["bound_term"] == "bytes" else "operations"
+
+
+def exp2_ms(exp2s: float) -> float:
+    """Least ms for ``exp2s`` exp2, each with SOFTMAX_FMAS other FMA-pipe
+    instructions: a share ``f`` of the exp2 runs as the cubic on the FMA
+    pipes and the rest on the special-function units, ``f`` chosen so that
+    both finish together (or 0 when the FMA pipes bind without it)."""
+    f = max(0.0, (FMA_PER_CLOCK / SFU_PER_CLOCK - SOFTMAX_FMAS)
+            / (FMA_PER_CLOCK / SFU_PER_CLOCK + POLY_EXP2_FMAS))
+    clocks = max((1 - f) / SFU_PER_CLOCK,
+                 (SOFTMAX_FMAS + f * POLY_EXP2_FMAS) / FMA_PER_CLOCK)
+    return exp2s * clocks / SM_CLOCKS_PER_S * 1e3
 
 
 def visible_pairs(S: int, causal: bool, window) -> float:
@@ -478,13 +532,17 @@ def visible_pairs(S: int, causal: bool, window) -> float:
 
 
 def flash_bwd_case(B, S, H, KV, D, dtype, causal, window, gen, timed=False,
-                   amp=1):
+                   amp=1, by_kernel=False):
     """The backward kernels (and the forward's lse) against their plain
     versions, fed the kernel forward's o and lse; two launches bit-identical.
-    ``timed``: eager and graph ms, the bound (10 D flops per visible pair and
-    head), the plain backward's ms and SDPA's backward alone (autograd.grad
-    with retain_graph on one retained SDPA forward); beside them the
-    forward's eager ms without lse (serving's) and with it (training's)."""
+    ``timed``: eager and graph ms, the bound (10 D flops and one exp2 per
+    visible pair and head; bf16 rows also print ``design_exp2_ms``, the two
+    exp2 a pair of the two kernels that each recompute P), the plain
+    backward's ms and SDPA's backward alone (autograd.grad with
+    retain_graph on one retained SDPA forward; eager and from a CUDA graph
+    captured on the forward's stream); beside them the
+    forward's eager ms without lse (serving's) and with it (training's);
+    ``by_kernel``: the backward's device ms by kernel (``torch.profiler``)."""
     from repro_torch.kernels.flash_attention import (
         attention_backward_reference, attention_forward_reference,
         flash_attention, flash_attention_bwd, flash_attention_fwd)
@@ -530,25 +588,32 @@ def flash_bwd_case(B, S, H, KV, D, dtype, causal, window, gen, timed=False,
             pos = torch.arange(S, device="cuda")
             mask = (pos[None, :] > pos[:, None] - window) & (
                 pos[None, :] <= pos[:, None] if causal else True)
-        sdpa = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
-            enable_gqa=True)
+        fwd_stream = torch.cuda.Stream()   # SDPA's backward is captured there
+        fwd_stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(fwd_stream):
+            sdpa = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True)
+        torch.cuda.current_stream().wait_stream(fwd_stream)
         g = tr(do).contiguous()
         library = lambda: torch.autograd.grad(sdpa, (qt, kt, vt), g,
                                               retain_graph=True)
-        flops = 10.0 * D * H * B * visible_pairs(S, causal, window)
+        pairs = H * B * visible_pairs(S, causal, window)
+        flops = 10.0 * D * pairs
         nbytes = ((4 * B * S * H * D + 4 * B * S * KV * D) * q.element_size()
                   + 2 * B * H * S * 4)    # q, o, do, dq; k, v, dk, dv; lse, delta
         row.update(ms=time_ms(kernel, 10), plain_ms=time_ms(plain, 3, warmup=1),
                    library_ms=time_ms(library, 10), graph_ms=graph_ms(kernel, 10),
+                   library_graph_ms=graph_ms(library, 10, stream=fwd_stream),
                    fwd_ms=time_ms(lambda: flash_attention(
                        q, k, v, causal=causal, window=window), 20),
                    fwd_lse_ms=time_ms(lambda: flash_attention_fwd(
                        q, k, v, causal=causal, window=window), 20))
-        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
-        if dtype == torch.float32:   # 3xTF32's bound, the FMA rate's beside it
-            row["bound_fma_ms"] = row["bound_ms"]
-            row["bound_ms"], row["bound_by"] = tf32x3_bound(flops, nbytes)
+        flash_bound(row, flops, nbytes, pairs, dtype)
+        if dtype == torch.bfloat16:
+            row["design_exp2_ms"] = exp2_ms(2 * pairs)
+        if by_kernel:
+            row["by_kernel"] = device_ms_by_kernel(kernel)
         del sdpa
     return row
 
@@ -727,6 +792,13 @@ def fmt(row: dict) -> str:
                   f"of_bound={row['bound_ms'] / row['ms']:.3f}"]
         if "bound_fma_ms" in row:
             parts.append(f"bound_fma_ms={row['bound_fma_ms']:.4f}")
+        if "bound_exp2_ms" in row:
+            parts.append(f"bound_term={row['bound_term']} "
+                         f"bound_ops_ms={row['bound_ops_ms']:.4f} "
+                         f"bound_exp2_ms={row['bound_exp2_ms']:.4f} "
+                         f"sfu_exp2_ms={row['sfu_exp2_ms']:.4f}")
+        if "design_exp2_ms" in row:
+            parts.append(f"design_exp2_ms={row['design_exp2_ms']:.4f}")
     if "graph_ms" in row:
         parts.append(f"graph_ms={row['graph_ms']:.4f}")
         if "library_graph_ms" in row:
@@ -760,12 +832,12 @@ def phase_kernels() -> dict:
             print(f"decode sweep B={B} W={W} H={H} KV={KV} D={D} {dtype}: "
                   f"{fmt(row)}")
     print("-- flash, the wgmma paths' cases (tests/test_torch_card.py: bf16 "
-          "and float32 (3xTF32), "
-          f"D {'/'.join(map(str, WGMMA_D))}, H=8, GQA groups 1/4/8, B 1 and 2, "
-          "causal / window 64 / window 1000 / non-causal, q x1 and x8), max "
-          "error per (dtype, D, S)")
+          f"at D {'/'.join(map(str, WGMMA_D_OF[torch.bfloat16]))} and float32 "
+          f"(3xTF32) at D {'/'.join(map(str, WGMMA_D))}, H=8, GQA groups 1/4/8, "
+          "B 1 and 2, causal / window 64 / window 1000 / non-causal, q x1 and "
+          "x8), max error per (dtype, D, S)")
     for dtype in (torch.bfloat16, torch.float32):
-        for D in WGMMA_D:
+        for D in WGMMA_D_OF[dtype]:
             for S in WGMMA_S:
                 worst, paths, n = 0.0, set(), 0
                 for B in (1, 2):
@@ -855,6 +927,7 @@ def phase_kernels() -> dict:
     rows["flash_smollm"] = row
     rows.update(phase_flash_backward(gen))
     rows.update(flash_f32_rows(gen))
+    rows.update(flash_small_rows(gen))
     rows.update(unranked_rows(gen))
 
     print("-- gla_scan: the tests/test_kernels.py sweep (float32 tol 2e-4, "
@@ -925,8 +998,8 @@ def phase_kernels() -> dict:
 
 def phase_flash_backward(gen) -> dict:
     """Phase 3's backward part: the tests' grid, then the training shapes."""
-    print("-- flash backward (tests/test_torch_card.py: float32 wgmma.3xtf32 "
-          "and bf16 wgmma at D 64-128, fma and mma.sync below; H=6, GQA groups "
+    print("-- flash backward (tests/test_torch_card.py: bf16 wgmma at every D, "
+          "float32 wgmma.3xtf32 at D 64-128 and fma below; H=6, GQA groups "
           "1/3/6, B=2, S "
           "1/63/65/127/128/129/200/257, causal / window 64 / window 100 / "
           "non-causal / non-causal window 50), worst error of each "
@@ -982,12 +1055,36 @@ def flash_f32_rows(gen) -> dict:
     return rows
 
 
+def flash_small_rows(gen) -> dict:
+    """The head dims below 64 (no served model) at FLASH_SMALL, causal:
+    bf16 forward and backward (the wgmma kernels; the backward's device time
+    by kernel beside it: delta, dK/dV, dQ) and float32 forward and backward
+    (the FMA kernels), each beside SDPA's call in its dtype."""
+    B, S, H, KV = FLASH_SMALL
+    print(f"-- flash at the small head dims, B={B} S={S} H={H} KV={KV} causal: "
+          "bf16 (bound_ms the larger of bound_ops_ms and bound_exp2_ms, "
+          "bound_term the larger; the backward's design_exp2_ms: P computed "
+          "by both kernels) and float32 "
+          "(bound_ms at 3xTF32, bound_fma_ms at the FMA rate)")
+    rows = {}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for D in SMALL_D:
+            args = (B, S, H, KV, D, dtype, True, None)
+            row = flash_case(*args, gen, timed=True)
+            print(f"flash {name} D={D} forward: {fmt(row)}")
+            rows[f"flash_{name}_d{D}"] = row
+            row = flash_bwd_case(*args, gen, timed=True,
+                                 by_kernel=dtype == torch.bfloat16)
+            print(f"flash {name} D={D} backward: {fmt(row)}")
+            rows[f"flash_bwd_{name}_d{D}"] = row
+    return rows
+
+
 def unranked_rows(gen) -> dict:
     """Kernels timed here for their first rows in PERF.md: the float32 decode
-    (split and combine) at Llama-3-8B's decode shape, and the bf16 D=32
-    mma.sync forward and backward."""
+    (split and combine) at Llama-3-8B's decode shape."""
     print("-- rows for the next redesign's ranking: float32 decode at B=8 "
-          "W=4096 H=32 KV=8 D=128, bf16 flash D=32 forward and backward")
+          "W=4096 H=32 KV=8 D=128")
     rows = {}
     ragged = torch.linspace(1, 4096, 8).round().int()
     row = decode_case(8, 4096, 32, 8, 128, torch.float32, ragged, None, gen,
@@ -995,13 +1092,6 @@ def unranked_rows(gen) -> dict:
     print(f"decode float32 B=8 W=4096 H=32 KV=8 D=128 lengths="
           f"{ragged.tolist()}: {fmt(row)}")
     rows["decode_f32"] = row
-    args = (1, 2048, 32, 8, 32, torch.bfloat16, True, None)
-    row = flash_case(*args, gen, timed=True)
-    print(f"flash bf16 D=32 forward B=1 S=2048 H=32 KV=8 causal: {fmt(row)}")
-    rows["flash_d32"] = row
-    row = flash_bwd_case(*args, gen, timed=True)
-    print(f"flash bf16 D=32 backward B=1 S=2048 H=32 KV=8 causal: {fmt(row)}")
-    rows["flash_bwd_d32"] = row
     return rows
 
 

@@ -24,24 +24,34 @@
 // What bounds it on this card. Causal prefill does about 4 * S^2 * D * H / 2
 // FLOP on S * D * (2H + 2KV) elements of input and output: at S >= ~512 the
 // work is far above the H100's ~295 FLOP/byte ridge, so it is bound by
-// operations, and only wgmma reaches the tensor cores' full rate. Three
-// kernels, chosen by (dtype, D) in flash_attention_fwd:
-//   - bfloat16 at D = 64, 80, 96, 112 and 128 (Llama-3-8B and the other served
-//     D = 128 models, Zamba2's D = 64, HuBERT's, phi-2's and h2o-danube's
-//     D = 80): flash_fwd_wgmma_kernel, Hopper's shape (FlashAttention-3's). It
-//     replaces, at these head dims, the mma.sync kernel below, and behind it
-//     flash_attention_pallas. A work item is one (batch, head, 128-query tile);
-//     the grid is persistent, one CTA per SM walking its items heaviest first,
-//     so the next item's loads overlap this item's last tiles instead of every
-//     CTA paying its load latency and pipeline fill alone. A CTA has three
+// operations, and only wgmma reaches the tensor cores' full rate. But each
+// visible (query, key) pair also costs one exp2, and the special-function
+// units do 16 a clock per SM against the tensor cores' ~4,096 bf16 flops:
+// on those units alone the exp2 take as long as the 4 D flops at D = 64,
+// and 2x as long at 32, 4x at 16. Run partly as a cubic on the FMA pipes
+// (128 a clock per SM; ~6 instructions an exp2 beside the softmax's ~2 a
+// pair), the exp2 can take ~0.57x of that time, as long as the flops at
+// D ~ 37: below it the softmax, not the products, bounds the kernel.
+// Three kernels, chosen by (dtype, D) in flash_attention_fwd:
+//   - bfloat16 at every D (16 to 128 in steps of 16; Llama-3-8B and the other
+//     served D = 128 models, Zamba2's D = 64, HuBERT's, phi-2's and
+//     h2o-danube's D = 80; no served model below 64):
+//     flash_fwd_wgmma_kernel, Hopper's shape (FlashAttention-3's). It
+//     replaces flash_attention_pallas. A work item is one (batch, head,
+//     128-query tile); the grid is persistent, one CTA per SM walking its
+//     items heaviest first, so the next item's loads overlap this item's
+//     last tiles instead of every CTA paying its load latency and pipeline
+//     fill alone. A CTA has three
 //     warpgroups. The producer warpgroup gives its registers up (setmaxnreg) and
 //     one of its threads loads Q (two buffers: this item's and the next's) and
 //     K/V tiles of 128 keys into a 2-stage ring in shared memory with TMA
 //     (cp.async.bulk.tensor over 4-D maps (D, heads, S, B), 128-byte swizzle, so
-//     a tile is one 64-column box at D = 64 and two from D = 80 to 128: at
-//     D < 128 the second box is padded in shared memory by TMA's zero fill, not
-//     in device memory, and the products issue only the D real columns: D / 16
-//     k-steps of Q K^T, an n = D product for P V). Each stage has "full" and
+//     a tile is one 64-column box up to D = 64 and two from D = 80 to 128: a
+//     box past D (the whole box's tail below 64, the second box's at 80 to
+//     112) is filled with zeros in shared memory by TMA, not read from device
+//     memory, and the products issue only the D real columns: D / 16 k-steps
+//     of Q K^T, an n = D product for P V, which at D = 16, 32 and 48 reads
+//     the first D columns of each 128-byte swizzle atom). Each stage has "full" and
 //     "empty" mbarriers for K and for V apart, so Q K^T starts before V lands
 //     and the next K loads as soon as Q K^T is done: loads run ahead of the
 //     tensor cores instead of fencing every tile with __syncthreads. Two
@@ -54,16 +64,18 @@
 //     (setmaxnreg; ptxas reports the 168 of the launch). Below D = 128 the
 //     softmax weighs as much as the products: a tile's 128 x 128 scores are
 //     16,384 exp2 on 16 special-function lanes per SM, ~1,000 cycles, against
-//     ~1,300 cycles of tensor-core work at D = 80. Softmax runs in exp2 on scores
+//     ~1,300 cycles of tensor-core work at D = 80, ~500 at D = 32 and ~250 at
+//     16. Softmax runs in exp2 (ex2.approx, one instruction) on scores
 //     pre-scaled by scale * log2(e); the causal, window and kpos < S masks run
 //     only on tiles that cross a boundary (zero-filled keys past S score 0, so
 //     the last tile is masked). Output is stored from registers, rows past S
 //     unwritten. The tensor maps are built on the host for each call.
-//   - bfloat16 at D = 16, 32 and 48 (no served model): each warp owns 16 query
-//     rows and runs both products with mma.sync m16n8k16 (bf16 in, float32
-//     accumulate); the score accumulators are reused in registers as the A
-//     operand of P V, as in FlashAttention-2. Loads are synchronous and
-//     single-buffered.
+//     At D = 16, 32 and 48 (where it replaced an mma.sync m16n8k16 kernel
+//     with synchronous, single-buffered loads and expf on every score) the
+//     kernel stays well above that floor: on an H100 the causal forward at
+//     S = 2048, GQA 32/8, D = 32 ran 0.046 ms against 0.017 for the exp2 on
+//     the special-function units alone. Every exp2 here is ex2.approx; what
+//     holds the kernel between the floor and its time is not yet measured.
 //   - float32 at D = 64, 80, 96, 112 and 128 (float32 models, training in
 //     float32): flash_fwd_tf32_kernel, the same shape on the tensor cores in
 //     TF32 with every operand split into a hi and a lo part (3xTF32; see
@@ -266,269 +278,14 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16), FlashAttention-2 register layout
+// bfloat16: TMA ring, warp-specialised wgmma
 // ---------------------------------------------------------------------------
-
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows = BQ
-constexpr int PAD = 8;            // smem row padding (elements): conflict-free fragments
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
-
-// c += a (16x16, row) * b (16x8, col); bf16 inputs, float32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices, transposed: from a row-major [k][n] tile, the B
-// fragments (k16 x n8) of two neighbouring n8 tiles.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// Copy rows [row0, row0 + rows) of a (S, heads, D) tensor at head `head`
-// into a [rows][D + PAD] smem tile, 16 bytes per thread per step; rows past
-// S are zero (a zero V row times a zero probability stays zero).
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          size_t row_stride, int row0,
-                                          int rows, int S) {
-  constexpr int CHUNKS = D / 8;
-  for (int i = threadIdx.x; i < rows * CHUNKS; i += MMA_THREADS) {
-    const int r = i / CHUNKS, c = (i - r * CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + PAD) + c) = val;
-  }
-}
-
-constexpr size_t mma_smem_bytes(int D) {
-  return sizeof(__nv_bfloat16) * (size_t)(BQ + 2 * BK) * (D + PAD);
-}
-
-// q, o: (B, S, H, D); k, v: (B, S, KV, D); bf16, contiguous. With LSE, lse
-// (B, H, S) float32 as in flash_fwd_f32_kernel.
-// grid: (ceil(S / BQ), H, B); block: MMA_THREADS; dynamic smem: mma_smem_bytes(D).
-template <int D, bool LSE>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ o, int S, int H, int KV,
-                      float scale, int causal, int window,
-                      float* __restrict__ lse) {
-  constexpr int LDS = D + PAD;
-  constexpr int KT = D / 16;   // k-steps of Q K^T over the head dim
-  constexpr int NT = BK / 8;   // n8 tiles of scores (keys)
-  constexpr int DT = D / 8;    // n8 tiles of the output (channels)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LDS]
-  __nv_bfloat16* Ks = Qs + BQ * LDS;                               // [BK][LDS]
-  __nv_bfloat16* Vs = Ks + BK * LDS;                               // [BK][LDS]
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;  // mma fragment row group, column pair
-
-  const size_t q_row = (size_t)H * D, kv_row = (size_t)KV * D;
-  const __nv_bfloat16* qb = q + (size_t)b * S * q_row + (size_t)h * D;
-  const __nv_bfloat16* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
-  const __nv_bfloat16* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
-
-  load_tile<D>(Qs, qb, q_row, q0, BQ, S);
-  __syncthreads();
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  uint32_t qa[KT][4];
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    const __nv_bfloat16* p = Qs + r0 * LDS + kk * 16 + tig * 2;
-    qa[kk][0] = ld_u32(p);
-    qa[kk][1] = ld_u32(p + 8 * LDS);
-    qa[kk][2] = ld_u32(p + 8);
-    qa[kk][3] = ld_u32(p + 8 * LDS + 8);
-  }
-
-  float oacc[DT][4];
-#pragma unroll
-  for (int t = 0; t < DT; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[t][e] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // rows r0, r0 + 8
-  const int qpos0 = q0 + r0, qpos1 = qpos0 + 8;
-
-  int k_begin = 0, k_end = S;
-  if (causal) k_end = min(S, q0 + BQ);
-  if (window > 0) k_begin = max(0, q0 - window + 1);
-  k_begin = (k_begin / BK) * BK;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(Ks, kb, kv_row, k0, BK, S);
-    load_tile<D>(Vs, vb, kv_row, k0, BK, S);
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x 64 keys per warp
-    float sacc[NT][4];
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[t][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk)
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const __nv_bfloat16* p = Ks + (t * 8 + g) * LDS + kk * 16 + tig * 2;
-        mma_bf16(sacc[t], qa[kk], ld_u32(p), ld_u32(p + 8));
-      }
-
-    // mask and scale; element e of tile t: row r0 + 8 * (e >> 1),
-    // key k0 + 8 t + 2 tig + (e & 1)
-    float mx0 = NEG_INF, mx1 = NEG_INF;
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + t * 8 + tig * 2 + (e & 1);
-        const int qp = (e < 2) ? qpos0 : qpos1;
-        const bool ok = key < S && (!causal || key <= qp) &&
-                        (window <= 0 || key > qp - window);
-        sacc[t][e] = ok ? sacc[t][e] * scale : NEG_INF;
-        if (e < 2) mx0 = fmaxf(mx0, sacc[t][e]);
-        else mx1 = fmaxf(mx1, sacc[t][e]);
-      }
-    // a row's 64 scores lie in the 4 lanes of its quad
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // masked scores (NEG_INF) contribute nothing, also while a row has
-        // no unmasked score yet
-        const float s = sacc[t][e];
-        const float p = s > 0.5f * NEG_INF ? expf(s - (e < 2 ? mn0 : mn1)) : 0.f;
-        sacc[t][e] = p;
-        if (e < 2) rs0 += p;
-        else rs1 += p;
-      }
-    l0 = l0 * alpha0 + rs0;  // per-lane partial sums; the quad is summed at the end
-    l1 = l1 * alpha1 + rs1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int t = 0; t < DT; ++t) {
-      oacc[t][0] *= alpha0;
-      oacc[t][1] *= alpha0;
-      oacc[t][2] *= alpha1;
-      oacc[t][3] *= alpha1;
-    }
-
-    // O += P V: the score accumulators of key tiles 2j and 2j + 1 are the A
-    // fragment of keys [16 j, 16 j + 16)
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(sacc[2 * j][0], sacc[2 * j][1]),
-                              pack_bf16(sacc[2 * j][2], sacc[2 * j][3]),
-                              pack_bf16(sacc[2 * j + 1][0], sacc[2 * j + 1][1]),
-                              pack_bf16(sacc[2 * j + 1][2], sacc[2 * j + 1][3])};
-      const __nv_bfloat16* vrow =
-          Vs + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + (lane >> 4) * 8;
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vrow + dp * 16);
-        mma_bf16(oacc[2 * dp], pa, vf[0], vf[1]);
-        mma_bf16(oacc[2 * dp + 1], pa, vf[2], vf[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.f / fmaxf(l0, 1e-37f), inv1 = 1.f / fmaxf(l1, 1e-37f);
-  __nv_bfloat16* o0 = o + ((size_t)b * S + qpos0) * q_row + (size_t)h * D + tig * 2;
-  __nv_bfloat16* o1 = o0 + 8 * q_row;
-#pragma unroll
-  for (int t = 0; t < DT; ++t) {
-    if (qpos0 < S)
-      *reinterpret_cast<uint32_t*>(o0 + t * 8) = pack_bf16(oacc[t][0] * inv0, oacc[t][1] * inv0);
-    if (qpos1 < S)
-      *reinterpret_cast<uint32_t*>(o1 + t * 8) = pack_bf16(oacc[t][2] * inv1, oacc[t][3] * inv1);
-  }
-  if constexpr (LSE) {
-    // m is the quad's, l now its whole-row sum
-    float* lrow = lse + ((size_t)b * H + h) * S;
-    if (tig == 0 && qpos0 < S) lrow[qpos0] = m0 + logf(l0);
-    if (tig == 0 && qpos1 < S) lrow[qpos1] = m1 + logf(l1);
-  }
-}
-
-template <int D, bool LSE>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        float* lse, int B, int S, int H, int KV, float scale,
-                        int causal, int window, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_bf16_kernel<D, LSE><<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      H, KV, scale, causal, window, lse);
-  return cudaGetLastError();
-}
-
-template <bool LSE>
-cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
-                          float* lse, int B, int S, int H, int KV, int D,
-                          float scale, int causal, int window,
-                          cudaStream_t stream) {
-  switch (D) {
-#define REPRO_FLASH_CASE(DD) \
-  case DD: return launch_bf16<DD, LSE>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, stream);
-    // D = 64..128 run flash_fwd_wgmma_kernel (see route)
-    REPRO_FLASH_CASE(16) REPRO_FLASH_CASE(32) REPRO_FLASH_CASE(48)
-#undef REPRO_FLASH_CASE
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// bfloat16 at head_dim 64 and 128: TMA ring, warp-specialised wgmma
-// ---------------------------------------------------------------------------
 
 constexpr int WG_BQ = 128;           // query rows per CTA: two consumer warpgroups of 64
 constexpr int WG_BK = 128;           // keys per KV tile (the N of Q K^T's wgmma)
@@ -545,9 +302,12 @@ constexpr float LN2 = 0.6931471805599453f;
 // (K tile, V tile), then the barriers. A tile is NB = ceil(D / 64) boxes of
 // [rows][64 columns], each row 128 bytes, 128-byte swizzled by TMA in
 // 1024-byte atoms of 8 rows. At D = 80, 96 and 112 the second box holds
-// columns 64..D-1 and TMA zero-fills the rest (the map's width is D), so
-// device memory is read for D columns only; the products never read the
-// fill: Q K^T takes D / 16 k-steps and P V an n = D product.
+// columns 64..D-1 and TMA zero-fills the rest (the map's width is D); at
+// D = 16, 32 and 48 the one box holds columns 0..D-1 and the fill. Device
+// memory is read for D columns only, and the products never read the fill:
+// Q K^T takes D / 16 k-steps and P V an n = D product. An MN-major n = 16,
+// 32 or 48 inside one 128-byte swizzle atom reads correctly on the card,
+// so the small head dims need no 32- or 64-byte swizzle mode.
 template <int D>
 struct WgSmem {
   static constexpr int NB = (D + BOX_COLS - 1) / BOX_COLS;
@@ -687,13 +447,48 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
 // d (64 x N, float32) += A (64 x 16, registers) * B (16 x N, shared memory,
 // MN-major: the last immediate, trans-b, is 1), N = D, the head dim. At
 // D = 80, 96 and 112 the N columns span one full 64-column swizzle atom and
-// part of the next (lbo further on).
+// part of the next (lbo further on); at D = 16, 32 and 48 they are the first
+// D columns of each atom.
 #define ACC8(i)                                                     \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : ACC8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float (&d)[24], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+      "%17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 template <>
 __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
                                              uint64_t db) {
@@ -1133,25 +928,36 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 //   dS = P (dP - delta) scale, dQ = dS k, dK = dS^T q, dV = P^T dO,
 // with dK and dV summed over the G query heads of each KV head. P is
 // recomputed from lse tile by tile, so no S x S tensor is ever stored.
-// Three launches: flash_bwd_delta_kernel (one warp per (b, s, h) row), a
-// dK/dV kernel and a dQ kernel. Every output element is summed by one
-// thread in a fixed order, so two launches on the same inputs are
-// bit-identical. Masks are the forward's: causal kpos <= qpos, window
-// kpos > qpos - window, kpos, qpos < S.
+// Three launches: flash_bwd_delta_kernel (one warp per (b, s, h) row; a
+// quarter warp at bf16's D < 64), a dK/dV kernel and a dQ kernel. Every
+// output element is summed by one thread in a fixed order, so two launches
+// on the same inputs are bit-identical. Masks are the forward's: causal
+// kpos <= qpos, window kpos > qpos - window, kpos, qpos < S.
 //
 // What bounds it: 10 D H flops a visible (query, key) pair (five products of
-// 2 D: S, dP, dV, dK, dQ) against the same few bytes as the forward, so
-// operations. Without atomics both kernels recompute S and dP: they issue
-// 14 D flops a pair, so they can reach at most 10 / 14 = 71% of the bound.
+// 2 D: S, dP, dV, dK, dQ) and one exp2 (P), against the same few bytes as
+// the forward, so operations: the tensor cores' at every D (one exp2 a pair
+// on the special-function units alone, 16 a clock per SM, takes as long as
+// 10 D flops at D = 25.6; split with a cubic on the FMA pipes, as the
+// forward's note counts it, at D ~ 15). Without atomics both kernels
+// recompute S and dP, and P: they issue 14 D flops and 2 exp2 a pair, so
+// they can reach at most 10 / 14 = 71% of the operations bound, and at
+// D = 16 and 32 the second exp2 sets the pace (2 exp2 a pair, all
+// ex2.approx here, take longer than 14 D flops below D = 37).
+// Computing P once would need dQ summed across the dK/dV kernel's CTAs
+// (float atomics: launches no longer bit-identical) or dS stored for a
+// separate dQ product (4 bytes a pair through device memory, ~4.6x the
+// second exp2's time); neither is taken, so the floor of this design is
+// 2 exp2 a pair.
 //
-// bf16 at D = 64, 80, 96, 112 and 128 (every trained head dim): Hopper's
+// bf16 at every D, 16 to 128 (64 and up: every trained head dim): Hopper's
 // shape, as the forward's (TMA ring, warp-specialised wgmma, persistent grid
 // heaviest first). A CTA is a producer warpgroup (setmaxnreg 24) and two
 // consumer warpgroups (240); products are wgmma with float32 accumulators.
 //   - flash_bwd_dkdv_wgmma_kernel: an item is one (batch, KV head, 64-key
 //     tile). One producer thread loads K and V once per item and, for each
 //     of the G heads, the query tiles the mask lets through (BQ = 128
-//     queries at D = 64, 64 above: registers) into a ring of Q and dO
+//     queries up to D = 64, 64 above: registers) into a ring of Q and dO
 //     tiles; the producer group's other three warps read each tile's lse
 //     and delta into the stage with ordinary loads, a stage each (a
 //     (B, H, S) row starts 16-byte aligned only when S % 4 == 0, which
@@ -1185,14 +991,20 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 //   and dQ are scaled once, at the store. Each step issues its products
 //   unconditionally (a wgmma under a branch serialises every wgmma of the
 //   kernel); the two groups' exp2 and products overlap each other's.
-// bf16 at D = 16, 32 and 48 (no trained model): mma.sync m16n8k16 with P and
-// dS re-packed to bf16 as A operands (FlashAttention-2's register reuse),
-// synchronous single-buffered loads. float32 at D = 64..128:
+// At D = 16, 32 and 48 (no trained model) a tile row is one 64-column box,
+// zero-filled by TMA past D, as in the forward: S^T, dP^T (and S, dP) take
+// D / 16 k-steps, the MN-major dO, Q and K the first D columns of each
+// swizzle atom. They replaced mma.sync m16n8k16 kernels with synchronous,
+// single-buffered loads and expf on every score. On an H100 at S = 2048,
+// GQA 32/8, causal, D = 32 the three launches take ~0.12 ms (dK/dV 0.062,
+// dQ 0.054, delta 0.005) against 0.035 for this design's 2 exp2 a pair on
+// the special-function units and 0.022 for the operations; what holds it
+// above them is not yet measured. float32 at
+// D = 64..128:
 // flash_bwd_dkdv_tf32_kernel and flash_bwd_dq_tf32_kernel, the bf16 kernels'
 // design in TF32 with the 3xTF32 split (below); at 16, 32 and 48 FMAs on
 // shared-memory tiles.
 
-constexpr int BWD_THREADS = 128;  // bf16: 4 warps x 16 rows
 constexpr int BWD_TILE = 64;      // keys per dK/dV CTA, queries per dQ CTA, keys per dQ step
 
 __device__ __forceinline__ bool visible(int kpos, int qpos, int S, int causal,
@@ -1218,283 +1030,37 @@ __device__ __forceinline__ void key_range(int q0, int S, int causal, int window,
   k_end = causal ? min(S, q0 + BWD_TILE) : S;
 }
 
-// o, dout: (B, S, H, D) rows; delta: (B, H, S) float32. One warp per row.
-template <typename T>
+// o, dout: (B, S, H, D) rows; delta: (B, H, S) float32. LANES threads a row:
+// a warp per row, or at bf16's D < 64 (a row of 32 to 96 bytes) a quarter
+// warp, so that the rows' loads are in flight together instead of leaving
+// most of each warp idle (at D = 16 on an H100: 0.0129 -> 0.0042 ms). The
+// rule is set by the bf16 rows it was measured on. float32 keeps a warp a
+// row at every D: its rows below D = 32 are as short, but its D <= 48
+// backward (the FMA kernels) takes milliseconds, where the delta pass is
+// noise, and its quarter-warp launch has not been timed.
+__host__ __device__ constexpr int delta_lanes(int dtype, int D) {
+  return dtype == 1 && D < 64 ? 8 : 32;
+}
+
+template <typename T, int LANES = 32>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                        float* __restrict__ delta, int rows, int S, int H, int D) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // whole warps
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / LANES;
+  const int lane = threadIdx.x % LANES;
+  if (LANES == 32 && row >= rows) return;  // whole warps
+  const bool in = row < rows;               // below 32: every lane shuffles
   const T* orow = o + (size_t)row * D;
   const T* drow = dout + (size_t)row * D;
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc = fmaf(to_f32(orow[d]), to_f32(drow[d]), acc);
+  for (int d = lane; in && d < D; d += LANES)
+    acc = fmaf(to_f32(orow[d]), to_f32(drow[d]), acc);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
+  for (int off = LANES / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (in && lane == 0) {
     const int h = row % H, bs = row / H;  // row = (b S + s) H + h
     delta[((size_t)(bs / S) * H + h) * S + bs % S] = acc;
-  }
-}
-
-// ---- bfloat16 at D = 16, 32, 48: mma.sync ----
-
-// K, V, Q and dO tiles of BWD_TILE rows, and the query tile's lse and delta
-__host__ __device__ constexpr size_t bwd_dkdv_smem(int D) {
-  return sizeof(__nv_bfloat16) * (size_t)(4 * BWD_TILE) * (D + PAD) +
-         sizeof(float) * 2 * BWD_TILE;
-}
-__host__ __device__ constexpr size_t bwd_dq_smem(int D) {
-  return sizeof(__nv_bfloat16) * (size_t)(4 * BWD_TILE) * (D + PAD);
-}
-
-// The A fragment (16 rows x 16 columns, rows row0.. of a [rows][D + PAD]
-// tile, k-step kk) and a B fragment of 8 rows n0.. read as columns.
-template <int D>
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const __nv_bfloat16* tile,
-                                       int r0, int kk, int tig) {
-  const __nv_bfloat16* p = tile + r0 * (D + PAD) + kk * 16 + tig * 2;
-  a[0] = ld_u32(p);
-  a[1] = ld_u32(p + 8 * (D + PAD));
-  a[2] = ld_u32(p + 8);
-  a[3] = ld_u32(p + 8 * (D + PAD) + 8);
-}
-
-// c[DT][4] += A (16 x 16: score accumulators of n8 tiles 2j, 2j + 1, packed
-// to bf16) x B (rows 16 j.. of a row-major [k][D] tile, read transposed).
-template <int D>
-__device__ __forceinline__ void acc_pv(float (&c)[D / 8][4], const float (&s0)[4],
-                                       const float (&s1)[4], const __nv_bfloat16* tile,
-                                       int j, int lane) {
-  const uint32_t pa[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
-                          pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
-  const __nv_bfloat16* row =
-      tile + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * (D + PAD) + (lane >> 4) * 8;
-#pragma unroll
-  for (int dp = 0; dp < D / 16; ++dp) {
-    uint32_t f[4];
-    ldmatrix_x4_trans(f, row + dp * 16);
-    mma_bf16(c[2 * dp], pa, f[0], f[1]);
-    mma_bf16(c[2 * dp + 1], pa, f[2], f[3]);
-  }
-}
-
-// q, dout: (B, S, H, D); k, v, dk, dv: (B, S, KV, D); bf16, contiguous; lse,
-// delta: (B, H, S) float32. grid: (ceil(S / BWD_TILE), KV, B); block:
-// BWD_THREADS; dynamic smem: bwd_dkdv_smem(D). Warp w owns keys k0 + 16 w
-// .. + 15; a thread holds rows r0 and r0 + 8 of them (mma's C layout).
-template <int D>
-__global__ void __launch_bounds__(BWD_THREADS)
-flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const __nv_bfloat16* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           __nv_bfloat16* __restrict__ dk,
-                           __nv_bfloat16* __restrict__ dv, int S, int H, int KV,
-                           float scale, int causal, int window) {
-  constexpr int LDS = D + PAD;
-  constexpr int QT = BWD_TILE;
-  constexpr int NT = QT / 8;   // n8 tiles of scores (queries)
-  constexpr int DT = D / 8;    // n8 tiles of dK, dV (channels)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BWD_TILE][LDS]
-  __nv_bfloat16* Vs = Ks + BWD_TILE * LDS;                         // [BWD_TILE][LDS]
-  __nv_bfloat16* Qs = Vs + BWD_TILE * LDS;                         // [QT][LDS]
-  __nv_bfloat16* dOs = Qs + QT * LDS;                              // [QT][LDS]
-  float* Ls = reinterpret_cast<float*>(dOs + QT * LDS);            // [QT] lse
-  float* Dls = Ls + QT;                                            // [QT] delta
-
-  const int k0 = blockIdx.x * BWD_TILE;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KV;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const size_t q_row = (size_t)H * D, kv_row = (size_t)KV * D;
-
-  load_tile<D>(Ks, k + (size_t)b * S * kv_row + (size_t)kvh * D, kv_row, k0, BWD_TILE, S);
-  load_tile<D>(Vs, v + (size_t)b * S * kv_row + (size_t)kvh * D, kv_row, k0, BWD_TILE, S);
-  const int r0 = warp * 16 + g;
-  const int kpos0 = k0 + r0, kpos1 = kpos0 + 8;
-
-  float dkacc[DT][4], dvacc[DT][4];
-#pragma unroll
-  for (int t = 0; t < DT; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dkacc[t][e] = dvacc[t][e] = 0.f;
-
-  int q_begin, q_end;
-  query_range(k0, S, causal, window, q_begin, q_end);
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = kvh * G + hh;
-    const __nv_bfloat16* qb = q + (size_t)b * S * q_row + (size_t)h * D;
-    const __nv_bfloat16* db = dout + (size_t)b * S * q_row + (size_t)h * D;
-    const float* lb = lse + ((size_t)b * H + h) * S;
-    const float* eb = delta + ((size_t)b * H + h) * S;
-    for (int q0 = q_begin; q0 < q_end; q0 += QT) {
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<D>(Qs, qb, q_row, q0, QT, S);
-      load_tile<D>(dOs, db, q_row, q0, QT, S);
-      for (int i = threadIdx.x; i < QT; i += BWD_THREADS) {
-        const bool in = q0 + i < S;
-        Ls[i] = in ? lb[q0 + i] : 0.f;
-        Dls[i] = in ? eb[q0 + i] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x QT queries per warp
-      float sacc[NT][4], dpacc[NT][4];
-#pragma unroll
-      for (int t = 0; t < NT; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sacc[t][e] = dpacc[t][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        a_frag<D>(ka, Ks, r0, kk, tig);
-        a_frag<D>(va, Vs, r0, kk, tig);
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          const __nv_bfloat16* pq = Qs + (t * 8 + g) * LDS + kk * 16 + tig * 2;
-          const __nv_bfloat16* pd = dOs + (t * 8 + g) * LDS + kk * 16 + tig * 2;
-          mma_bf16(sacc[t], ka, ld_u32(pq), ld_u32(pq + 8));
-          mma_bf16(dpacc[t], va, ld_u32(pd), ld_u32(pd + 8));
-        }
-      }
-      // element e of tile t: key row r0 + 8 (e >> 1), query q0 + 8 t + 2 tig + (e & 1)
-#pragma unroll
-      for (int t = 0; t < NT; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = t * 8 + tig * 2 + (e & 1);
-          const bool ok = visible(e < 2 ? kpos0 : kpos1, q0 + qi, S, causal, window);
-          const float p = ok ? expf(sacc[t][e] * scale - Ls[qi]) : 0.f;
-          sacc[t][e] = p;
-          dpacc[t][e] = p * (dpacc[t][e] - Dls[qi]) * scale;
-        }
-      // dV += P^T dO and dK += dS^T Q, queries [16 j, 16 j + 16) at a time
-#pragma unroll
-      for (int j = 0; j < QT / 16; ++j) {
-        acc_pv<D>(dvacc, sacc[2 * j], sacc[2 * j + 1], dOs, j, lane);
-        acc_pv<D>(dkacc, dpacc[2 * j], dpacc[2 * j + 1], Qs, j, lane);
-      }
-    }
-  }
-
-  __nv_bfloat16* dk0 = dk + ((size_t)b * S + kpos0) * kv_row + (size_t)kvh * D + tig * 2;
-  __nv_bfloat16* dv0 = dv + ((size_t)b * S + kpos0) * kv_row + (size_t)kvh * D + tig * 2;
-#pragma unroll
-  for (int t = 0; t < DT; ++t) {
-    if (kpos0 < S) {
-      *reinterpret_cast<uint32_t*>(dk0 + t * 8) = pack_bf16(dkacc[t][0], dkacc[t][1]);
-      *reinterpret_cast<uint32_t*>(dv0 + t * 8) = pack_bf16(dvacc[t][0], dvacc[t][1]);
-    }
-    if (kpos1 < S) {
-      *reinterpret_cast<uint32_t*>(dk0 + 8 * kv_row + t * 8) = pack_bf16(dkacc[t][2], dkacc[t][3]);
-      *reinterpret_cast<uint32_t*>(dv0 + 8 * kv_row + t * 8) = pack_bf16(dvacc[t][2], dvacc[t][3]);
-    }
-  }
-}
-
-// Shapes as flash_bwd_dkdv_bf16_kernel; dq: (B, S, H, D) bf16. grid:
-// (ceil(S / BWD_TILE), H, B), heaviest query tiles first; block: BWD_THREADS;
-// dynamic smem: bwd_dq_smem(D). Warp w owns queries q0 + 16 w .. + 15.
-template <int D>
-__global__ void __launch_bounds__(BWD_THREADS)
-flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int S, int H, int KV,
-                         float scale, int causal, int window) {
-  constexpr int LDS = D + PAD;
-  constexpr int NT = BWD_TILE / 8;  // n8 tiles of scores (keys)
-  constexpr int DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BWD_TILE][LDS]
-  __nv_bfloat16* dOs = Qs + BWD_TILE * LDS;
-  __nv_bfloat16* Ks = dOs + BWD_TILE * LDS;
-  __nv_bfloat16* Vs = Ks + BWD_TILE * LDS;
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BWD_TILE;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const size_t q_row = (size_t)H * D, kv_row = (size_t)KV * D;
-  const __nv_bfloat16* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
-  const __nv_bfloat16* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
-
-  load_tile<D>(Qs, q + (size_t)b * S * q_row + (size_t)h * D, q_row, q0, BWD_TILE, S);
-  load_tile<D>(dOs, dout + (size_t)b * S * q_row + (size_t)h * D, q_row, q0, BWD_TILE, S);
-  const int r0 = warp * 16 + g;
-  const int qpos0 = q0 + r0, qpos1 = qpos0 + 8;
-  const float* lb = lse + ((size_t)b * H + h) * S;
-  const float* eb = delta + ((size_t)b * H + h) * S;
-  const float lse0 = qpos0 < S ? lb[qpos0] : 0.f, lse1 = qpos1 < S ? lb[qpos1] : 0.f;
-  const float del0 = qpos0 < S ? eb[qpos0] : 0.f, del1 = qpos1 < S ? eb[qpos1] : 0.f;
-
-  float dqacc[DT][4];
-#pragma unroll
-  for (int t = 0; t < DT; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqacc[t][e] = 0.f;
-
-  int k_begin, k_end;
-  key_range(q0, S, causal, window, k_begin, k_end);
-  for (int k0 = k_begin; k0 < k_end; k0 += BWD_TILE) {
-    __syncthreads();  // the previous tile's readers are done; orders Q, dO
-    load_tile<D>(Ks, kb, kv_row, k0, BWD_TILE, S);
-    load_tile<D>(Vs, vb, kv_row, k0, BWD_TILE, S);
-    __syncthreads();
-
-    float sacc[NT][4], dpacc[NT][4];
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[t][e] = dpacc[t][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      a_frag<D>(qa, Qs, r0, kk, tig);
-      a_frag<D>(da, dOs, r0, kk, tig);
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const __nv_bfloat16* pk = Ks + (t * 8 + g) * LDS + kk * 16 + tig * 2;
-        const __nv_bfloat16* pv = Vs + (t * 8 + g) * LDS + kk * 16 + tig * 2;
-        mma_bf16(sacc[t], qa, ld_u32(pk), ld_u32(pk + 8));
-        mma_bf16(dpacc[t], da, ld_u32(pv), ld_u32(pv + 8));
-      }
-    }
-    // element e of tile t: query row r0 + 8 (e >> 1), key k0 + 8 t + 2 tig + (e & 1)
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + t * 8 + tig * 2 + (e & 1);
-        const bool lo = e < 2;
-        const float p = visible(key, lo ? qpos0 : qpos1, S, causal, window)
-                            ? expf(sacc[t][e] * scale - (lo ? lse0 : lse1))
-                            : 0.f;
-        dpacc[t][e] = p * (dpacc[t][e] - (lo ? del0 : del1)) * scale;
-      }
-    // dQ += dS K, keys [16 j, 16 j + 16) at a time
-#pragma unroll
-    for (int j = 0; j < BWD_TILE / 16; ++j)
-      acc_pv<D>(dqacc, dpacc[2 * j], dpacc[2 * j + 1], Ks, j, lane);
-  }
-
-  __nv_bfloat16* dq0 = dq + ((size_t)b * S + qpos0) * q_row + (size_t)h * D + tig * 2;
-#pragma unroll
-  for (int t = 0; t < DT; ++t) {
-    if (qpos0 < S)
-      *reinterpret_cast<uint32_t*>(dq0 + t * 8) = pack_bf16(dqacc[t][0], dqacc[t][1]);
-    if (qpos1 < S)
-      *reinterpret_cast<uint32_t*>(dq0 + 8 * q_row + t * 8) = pack_bf16(dqacc[t][2], dqacc[t][3]);
   }
 }
 
@@ -1518,33 +1084,7 @@ cudaError_t smem_opt_in(bool (&done)[MAX_DEVICES], K1* k1, int bytes1, K2* k2,
   return err;
 }
 
-template <int D>
-cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
-                            const void* dout, const float* lse, const float* delta,
-                            void* dq, void* dk, void* dv, int B, int S, int H,
-                            int KV, float scale, int causal, int window,
-                            cudaStream_t stream) {
-  using bf = __nv_bfloat16;
-  constexpr size_t smem_kv = bwd_dkdv_smem(D), smem_q = bwd_dq_smem(D);
-  static bool done[MAX_DEVICES] = {};
-  cudaError_t err = smem_opt_in(done, flash_bwd_dkdv_bf16_kernel<D>, (int)smem_kv,
-                                flash_bwd_dq_bf16_kernel<D>, (int)smem_q);
-  if (err != cudaSuccess) return err;
-  const int tiles = (S + BWD_TILE - 1) / BWD_TILE;
-  flash_bwd_dkdv_bf16_kernel<D><<<dim3(tiles, KV, B), BWD_THREADS, smem_kv, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dk),
-      static_cast<bf*>(dv), S, H, KV, scale, causal, window);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_bf16_kernel<D><<<dim3(tiles, H, B), BWD_THREADS, smem_q, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dq), S, H, KV,
-      scale, causal, window);
-  return cudaGetLastError();
-}
-
-// ---- bfloat16 at D = 64, 80, 96, 112, 128: TMA + wgmma ----
+// ---- bfloat16 at every D, 16 to 128: TMA + wgmma ----
 
 constexpr int BWD_KB = 64;  // keys of a dK/dV item; both consumer groups hold all of them
 
@@ -3661,25 +3201,21 @@ bool tf32_plan(int D, int (&plan)[10]) {
   }
 }
 
-// bf16 backward: mma.sync at D = 16, 32, 48, TMA + wgmma from 64.
+// The head dims of the bf16 wgmma kernels: every multiple of 16 up to DMAX.
+#define REPRO_BF16_D(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+
+// bf16 backward: TMA + wgmma at every D.
 cudaError_t dispatch_bwd_bf16(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse, const float* delta,
                               void* dq, void* dk, void* dv, int B, int S, int H,
                               int KV, int D, float scale, int causal, int window,
                               cudaStream_t stream) {
   switch (D) {
-#define REPRO_FLASH_CASE(DD)                                                       \
-  case DD:                                                                         \
-    return launch_bwd_bf16<DD>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV, \
-                               scale, causal, window, stream);
-    REPRO_FLASH_CASE(16) REPRO_FLASH_CASE(32) REPRO_FLASH_CASE(48)
-#undef REPRO_FLASH_CASE
 #define REPRO_FLASH_CASE(DD)                                                        \
   case DD:                                                                          \
     return launch_bwd_wgmma<DD>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV, \
                                 scale, causal, window, stream);
-    REPRO_FLASH_CASE(64) REPRO_FLASH_CASE(80) REPRO_FLASH_CASE(96)
-    REPRO_FLASH_CASE(112) REPRO_FLASH_CASE(128)
+    REPRO_BF16_D(REPRO_FLASH_CASE)
 #undef REPRO_FLASH_CASE
     default: return cudaErrorInvalidValue;
   }
@@ -3687,7 +3223,7 @@ cudaError_t dispatch_bwd_bf16(const void* q, const void* k, const void* v,
 
 // The kernel flash_attention_fwd runs for (dtype, D), and its dynamic
 // shared memory in bytes.
-enum Route { ROUTE_NONE, ROUTE_FMA, ROUTE_MMA, ROUTE_WGMMA, ROUTE_TF32 };
+enum Route { ROUTE_NONE, ROUTE_FMA, ROUTE_WGMMA, ROUTE_TF32 };
 
 Route route(int dtype, int D, size_t* smem) {
   if (D % 16 != 0 || D < 16 || D > DMAX) return ROUTE_NONE;
@@ -3701,12 +3237,8 @@ Route route(int dtype, int D, size_t* smem) {
     return ROUTE_FMA;
   }
   if (dtype != 1) return ROUTE_NONE;
-  if (D < 64) {
-    *smem = mma_smem_bytes(D);
-    return ROUTE_MMA;
-  }
-  // one 64-column box per tile row at D = 64, two from D = 80 to 128
-  *smem = D == 64 ? WgSmem<64>::BYTES : WgSmem<128>::BYTES;
+  // one 64-column box per tile row up to D = 64, two from D = 80 to 128
+  *smem = D <= 64 ? WgSmem<64>::BYTES : WgSmem<128>::BYTES;
   return ROUTE_WGMMA;
 }
 
@@ -3718,8 +3250,7 @@ cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
   switch (D) {
 #define REPRO_FLASH_CASE(DD) \
   case DD: return launch_wgmma<DD, LSE>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, stream);
-    REPRO_FLASH_CASE(64) REPRO_FLASH_CASE(80) REPRO_FLASH_CASE(96)
-    REPRO_FLASH_CASE(112) REPRO_FLASH_CASE(128)
+    REPRO_BF16_D(REPRO_FLASH_CASE)
 #undef REPRO_FLASH_CASE
     default: return cudaErrorInvalidValue;
   }
@@ -3752,29 +3283,24 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                                scale, causal, window, st)
                      : dispatch_fwd_tf32<false>(q, k, v, o, l, B, S, H, KV, D,
                                                 scale, causal, window, st));
-    case ROUTE_WGMMA:
+    default:
       return (int)(l ? dispatch_wgmma<true>(q, k, v, o, l, B, S, H, KV, D,
                                             scale, causal, window, st)
                      : dispatch_wgmma<false>(q, k, v, o, l, B, S, H, KV, D,
                                              scale, causal, window, st));
-    default:
-      return (int)(l ? dispatch_bf16<true>(q, k, v, o, l, B, S, H, KV, D,
-                                           scale, causal, window, st)
-                     : dispatch_bf16<false>(q, k, v, o, l, B, S, H, KV, D,
-                                            scale, causal, window, st));
   }
 }
 
 // Name of the kernel flash_attention_fwd runs for (dtype, D): "wgmma" (bf16
-// at 64..128), "wgmma.3xtf32" (float32 at 64..128), "mma.sync" (bf16 at 16,
-// 32, 48) or "fma" (float32 at 16, 32, 48), or NULL where it refuses them;
-// *smem_bytes is that kernel's dynamic shared memory per CTA.
+// at every D), "wgmma.3xtf32" (float32 at 64..128) or "fma" (float32 at 16,
+// 32, 48), or NULL where it refuses them; *smem_bytes is that kernel's
+// dynamic shared memory per CTA.
 const char* flash_attention_route(int dtype, int D, int* smem_bytes) {
   size_t smem = 0;
   const Route r = route(dtype, D, &smem);
   *smem_bytes = (int)smem;
   return r == ROUTE_WGMMA ? "wgmma" : r == ROUTE_TF32 ? "wgmma.3xtf32"
-         : r == ROUTE_MMA ? "mma.sync" : r == ROUTE_FMA ? "fma" : nullptr;
+         : r == ROUTE_FMA ? "fma" : nullptr;
 }
 
 // The float32 wgmma kernels' tiles at head dim D: plan = {forward keys a
@@ -3802,16 +3328,20 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = B * S * H;
-  const int blocks = (int)(((long long)rows * 32 + 255) / 256);
+  const int lanes = delta_lanes(dtype, D);
+  const int blocks = (int)(((long long)rows * lanes + 255) / 256);
   float* dl = static_cast<float*>(delta);
   const float* l = static_cast<const float*>(lse);
+  using bf = __nv_bfloat16;
   if (dtype == 0)
     flash_bwd_delta_kernel<float><<<blocks, 256, 0, st>>>(
         static_cast<const float*>(o), static_cast<const float*>(dout), dl, rows, S, H, D);
+  else if (lanes == 8)
+    flash_bwd_delta_kernel<bf, 8><<<blocks, 256, 0, st>>>(
+        static_cast<const bf*>(o), static_cast<const bf*>(dout), dl, rows, S, H, D);
   else
-    flash_bwd_delta_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
-        dl, rows, S, H, D);
+    flash_bwd_delta_kernel<bf><<<blocks, 256, 0, st>>>(
+        static_cast<const bf*>(o), static_cast<const bf*>(dout), dl, rows, S, H, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (dtype == 0 && D >= 64)
@@ -3825,10 +3355,9 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
 }
 
 // Name of the kernels flash_attention_bwd runs for (dtype, D): "wgmma"
-// (bf16 at D = 64..128), "wgmma.3xtf32" (float32 at 64..128), "mma.sync"
-// (bf16 at 16, 32, 48) or "fma" (float32 at 16, 32, 48), or NULL where it
-// refuses them; *smem_bytes is the larger dynamic shared memory of its two
-// tile kernels.
+// (bf16 at every D), "wgmma.3xtf32" (float32 at 64..128) or "fma" (float32
+// at 16, 32, 48), or NULL where it refuses them; *smem_bytes is the larger
+// dynamic shared memory of its two tile kernels.
 const char* flash_attention_bwd_route(int dtype, int D, int* smem_bytes) {
   *smem_bytes = 0;
   if (D % 16 != 0 || D < 16 || D > DMAX) return nullptr;
@@ -3843,12 +3372,11 @@ const char* flash_attention_bwd_route(int dtype, int D, int* smem_bytes) {
   }
   if (dtype != 1) return nullptr;
   switch (D) {
-    case 64: *smem_bytes = bwd_wgmma_smem<64>(); return "wgmma";
-    case 80: *smem_bytes = bwd_wgmma_smem<80>(); return "wgmma";
-    case 96: *smem_bytes = bwd_wgmma_smem<96>(); return "wgmma";
-    case 112: *smem_bytes = bwd_wgmma_smem<112>(); return "wgmma";
-    case 128: *smem_bytes = bwd_wgmma_smem<128>(); return "wgmma";
-    default: *smem_bytes = (int)bwd_dkdv_smem(D); return "mma.sync";
+#define REPRO_FLASH_CASE(DD) \
+  case DD: *smem_bytes = bwd_wgmma_smem<DD>(); return "wgmma";
+    REPRO_BF16_D(REPRO_FLASH_CASE)
+#undef REPRO_FLASH_CASE
+    default: return nullptr;
   }
 }
 

@@ -8,14 +8,15 @@ float32, which ``flash_attention_bwd`` reads to compute (dq, dk, dv);
 counterpart of the reference's custom-VJP ``_flash_core``. On CPU tensors
 each runs its plain version (``ref``); on CUDA tensors it launches the
 kernels or raises. The C forward picks its kernel by (dtype, head_dim): bf16
-at 64, 80, 96, 112 and 128 runs the TMA + wgmma kernel (bound by operations:
-it reaches the tensor cores' rate), float32 at the same head dims the TMA +
-wgmma kernel in TF32 with every operand split into a hi and a lo part
-(3xTF32: three products a multiply, float32's precision on the tensor
-cores), bf16 at 16, 32 and 48 the mma.sync kernel, float32 there the FMA
+at every head dim (16 to 128 in steps of 16) runs the TMA + wgmma kernel
+(its floor is the tensor cores' operations from D = 64 and the softmax's
+exp2 below), float32 at
+64, 80, 96, 112 and 128 the TMA + wgmma kernel in TF32 with every operand
+split into a hi and a lo part (3xTF32: three products a multiply,
+float32's precision on the tensor cores), float32 at 16, 32 and 48 the FMA
 kernel. The backward is three launches a call (delta, dK/dV, dQ, no
-atomics), routed alike: TMA + wgmma kernels (bf16, and 3xTF32 for float32)
-at 64..128, mma.sync (bf16) and FMA (float32) kernels at 16, 32 and 48.
+atomics), routed alike: TMA + wgmma kernels for bf16 at every head dim and
+(3xTF32) for float32 at 64..128, FMA kernels for float32 at 16, 32 and 48.
 ``flash_attention.launches`` counts forward calls that launched (with or
 without lse), ``flash_attention_bwd.launches`` backward calls.
 """
@@ -61,10 +62,10 @@ def _lib() -> ctypes.CDLL:
 def kernel_route(dtype: torch.dtype, head_dim: int, backward: bool = False):
     """(name, dynamic shared memory in bytes) of the kernel the C forward
     (or, with ``backward``, the larger of the C backward's two tile
-    kernels) runs for ``dtype`` and ``head_dim``: "wgmma" (bf16 at 64, 80,
-    96, 112, 128, both ways), "wgmma.3xtf32" (float32 at those head dims),
-    "mma.sync" (bf16 at 16, 32, 48) or "fma" (float32 at 16, 32, 48); name
-    None where it refuses them. Builds the library (card machine only)."""
+    kernels) runs for ``dtype`` and ``head_dim``: "wgmma" (bf16 at every
+    head dim, both ways), "wgmma.3xtf32" (float32 at 64, 80, 96, 112, 128)
+    or "fma" (float32 at 16, 32, 48); name None where it refuses them.
+    Builds the library (card machine only)."""
     smem = ctypes.c_int(0)
     lib = _lib()
     route = lib.flash_attention_bwd_route if backward else lib.flash_attention_route
@@ -92,8 +93,7 @@ def tf32_plan(head_dim: int):
 
 def _check_aligned(**tensors):
     for name, x in tensors.items():
-        # TMA (and the 16-byte loads of the mma.sync kernels) take only
-        # 16-byte aligned addresses and row strides
+        # TMA takes only 16-byte aligned addresses and row strides
         if x.data_ptr() % 16 or any(
                 st * x.element_size() % 16
                 for st, n in zip(x.stride()[:-1], x.shape[:-1]) if n > 1):

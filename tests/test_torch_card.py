@@ -35,15 +35,18 @@ FLASH_SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 64),
                 (1, 200, 8, 1, 32),   # unpadded seq, MQA
                 (2, 64, 6, 3, 80)]    # odd heads / head_dim
 FLASH_MASKS = [(True, None), (True, 64), (False, None)]
-# The wgmma paths (bf16 at head_dim 64, 80, 96, 112 and 128: one 64-column
-# box per tile row at 64, two at the others, the second zero-filled past D
-# below 128; float32 at the same head dims in TF32 with the 3xTF32 split:
-# 32-column boxes, two to four a row, 64-key tiles at D = 64 and 32 above):
+# The wgmma paths (bf16 at every head dim, 16 to 128: one 64-column box per
+# tile row up to 64, zero-filled past D below 64, two at the others, the
+# second zero-filled past D below 128; float32 at 64, 80, 96, 112 and 128 in
+# TF32 with the 3xTF32 split: 32-column boxes, two to four a row, 64-key
+# tiles at D = 64 and 32 above):
 # S on both sides of the 64-row consumer and 128-row tiles, batch 1 and 2,
 # GQA groups 1, 4 and 8 of H = 8, causal, windows 64 and 1000, non-causal;
 # q scaled x8 as well, so that scores (standard deviation 8) reach about
 # +-60 and exercise the exp2 rescaling.
 WGMMA_D = [64, 80, 96, 112, 128]
+SMALL_D = [16, 32, 48]
+WGMMA_D_OF = {"bfloat16": SMALL_D + WGMMA_D, "float32": WGMMA_D}
 WGMMA_S = [1, 63, 64, 127, 128, 129, 1000, 2048]
 WGMMA_MASKS = [(True, None), (True, 64), (True, 1000), (False, None)]
 # (B, S, H, KV, D, dtype, causal, window, amp): amp scales q
@@ -53,7 +56,7 @@ FLASH_CASES = (
      for causal, window in FLASH_MASKS]
     + [(B, S, 8, 8 // group, D, dtype, causal, window, amp)
        for dtype in ("bfloat16", "float32")
-       for D in WGMMA_D for S in WGMMA_S for B in (1, 2)
+       for D in WGMMA_D_OF[dtype] for S in WGMMA_S for B in (1, 2)
        for group in (1, 4, 8) for causal, window in WGMMA_MASKS
        for amp in (1, 8)])
 DECODE_SHAPES = [(2, 512, 8, 2, 64), (1, 1024, 4, 4, 128), (3, 300, 6, 3, 80)]
@@ -149,24 +152,26 @@ def test_flash_kernel_matches_plain_at_hubert_shape_on_card(amp):
 
 @pytest.mark.cuda
 def test_flash_routes_by_dtype_and_head_dim_on_card():
-    """bf16 at 64..128 takes the TMA + wgmma kernel, below 64 mma.sync;
-    float32 at 64..128 the TMA + wgmma kernel in 3xTF32, below 64 the FMA
-    kernel; a head dim off the grid of 16 none."""
+    """bf16 at every head dim takes the TMA + wgmma kernel; float32 at
+    64..128 the TMA + wgmma kernel in 3xTF32, below 64 the FMA kernel; a
+    head dim off the grid of 16 none."""
     _cuda_or_skip()
-    for D in WGMMA_D:
+    for D in SMALL_D + WGMMA_D:
         assert flash_route(torch.bfloat16, D)[0] == "wgmma"
+    for D in WGMMA_D:
         assert flash_route(torch.float32, D)[0] == "wgmma.3xtf32"
-    for D in (16, 32, 48):
-        assert flash_route(torch.bfloat16, D)[0] == "mma.sync"
+    for D in SMALL_D:
         assert flash_route(torch.float32, D)[0] == "fma"
     assert flash_route(torch.bfloat16, 72)[0] is None
-    # at D = 80..128 a tile is two 64-column boxes: D = 128's shared memory
+    # up to D = 64 a tile is one 64-column box, from 80 to 128 two: D = 64's
+    # and D = 128's shared memory
+    assert len({flash_route(torch.bfloat16, D)[1] for D in SMALL_D + [64]}) == 1
     assert len({flash_route(torch.bfloat16, D)[1] for D in WGMMA_D[1:]}) == 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("D", WGMMA_D)
+@pytest.mark.parametrize("D", SMALL_D + WGMMA_D)
 def test_flash_kernel_is_deterministic_on_card(D, dtype):
     """Two launches on the same input give the same bits."""
     _cuda_or_skip()
@@ -179,7 +184,7 @@ def test_flash_kernel_is_deterministic_on_card(D, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", SMALL_D + [64, 128])
 def test_flash_forward_replays_from_cuda_graph_on_card(D, dtype):
     """The forward with lse captured in a CUDA graph replays to the eager
     call's bits and reads the captured q anew after an in-place change."""
@@ -204,7 +209,7 @@ def test_flash_forward_replays_from_cuda_graph_on_card(D, dtype):
 
 # The backward kernels (and the forward's lse): every head dim the forward
 # takes, float32 (3xTF32 wgmma at 64..128, FMA below) and bf16 (wgmma at
-# 64..128, mma.sync below); GQA
+# every head dim); GQA
 # groups 1, 3 and 6 of H = 6; S of 1, on both sides of a 64-row tile (the
 # dK/dV item's keys) and a 128-row one (the dQ item's queries and keys),
 # 200 and 257 (S % 4 != 0: lse and delta rows start unaligned); causal,
@@ -276,7 +281,7 @@ def test_flash_backward_matches_plain_at_training_shapes_on_card(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("D", SMALL_D + [64, 80, 128])
 def test_flash_backward_is_deterministic_on_card(dtype, D):
     """No atomics: two backward launches on the same inputs give the same
     bits, and so do two forwards' lse."""
@@ -315,7 +320,7 @@ def test_flash_autograd_function_on_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", SMALL_D + [64, 128])
 def test_flash_backward_replays_from_cuda_graph_on_card(D, dtype):
     """The backward captured in a CUDA graph (its tensor maps are kernel
     arguments, encoded at capture) replays to the eager call's bits, and
@@ -344,20 +349,18 @@ def test_flash_backward_replays_from_cuda_graph_on_card(D, dtype):
 
 @pytest.mark.cuda
 def test_flash_backward_routes_on_card():
-    """bf16 at 64..128 takes the TMA + wgmma kernels, below 64 mma.sync;
-    float32 at 64..128 the TMA + wgmma kernels in 3xTF32, below 64 the FMA
-    kernels."""
+    """bf16 at every head dim takes the TMA + wgmma kernels; float32 at
+    64..128 the TMA + wgmma kernels in 3xTF32, below 64 the FMA kernels."""
     _cuda_or_skip()
     for D in BWD_D:
-        want = "wgmma" if D >= 64 else "mma.sync"
-        assert flash_route(torch.bfloat16, D, backward=True)[0] == want
+        assert flash_route(torch.bfloat16, D, backward=True)[0] == "wgmma"
         want = "wgmma.3xtf32" if D >= 64 else "fma"
         assert flash_route(torch.float32, D, backward=True)[0] == want
     assert flash_route(torch.bfloat16, 72, backward=True)[0] is None
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [80, 128])
+@pytest.mark.parametrize("D", [32, 80, 128])
 def test_flash_wrapper_refuses_misaligned_views_on_card(D):
     """A view 2 bytes into its storage is contiguous but not 16-byte
     aligned, which TMA cannot take: the wrapper raises before any launch."""
