@@ -2,7 +2,7 @@
 """Time kernels of several checkouts on one card, at the served shapes,
 with ``chip_smoke.py``'s clocks.
 
-    python3 chip_ab.py [--only flash,flash_bwd,flash_small,flash_f32,train_f32,decode,gla] <parent checkout>/src src src <parent checkout>/src
+    python3 chip_ab.py [--only flash,flash_bwd,flash_small,flash_small_f32,flash_f32,train_f32,decode,gla] <parent checkout>/src src src <parent checkout>/src
 
 Each argument is a directory that holds a ``repro_torch`` package. Each runs
 in a process of its own: its kernels are built, held against their plain
@@ -21,7 +21,9 @@ ms, SDPA's backward), bf16 forward and backward at the small head dims
 B=1 S=2048 GQA 32/8 causal, no served model; bound the larger of the
 tensor cores' operations and one exp2 a visible pair
 (``chip_smoke.exp2_ms``); the backward's device
-time by kernel), the float32 forward and backward (``--only
+time by kernel), the same in float32 (``--only flash_small_f32``: the FMA
+forward, the 3xTF32 wgmma backward, bound at 3xTF32 and at the FMA rate,
+SDPA's float32 calls beside them), the float32 forward and backward (``--only
 flash_f32``: ``chip_smoke.FLASH_F32_SHAPES``, smollm-360m's training shape,
 Llama's widths and the small row, beside SDPA's float32 calls and both
 bounds), phase 17d's float32 training steps (``--only train_f32``:
@@ -31,7 +33,7 @@ Llama-3-8B's decode shapes (``chip_smoke.max_err``, ``seq_err`` and
 1000 and 2048) and Zamba2's widths (ssd, H=64, T=2048), bf16 q/k/v,
 float32 log_w and u, and the float32 kernel at RWKV6's T=2048 with
 float32 q/k/v (``chip_smoke.GLA_TOL`` and ``gla_times``). ``--only`` picks
-some of the seven (default: all). Listing
+some of the eight (default: all). Listing
 the trees as parent, change, change, parent shows the card's drift within
 the call. One JSON line per (tree, shape); a kernel that disagrees with
 its plain version exits non-zero.
@@ -54,8 +56,8 @@ GLA_SHAPES = (("rwkv", 32, 128, "bfloat16"), ("rwkv", 32, 1000, "bfloat16"),
               ("rwkv", 32, 2048, "float32"))  # (mode, H, T, q/k/v) at B = 1, K = V = 64
 
 
-KERNELS = ("flash", "flash_bwd", "flash_small", "flash_f32", "train_f32", "decode",
-           "gla")
+KERNELS = ("flash", "flash_bwd", "flash_small", "flash_small_f32", "flash_f32",
+           "train_f32", "decode", "gla")
 
 
 def one(src: Path, only):
@@ -91,21 +93,27 @@ def flash_bwd(cs, src: Path):
         print(json.dumps(row), flush=True)
 
 
-def flash_small(cs, src: Path):
+def flash_small(cs, src: Path, dtype_name="bf16"):
     import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
     gen = torch.Generator(device="cuda").manual_seed(0)
     B, S, H, KV = cs.FLASH_SMALL
     for D in cs.SMALL_D:
         for way in ("forward", "backward"):
-            row = dict(src=str(src), kernel=f"flash_attention bf16 {way}", B=B, S=S,
-                       H=H, KV=KV, D=D, causal=True, window=None)
+            row = dict(src=str(src), kernel=f"flash_attention {dtype_name} {way}", B=B,
+                       S=S, H=H, KV=KV, D=D, causal=True, window=None)
             if way == "forward":
-                row.update(cs.flash_case(B, S, H, KV, D, torch.bfloat16, True, None,
-                                         gen, timed=True))
+                row.update(cs.flash_case(B, S, H, KV, D, dtype, True, None, gen,
+                                         timed=True))
             else:
-                row.update(cs.flash_bwd_case(B, S, H, KV, D, torch.bfloat16, True,
-                                             None, gen, timed=True, by_kernel=True))
+                row.update(cs.flash_bwd_case(B, S, H, KV, D, dtype, True, None, gen,
+                                             timed=True, by_kernel=True))
             print(json.dumps(row), flush=True)
+
+
+def flash_small_f32(cs, src: Path):
+    flash_small(cs, src, "float32")
 
 
 def flash_f32(cs, src: Path):

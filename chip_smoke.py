@@ -47,8 +47,9 @@ result:
    smollm-360m's training shape, Llama's widths and the small row
    (``FLASH_F32_SHAPES``) beside SDPA's float32 calls, their bound at the
    3xTF32 rate and at float32's FMA rate; the small head dims (16, 32, 48,
-   no served model) at B=1 S=2048 GQA 32/8 causal, bf16 (wgmma) and
-   float32 (FMA), forward and backward; every bf16 flash row's bound is the
+   no served model) at B=1 S=2048 GQA 32/8 causal, forward and backward,
+   bf16 (wgmma) and float32 (the FMA forward, the wgmma.3xtf32 backward),
+   each backward's device time by kernel; every bf16 flash row's bound is the
    larger of its tensor-core operations and its exp2 (one a visible pair,
    split between the special-function units and a cubic on the FMA
    pipes), both printed, with the special-function units' time alone and
@@ -225,6 +226,8 @@ FLASH_BWD_REPLACES = ("src/repro/models/attention.py:172 (_flash_core's custom "
 # gradient that cancels to rounding noise at 1e-2 of the largest of the
 # three); lse's absolute tolerance
 BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# the backward's route at every head dim
+BWD_ROUTE = {torch.float32: "wgmma.3xtf32", torch.bfloat16: "wgmma"}
 LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 # phase 17: smollm-360m trained at its published widths
 TRAIN_ARCH = "smollm-360m"
@@ -403,7 +406,7 @@ def phase_build():
         path, smem = kernel_route(dtype, D, backward=True)
         print(f"  flash_attention_bwd route {dtype} D={D}: {path}, {smem} "
               "bytes dynamic smem in its larger CTA")
-    for D in WGMMA_D:
+    for D in SMALL_D + WGMMA_D:
         print(f"  flash float32 (3xTF32) tiles D={D}: {tf32_plan(D)}")
     for qdt, cdt, D in [(torch.bfloat16, torch.bfloat16, 128),
                         (torch.bfloat16, torch.bfloat16, 64),
@@ -998,9 +1001,8 @@ def phase_kernels() -> dict:
 
 def phase_flash_backward(gen) -> dict:
     """Phase 3's backward part: the tests' grid, then the training shapes."""
-    print("-- flash backward (tests/test_torch_card.py: bf16 wgmma at every D, "
-          "float32 wgmma.3xtf32 at D 64-128 and fma below; H=6, GQA groups "
-          "1/3/6, B=2, S "
+    print("-- flash backward (tests/test_torch_card.py: bf16 wgmma and "
+          "float32 wgmma.3xtf32 at every D; H=6, GQA groups 1/3/6, B=2, S "
           "1/63/65/127/128/129/200/257, causal / window 64 / window 100 / "
           "non-causal / non-causal window 50), worst error of each "
           "gradient's largest magnitude per (dtype, D); tol float32 2e-4, "
@@ -1022,6 +1024,9 @@ def phase_flash_backward(gen) -> dict:
             print(f"flash backward cases {dtype} D={D}: {n} cases, path="
                   f"{'/'.join(sorted(paths))} rel_err={worst:.3e} "
                   f"lse_err={lse_worst:.3e}")
+            if paths != {BWD_ROUTE[dtype]}:
+                fail(f"flash backward {dtype} D={D} ran {paths}, not "
+                     f"{BWD_ROUTE[dtype]}")
     print("-- flash backward at the training shapes (smollm-360m's, Llama's "
           "widths, h2o-danube's D=80 with its 4096 window inside S=6000), "
           "bf16; library = SDPA's backward alone")
@@ -1057,9 +1062,10 @@ def flash_f32_rows(gen) -> dict:
 
 def flash_small_rows(gen) -> dict:
     """The head dims below 64 (no served model) at FLASH_SMALL, causal:
-    bf16 forward and backward (the wgmma kernels; the backward's device time
-    by kernel beside it: delta, dK/dV, dQ) and float32 forward and backward
-    (the FMA kernels), each beside SDPA's call in its dtype."""
+    bf16 forward and backward (the wgmma kernels) and float32 forward (the
+    FMA kernel) and backward (the wgmma.3xtf32 kernels), each beside SDPA's
+    call in its dtype, each backward's device time by kernel beside it
+    (delta, dK/dV, dQ)."""
     B, S, H, KV = FLASH_SMALL
     print(f"-- flash at the small head dims, B={B} S={S} H={H} KV={KV} causal: "
           "bf16 (bound_ms the larger of bound_ops_ms and bound_exp2_ms, "
@@ -1073,8 +1079,7 @@ def flash_small_rows(gen) -> dict:
             row = flash_case(*args, gen, timed=True)
             print(f"flash {name} D={D} forward: {fmt(row)}")
             rows[f"flash_{name}_d{D}"] = row
-            row = flash_bwd_case(*args, gen, timed=True,
-                                 by_kernel=dtype == torch.bfloat16)
+            row = flash_bwd_case(*args, gen, timed=True, by_kernel=True)
             print(f"flash {name} D={D} backward: {fmt(row)}")
             rows[f"flash_bwd_{name}_d{D}"] = row
     return rows

@@ -79,7 +79,7 @@
 //   - float32 at D = 64, 80, 96, 112 and 128 (float32 models, training in
 //     float32): flash_fwd_tf32_kernel, the same shape on the tensor cores in
 //     TF32 with every operand split into a hi and a lo part (3xTF32; see
-//     "float32 at D = 64, 80, 96, 112, 128" below): one TF32 pass keeps about
+//     "float32: TMA + wgmma in TF32" below): one TF32 pass keeps about
 //     three digits, the split float32's.
 //   - float32 at D = 16, 32 and 48 (no model): float32 FMAs on shared-memory
 //     tiles.
@@ -929,7 +929,7 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 // with dK and dV summed over the G query heads of each KV head. P is
 // recomputed from lse tile by tile, so no S x S tensor is ever stored.
 // Three launches: flash_bwd_delta_kernel (one warp per (b, s, h) row; a
-// quarter warp at bf16's D < 64), a dK/dV kernel and a dQ kernel. Every
+// quarter warp below D = 64), a dK/dV kernel and a dQ kernel. Every
 // output element is summed by one thread in a fixed order, so two launches
 // on the same inputs are bit-identical. Masks are the forward's: causal
 // kpos <= qpos, window kpos > qpos - window, kpos, qpos < S.
@@ -999,48 +999,20 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 // GQA 32/8, causal, D = 32 the three launches take ~0.12 ms (dK/dV 0.062,
 // dQ 0.054, delta 0.005) against 0.035 for this design's 2 exp2 a pair on
 // the special-function units and 0.022 for the operations; what holds it
-// above them is not yet measured. float32 at
-// D = 64..128:
+// above them is not yet measured. float32 at every D:
 // flash_bwd_dkdv_tf32_kernel and flash_bwd_dq_tf32_kernel, the bf16 kernels'
-// design in TF32 with the 3xTF32 split (below); at 16, 32 and 48 FMAs on
-// shared-memory tiles.
-
-constexpr int BWD_TILE = 64;      // keys per dK/dV CTA, queries per dQ CTA, keys per dQ step
-
-__device__ __forceinline__ bool visible(int kpos, int qpos, int S, int causal,
-                                        int window) {
-  return kpos < S && qpos < S && (!causal || kpos <= qpos) &&
-         (window <= 0 || kpos > qpos - window);
-}
+// design in TF32 with the 3xTF32 split (below).
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// The queries [q_begin, q_end) that key tile [k0, k0 + BWD_TILE) is visible
-// from, and the keys [k_begin, k_end) that query tile [q0, q0 + BWD_TILE)
-// sees; the begins are multiples of BWD_TILE, so the walks stay on tiles.
-__device__ __forceinline__ void query_range(int k0, int S, int causal, int window,
-                                            int& q_begin, int& q_end) {
-  q_begin = causal ? k0 : 0;
-  q_end = window > 0 ? min(S, k0 + BWD_TILE - 1 + window) : S;
-}
-__device__ __forceinline__ void key_range(int q0, int S, int causal, int window,
-                                          int& k_begin, int& k_end) {
-  k_begin = window > 0 ? max(0, q0 - window + 1) / BWD_TILE * BWD_TILE : 0;
-  k_end = causal ? min(S, q0 + BWD_TILE) : S;
-}
-
 // o, dout: (B, S, H, D) rows; delta: (B, H, S) float32. LANES threads a row:
-// a warp per row, or at bf16's D < 64 (a row of 32 to 96 bytes) a quarter
-// warp, so that the rows' loads are in flight together instead of leaving
-// most of each warp idle (at D = 16 on an H100: 0.0129 -> 0.0042 ms). The
-// rule is set by the bf16 rows it was measured on. float32 keeps a warp a
-// row at every D: its rows below D = 32 are as short, but its D <= 48
-// backward (the FMA kernels) takes milliseconds, where the delta pass is
-// noise, and its quarter-warp launch has not been timed.
-__host__ __device__ constexpr int delta_lanes(int dtype, int D) {
-  return dtype == 1 && D < 64 ? 8 : 32;
-}
+// a warp per row, or below D = 64 (a row of 32 to 96 bytes in bf16, 64 to
+// 192 in float32) a quarter warp, so that the rows' loads are in flight
+// together instead of leaving most of each warp idle (on an H100 at
+// S = 2048, GQA 32/8: bf16 D = 16 0.0129 -> 0.0042 ms; float32 D = 16 /
+// 32 / 48 0.0129 / 0.0134 / 0.0180 -> 0.0044 / 0.0077 / 0.0120).
+__host__ __device__ constexpr int delta_lanes(int D) { return D < 64 ? 8 : 32; }
 
 template <typename T, int LANES = 32>
 __global__ void __launch_bounds__(256)
@@ -1064,25 +1036,20 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
-// Raise two kernels' dynamic shared memory limits, once per device: `done`
-// is the caller's own flag array (it costs host time on every call
-// otherwise, and stays out of CUDA graph captures of the launches).
-constexpr int MAX_DEVICES = 64;
-
-template <typename K1, typename K2>
-cudaError_t smem_opt_in(bool (&done)[MAX_DEVICES], K1* k1, int bytes1, K2* k2,
-                        int bytes2) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (done[device]) return cudaSuccess;
-  err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes1);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes2);
-  if (err == cudaSuccess) done[device] = true;
-  return err;
+// Launches the delta pass over B S H rows of D columns.
+template <typename T>
+void launch_delta(const void* o, const void* dout, float* delta, int rows, int S, int H,
+                  int D, cudaStream_t stream) {
+  const int blocks = (int)(((long long)rows * delta_lanes(D) + 255) / 256);
+  const T* ot = static_cast<const T*>(o);
+  const T* dt = static_cast<const T*>(dout);
+  if (delta_lanes(D) == 8)
+    flash_bwd_delta_kernel<T, 8><<<blocks, 256, 0, stream>>>(ot, dt, delta, rows, S, H, D);
+  else
+    flash_bwd_delta_kernel<T><<<blocks, 256, 0, stream>>>(ot, dt, delta, rows, S, H, D);
 }
+
+constexpr int MAX_DEVICES = 64;  // devices the launchers' once-per-device state covers
 
 // ---- bfloat16 at every D, 16 to 128: TMA + wgmma ----
 
@@ -1539,12 +1506,14 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   }
 }
 
-// ---- float32 at D = 64, 80, 96, 112, 128: TMA + wgmma in TF32, 3xTF32 ----
+// ---- float32: TMA + wgmma in TF32, 3xTF32 (forward at D = 64, 80, 96,
+// 112, 128; backward at every D) ----
 //
-// Replaces, at these head dims, the FMA kernels (flash_fwd_f32_kernel
-// above, flash_bwd_*_f32_kernel below): the same functions, on the tensor
-// cores. float32 FMAs reach 67 TFLOP/s on this card, TF32 wgmma 495. One
-// TF32 pass keeps 11 bits of each operand, about three digits, and would
+// Replaces FMA kernels on shared-memory tiles: the forward's at these head
+// dims (flash_fwd_f32_kernel above keeps D = 16, 32, 48) and the
+// backward's at every D: the same functions, on the tensor cores. float32
+// FMAs reach 67 TFLOP/s on this card, TF32 wgmma 495. One TF32 pass keeps
+// 11 bits of each operand, about three digits, and would
 // break the float32 tolerances; so every product here is split (3xTF32):
 // x = hi + lo with hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and
 // a b = hi hi + hi lo + lo hi, each in TF32 with float32 accumulation (but
@@ -1612,6 +1581,28 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 //     so do each step's dV and dK (one chain over an item's steps left a
 //     per-leaf gradient gap of 1.9e-4 in a float32 training step, against
 //     2.1e-6 for the FMA kernels), in halves of D from 112 (registers).
+//   - The backward at D = 16, 32 and 48 (no trained model): a tile row is
+//     one 32-column box, two at 48, zero-filled by TMA past D (the map's
+//     width is D); products issue D / 8 k-steps, and the n = D products
+//     (dV, dK, dQ) m64n16/n32/n48k8. The converters' transposed split
+//     writes only D columns; the K-major one splits whole boxes, zeros
+//     included (no product reads past D; skipping them, with the
+//     transposed split dealt in 8-row units so that D = 16's four column
+//     units spread over the three warps, ran 9-29% slower; which of the
+//     two cost it is not measured). At this size each
+//     visible pair's exp2 and float32 work weigh as much as its products,
+//     so the items are planned for balance: under a causal mask dK/dV's
+//     key tile 0 sees every query, and at B = 1 S = 2048 KV = 8 128-key
+//     items are 128 on 132 SMs, the first walking ~1.9x the mean; 64-key
+//     items (both groups on all 64 keys, alternate steps) are 256, the
+//     heaviest as long as the mean. On an H100 at that shape (GQA 32/8,
+//     causal) dK/dV took 0.50 / 0.69 / 0.88 ms at D = 16 / 32 / 48 with
+//     128-key items and 32-query steps, 0.42 / 0.57 / 0.72 with 64-key
+//     items; then 64-query steps (D <= 32) 0.35 / 0.49, 48-query steps at
+//     48 (two stages of 64 do not fit) 0.68. 16-query steps, 4 stages and
+//     128-key items with 64-query steps lost or tied. dQ takes 64-key
+//     tiles to D = 32 (0.18 / 0.23 ms against 32-key tiles' 0.20 / 0.26),
+//     32 at 48; a fourth stage of either kernel gained nothing.
 
 constexpr int F_BOX = 32;           // 128-byte swizzle: boxes of 32 float32 columns
 constexpr int F_CONVERTERS = 96;    // producer warps 1-3 split the tiles
@@ -1645,7 +1636,7 @@ struct FwdTf32Smem {
 template <int D>
 struct BwdQTf32Smem {
   static constexpr int NB = f_nb(D);
-  static constexpr int BK = D <= 64 ? 32 : 16;
+  static constexpr int BK = D <= 32 ? 64 : D <= 64 ? 32 : 16;
   static constexpr int STAGES = D <= 96 ? 3 : 2;
   static constexpr int Q_TILE = f_nat(D, WG_BQ);
   static constexpr int NAT = f_nat(D, BK), TR = f_trans(D, BK);
@@ -1659,17 +1650,20 @@ struct BwdQTf32Smem {
 // dK/dV: the item's K and V (KB keys, raw), then STAGES x (Q hi, Q lo, dO
 // hi, dO lo, Q^T hi, Q^T lo, dO^T hi, dO^T lo) of BQ queries, each stage's
 // -lse log2 e and delta, then the barriers. A step's tiles take more
-// splitting than its products take time on the tensor cores, so up to
-// D = 96 an item is 128 keys, 64 a consumer group, and both groups take
-// every step (one split a step for 128 keys). From D = 112 two stages of
-// that width do not fit: an item is 64 keys, both groups hold all of them
-// and take alternate steps, group cw in stage cw, and at the item's end one
-// group's partial dV or dK passes through K's and V's raw tiles.
+// splitting than its products take time on the tensor cores, so from
+// D = 64 to 96 an item is 128 keys, 64 a consumer group, and both groups
+// take every step (one split a step for 128 keys). From D = 112 two stages
+// of that width do not fit: an item is 64 keys, both groups hold all of
+// them and take alternate steps, group cw in the stages of parity cw, and
+// at the item's end one group's partial dV or dK passes through K's and
+// V's raw tiles. Below D = 64 items are 64 keys too, for balance, with
+// 64-query steps to D = 32 and 48 at 48 (see "The backward at D = 16, 32
+// and 48" above).
 template <int D>
 struct BwdKvTf32Smem {
   static constexpr int NB = f_nb(D);
-  static constexpr int KB = D <= 96 ? 2 * BWD_KB : BWD_KB;
-  static constexpr int BQ = D <= 64 ? 32 : 16;
+  static constexpr int KB = D >= 64 && D <= 96 ? 2 * BWD_KB : BWD_KB;
+  static constexpr int BQ = D <= 32 ? 64 : D < 64 ? 48 : D <= 64 ? 32 : 16;
   static constexpr int STAGES = 2;
   static constexpr int K_TILE = f_nat(D, KB);
   static constexpr int NAT = f_nat(D, BQ), TR = f_trans(D, BQ);
@@ -1796,6 +1790,18 @@ __device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
       "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
       : ACC8(0), ACC8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<48>(float (&d)[24], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 template <>
@@ -2649,282 +2655,6 @@ flash_bwd_dkdv_tf32_kernel(__grid_constant__ const CUtensorMap tq,
   }
 }
 
-// ---- float32 at D = 16, 32, 48: FMAs on shared-memory tiles ----
-
-// K, V (or Q, dO) tiles padded to D + 1 columns, two [64][65] tiles of P and
-// dS (one for dQ), and lse, delta of the query tile.
-size_t bwd_f32_smem(int D, bool dkdv) {
-  return sizeof(float) * (4 * (size_t)BWD_TILE * (D + 1) +
-                          (dkdv ? 2 : 1) * (size_t)BWD_TILE * (BWD_TILE + 1) +
-                          (dkdv ? 2 * BWD_TILE : 0));
-}
-
-// Copy rows [row0, row0 + BWD_TILE) of a (S, heads, D) float32 tensor into a
-// [BWD_TILE][D + 1] tile; rows past S are zero.
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              size_t row_stride, int row0, int S,
-                                              int D) {
-  for (int i = threadIdx.x; i < BWD_TILE * D; i += THREADS) {
-    const int r = i / D, c = i - r * D;
-    dst[r * (D + 1) + c] = row0 + r < S ? src[(size_t)(row0 + r) * row_stride + c] : 0.f;
-  }
-}
-
-// float32, shapes as the bf16 kernels. grid: (ceil(S / 64), KV, B); block:
-// THREADS (16 x 16: thread (ty, tx) owns keys 4 ty .. 4 ty + 3 of the tile,
-// queries tx + 16 j of a score tile and channels tx + 16 j of dK, dV).
-__global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta, float* __restrict__ dk,
-                          float* __restrict__ dv, int S, int H, int KV, int D,
-                          float scale, int causal, int window) {
-  extern __shared__ float smem[];
-  const int ld = D + 1, ldp = BWD_TILE + 1;
-  float* Ks = smem;              // [64][D + 1]
-  float* Vs = Ks + BWD_TILE * ld;
-  float* Qs = Vs + BWD_TILE * ld;
-  float* dOs = Qs + BWD_TILE * ld;
-  float* Ps = dOs + BWD_TILE * ld;  // [64 keys][65]: P^T
-  float* dSs = Ps + BWD_TILE * ldp; // [64 keys][65]: dS^T
-  float* Ls = dSs + BWD_TILE * ldp; // [64]
-  float* Dls = Ls + BWD_TILE;       // [64]
-
-  const int k0 = blockIdx.x * BWD_TILE;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KV;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int nd = D >> 4;
-  const size_t q_row = (size_t)H * D, kv_row = (size_t)KV * D;
-
-  load_tile_f32(Ks, k + (size_t)b * S * kv_row + (size_t)kvh * D, kv_row, k0, S, D);
-  load_tile_f32(Vs, v + (size_t)b * S * kv_row + (size_t)kvh * D, kv_row, k0, S, D);
-  float dka[4][NJ], dva[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dka[i][j] = dva[i][j] = 0.f;
-
-  int q_begin, q_end;
-  query_range(k0, S, causal, window, q_begin, q_end);
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = kvh * G + hh;
-    const float* lb = lse + ((size_t)b * H + h) * S;
-    const float* eb = delta + ((size_t)b * H + h) * S;
-    for (int q0 = q_begin; q0 < q_end; q0 += BWD_TILE) {
-      __syncthreads();
-      load_tile_f32(Qs, q + (size_t)b * S * q_row + (size_t)h * D, q_row, q0, S, D);
-      load_tile_f32(dOs, dout + (size_t)b * S * q_row + (size_t)h * D, q_row, q0, S, D);
-      for (int i = tid; i < BWD_TILE; i += THREADS) {
-        const bool in = q0 + i < S;
-        Ls[i] = in ? lb[q0 + i] : 0.f;
-        Dls[i] = in ? eb[q0 + i] : 0.f;
-      }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], dv_[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = Ks[(ty * 4 + i) * ld + d];
-          vv[i] = Vs[(ty * 4 + i) * ld + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = Qs[(tx + 16 * j) * ld + d];
-          dv_[j] = dOs[(tx + 16 * j) * ld + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], dv_[j], dp[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int qi = tx + 16 * j;
-          const float p = visible(k0 + ty * 4 + i, q0 + qi, S, causal, window)
-                              ? expf(s[i][j] * scale - Ls[qi]) : 0.f;
-          Ps[(ty * 4 + i) * ldp + qi] = p;
-          dSs[(ty * 4 + i) * ldp + qi] = p * (dp[i][j] - Dls[qi]) * scale;
-        }
-      __syncthreads();
-      for (int t = 0; t < BWD_TILE; ++t) {
-        float pv[4], sv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Ps[(ty * 4 + i) * ldp + t];
-          sv[i] = dSs[(ty * 4 + i) * ldp + t];
-        }
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          if (j < nd) {
-            const float dov = dOs[t * ld + tx + 16 * j], qv = Qs[t * ld + tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              dva[i][j] = fmaf(pv[i], dov, dva[i][j]);
-              dka[i][j] = fmaf(sv[i], qv, dka[i][j]);
-            }
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kpos = k0 + ty * 4 + i;
-    if (kpos >= S) continue;
-    const size_t off = ((size_t)b * S + kpos) * kv_row + (size_t)kvh * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (j < nd) {
-        dk[off + tx + 16 * j] = dka[i][j];
-        dv[off + tx + 16 * j] = dva[i][j];
-      }
-  }
-}
-
-// float32 dQ. grid: (ceil(S / 64), H, B), heaviest query tiles first; block:
-// THREADS (thread (ty, tx) owns queries 4 ty .. 4 ty + 3, keys tx + 16 j of a
-// score tile and channels tx + 16 j of dQ).
-__global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, float* __restrict__ dq,
-                        int S, int H, int KV, int D, float scale, int causal,
-                        int window) {
-  extern __shared__ float smem[];
-  const int ld = D + 1, ldp = BWD_TILE + 1;
-  float* Qs = smem;              // [64][D + 1]
-  float* dOs = Qs + BWD_TILE * ld;
-  float* Ks = dOs + BWD_TILE * ld;
-  float* Vs = Ks + BWD_TILE * ld;
-  float* dSs = Vs + BWD_TILE * ld;  // [64 queries][65]
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BWD_TILE;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int nd = D >> 4;
-  const size_t q_row = (size_t)H * D, kv_row = (size_t)KV * D;
-  const float* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
-  const float* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
-
-  load_tile_f32(Qs, q + (size_t)b * S * q_row + (size_t)h * D, q_row, q0, S, D);
-  load_tile_f32(dOs, dout + (size_t)b * S * q_row + (size_t)h * D, q_row, q0, S, D);
-  float lse_i[4], del_i[4], dqa[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-    lse_i[i] = qpos < S ? lse[((size_t)b * H + h) * S + qpos] : 0.f;
-    del_i[i] = qpos < S ? delta[((size_t)b * H + h) * S + qpos] : 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dqa[i][j] = 0.f;
-  }
-
-  int k_begin, k_end;
-  key_range(q0, S, causal, window, k_begin, k_end);
-  for (int k0 = k_begin; k0 < k_end; k0 += BWD_TILE) {
-    __syncthreads();
-    load_tile_f32(Ks, kb, kv_row, k0, S, D);
-    load_tile_f32(Vs, vb, kv_row, k0, S, D);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty * 4 + i) * ld + d];
-        dov[i] = dOs[(ty * 4 + i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * ld + d];
-        vv[j] = Vs[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = visible(k0 + tx + 16 * j, q0 + ty * 4 + i, S, causal, window)
-                            ? expf(s[i][j] * scale - lse_i[i]) : 0.f;
-        dSs[(ty * 4 + i) * ldp + tx + 16 * j] = p * (dp[i][j] - del_i[i]) * scale;
-      }
-    __syncthreads();
-    for (int t = 0; t < BWD_TILE; ++t) {
-      float sv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty * 4 + i) * ldp + t];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        if (j < nd) {
-          const float kv = Ks[t * ld + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dqa[i][j] = fmaf(sv[i], kv, dqa[i][j]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-    if (qpos >= S) continue;
-    float* row = dq + ((size_t)b * S + qpos) * q_row + (size_t)h * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (j < nd) row[tx + 16 * j] = dqa[i][j];
-  }
-}
-
-cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v,
-                           const void* dout, const float* lse, const float* delta,
-                           void* dq, void* dk, void* dv, int B, int S, int H,
-                           int KV, int D, float scale, int causal, int window,
-                           cudaStream_t stream) {
-  const size_t smem_kv = bwd_f32_smem(D, true), smem_q = bwd_f32_smem(D, false);
-  static bool done[MAX_DEVICES] = {};  // the limits of the largest head dim
-  cudaError_t err = smem_opt_in(done, flash_bwd_dkdv_f32_kernel,
-                                (int)bwd_f32_smem(DMAX, true), flash_bwd_dq_f32_kernel,
-                                (int)bwd_f32_smem(DMAX, false));
-  if (err != cudaSuccess) return err;
-  const int tiles = (S + BWD_TILE - 1) / BWD_TILE;
-  const float* fq = static_cast<const float*>(q);
-  const float* fk = static_cast<const float*>(k);
-  const float* fv = static_cast<const float*>(v);
-  const float* fd = static_cast<const float*>(dout);
-  flash_bwd_dkdv_f32_kernel<<<dim3(tiles, KV, B), THREADS, smem_kv, stream>>>(
-      fq, fk, fv, fd, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
-      S, H, KV, D, scale, causal, window);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_f32_kernel<<<dim3(tiles, H, B), THREADS, smem_q, stream>>>(
-      fq, fk, fv, fd, lse, delta, static_cast<float*>(dq), S, H, KV, D, scale,
-      causal, window);
-  return cudaGetLastError();
-}
-
 // cuTensorMapEncodeTiled is a driver-API call. It is reached through the
 // runtime's cudaGetDriverEntryPoint, so the library needs no -lcuda and
 // loads wherever the CUDA runtime does.
@@ -3148,7 +2878,10 @@ cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The float32 (3xTF32) kernels' head dims: the forward's from 64 (below it
+// the FMA kernel), the backward's every multiple of 16 up to DMAX.
 #define REPRO_TF32_D(X) X(64) X(80) X(96) X(112) X(128)
+#define REPRO_TF32_BWD_D(X) X(16) X(32) X(48) REPRO_TF32_D(X)
 
 template <bool LSE>
 cudaError_t dispatch_fwd_tf32(const void* q, const void* k, const void* v, void* o,
@@ -3173,7 +2906,7 @@ cudaError_t dispatch_bwd_tf32(const void* q, const void* k, const void* v,
   case DD:                                                                         \
     return launch_bwd_tf32<DD>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV, \
                                scale, causal, window, stream);
-    REPRO_TF32_D(REPRO_FLASH_CASE)
+    REPRO_TF32_BWD_D(REPRO_FLASH_CASE)
 #undef REPRO_FLASH_CASE
     default: return cudaErrorInvalidValue;
   }
@@ -3182,20 +2915,27 @@ cudaError_t dispatch_bwd_tf32(const void* q, const void* k, const void* v,
 // The float32 wgmma kernels' plan at head dim D (forward keys a tile and
 // stages, dQ keys a tile and stages, dK/dV keys an item, queries a step and
 // stages, and the three kernels' dynamic shared memory), or false where D
-// has none.
+// has none. Below D = 64 only the backward runs them: the forward's fields
+// are 0.
+template <int D>
+void tf32_plan_of(int (&plan)[10]) {
+  using Q = BwdQTf32Smem<D>;
+  using K = BwdKvTf32Smem<D>;
+  int f[3] = {0, 0, 0};
+  if constexpr (D >= 64) {
+    using F = FwdTf32Smem<D>;
+    f[0] = F::BK, f[1] = F::STAGES, f[2] = F::BYTES;
+  }
+  const int p[10] = {f[0], f[1], Q::BK, Q::STAGES, K::KB, K::BQ, K::STAGES, f[2],
+                     Q::BYTES, K::BYTES};
+  for (int i = 0; i < 10; ++i) plan[i] = p[i];
+}
+
 bool tf32_plan(int D, int (&plan)[10]) {
   switch (D) {
-#define REPRO_FLASH_CASE(DD)                                                       \
-  case DD: {                                                                       \
-    using F = FwdTf32Smem<DD>;                                                     \
-    using Q = BwdQTf32Smem<DD>;                                                    \
-    using K = BwdKvTf32Smem<DD>;                                                   \
-    const int p[10] = {F::BK, F::STAGES, Q::BK, Q::STAGES, K::KB, K::BQ,           \
-                       K::STAGES, F::BYTES, Q::BYTES, K::BYTES};                   \
-    for (int i = 0; i < 10; ++i) plan[i] = p[i];                                   \
-    return true;                                                                   \
-  }
-    REPRO_TF32_D(REPRO_FLASH_CASE)
+#define REPRO_FLASH_CASE(DD) \
+  case DD: tf32_plan_of<DD>(plan); return true;
+    REPRO_TF32_BWD_D(REPRO_FLASH_CASE)
 #undef REPRO_FLASH_CASE
     default: return false;
   }
@@ -3229,7 +2969,7 @@ Route route(int dtype, int D, size_t* smem) {
   if (D % 16 != 0 || D < 16 || D > DMAX) return ROUTE_NONE;
   if (dtype == 0) {
     int plan[10];
-    if (tf32_plan(D, plan)) {
+    if (tf32_plan(D, plan) && plan[0] > 0) {  // the forward has tiles at D
       *smem = plan[7];
       return ROUTE_TF32;
     }
@@ -3306,8 +3046,9 @@ const char* flash_attention_route(int dtype, int D, int* smem_bytes) {
 // The float32 wgmma kernels' tiles at head dim D: plan = {forward keys a
 // tile, forward ring stages, dQ keys a tile, dQ stages, dK/dV keys an
 // item, dK/dV queries a step, dK/dV stages, and the forward's, dQ's and
-// dK/dV's dynamic shared memory in bytes}. Returns 0, or -1 where D has no
-// such kernels.
+// dK/dV's dynamic shared memory in bytes}; below D = 64 the backward's
+// alone, the forward's three fields 0 (the FMA kernel runs it there).
+// Returns 0, or -1 where D has no such kernels.
 int flash_attention_tf32_plan(int D, int* plan) {
   int p[10];
   if (!tf32_plan(D, p)) return -1;
@@ -3327,48 +3068,33 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   if (D % 16 != 0 || D < 16 || D > DMAX || H % KV != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = B * S * H;
-  const int lanes = delta_lanes(dtype, D);
-  const int blocks = (int)(((long long)rows * lanes + 255) / 256);
   float* dl = static_cast<float*>(delta);
   const float* l = static_cast<const float*>(lse);
-  using bf = __nv_bfloat16;
   if (dtype == 0)
-    flash_bwd_delta_kernel<float><<<blocks, 256, 0, st>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dout), dl, rows, S, H, D);
-  else if (lanes == 8)
-    flash_bwd_delta_kernel<bf, 8><<<blocks, 256, 0, st>>>(
-        static_cast<const bf*>(o), static_cast<const bf*>(dout), dl, rows, S, H, D);
+    launch_delta<float>(o, dout, dl, B * S * H, S, H, D, st);
   else
-    flash_bwd_delta_kernel<bf><<<blocks, 256, 0, st>>>(
-        static_cast<const bf*>(o), static_cast<const bf*>(dout), dl, rows, S, H, D);
+    launch_delta<__nv_bfloat16>(o, dout, dl, B * S * H, S, H, D, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (dtype == 0 && D >= 64)
+  if (dtype == 0)
     return (int)dispatch_bwd_tf32(q, k, v, dout, l, dl, dq, dk, dv, B, S, H, KV, D,
                                   scale, causal, window, st);
-  if (dtype == 0)
-    return (int)launch_bwd_f32(q, k, v, dout, l, dl, dq, dk, dv, B, S, H, KV, D,
-                               scale, causal, window, st);
   return (int)dispatch_bwd_bf16(q, k, v, dout, l, dl, dq, dk, dv, B, S, H, KV, D,
                                 scale, causal, window, st);
 }
 
 // Name of the kernels flash_attention_bwd runs for (dtype, D): "wgmma"
-// (bf16 at every D), "wgmma.3xtf32" (float32 at 64..128) or "fma" (float32
-// at 16, 32, 48), or NULL where it refuses them; *smem_bytes is the larger
-// dynamic shared memory of its two tile kernels.
+// (bf16 at every D) or "wgmma.3xtf32" (float32 at every D), or NULL where
+// it refuses them; *smem_bytes is the larger dynamic shared memory of its
+// two tile kernels.
 const char* flash_attention_bwd_route(int dtype, int D, int* smem_bytes) {
   *smem_bytes = 0;
   if (D % 16 != 0 || D < 16 || D > DMAX) return nullptr;
   if (dtype == 0) {
     int plan[10];
-    if (tf32_plan(D, plan)) {
-      *smem_bytes = plan[8] > plan[9] ? plan[8] : plan[9];
-      return "wgmma.3xtf32";
-    }
-    *smem_bytes = (int)bwd_f32_smem(D, true);
-    return "fma";
+    if (!tf32_plan(D, plan)) return nullptr;
+    *smem_bytes = plan[8] > plan[9] ? plan[8] : plan[9];
+    return "wgmma.3xtf32";
   }
   if (dtype != 1) return nullptr;
   switch (D) {

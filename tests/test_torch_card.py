@@ -153,8 +153,9 @@ def test_flash_kernel_matches_plain_at_hubert_shape_on_card(amp):
 @pytest.mark.cuda
 def test_flash_routes_by_dtype_and_head_dim_on_card():
     """bf16 at every head dim takes the TMA + wgmma kernel; float32 at
-    64..128 the TMA + wgmma kernel in 3xTF32, below 64 the FMA kernel; a
-    head dim off the grid of 16 none."""
+    64..128 the TMA + wgmma kernel in 3xTF32, below 64 the FMA kernel (the
+    backward takes 3xTF32 there, the forward does not); a head dim off the
+    grid of 16 none."""
     _cuda_or_skip()
     for D in SMALL_D + WGMMA_D:
         assert flash_route(torch.bfloat16, D)[0] == "wgmma"
@@ -208,8 +209,7 @@ def test_flash_forward_replays_from_cuda_graph_on_card(D, dtype):
 
 
 # The backward kernels (and the forward's lse): every head dim the forward
-# takes, float32 (3xTF32 wgmma at 64..128, FMA below) and bf16 (wgmma at
-# every head dim); GQA
+# takes, float32 (3xTF32 wgmma) and bf16 (wgmma); GQA
 # groups 1, 3 and 6 of H = 6; S of 1, on both sides of a 64-row tile (the
 # dK/dV item's keys) and a 128-row one (the dQ item's queries and keys),
 # 200 and 257 (S % 4 != 0: lse and delta rows start unaligned); causal,
@@ -226,7 +226,12 @@ BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 
 
-def _bwd_case_hold(seed, B, S, H, KV, D, dtype, causal, window, amp=1):
+def _bwd_case_hold(seed, B, S, H, KV, D, dtype, causal, window, amp=1,
+                   ref_dtype=None, lse_tol=None):
+    """``ref_dtype``: the forward's o and lse are held against the plain
+    forward evaluated in it (float64 for float32 at scores of +-60, where
+    float32's own rounding of the plain version reaches the tolerance);
+    ``lse_tol``: lse's absolute tolerance, LSE_TOL[dtype] by default."""
     q, k, v = _flash_inputs(seed, B, S, H, KV, D, dtype, amp)
     do = _inputs(np.random.default_rng(seed + 1), dtype, (B, S, H, D))[0]
     tr = lambda x: x.transpose(1, 2)
@@ -237,11 +242,13 @@ def _bwd_case_hold(seed, B, S, H, KV, D, dtype, causal, window, amp=1):
     torch.cuda.synchronize()
     assert (flash_attention.launches, flash_attention_bwd.launches) == (
         n_fwd + 1, n_bwd + 1)
+    wide = (lambda x: x.to(ref_dtype)) if ref_dtype else (lambda x: x)
     ref_out, ref_lse = attention_forward_reference(
-        tr(q), tr(k), tr(v), causal=causal, window=window)
-    np.testing.assert_allclose(_np(out), _np(tr(ref_out)), **_tol(dtype))
-    np.testing.assert_allclose(_np(lse), _np(ref_lse), rtol=0,
-                               atol=LSE_TOL[dtype])
+        *(wide(tr(x)) for x in (q, k, v)), causal=causal, window=window)
+    np.testing.assert_allclose(_np(out), tr(ref_out).double().cpu().numpy(),
+                               **_tol(dtype))
+    np.testing.assert_allclose(_np(lse), ref_lse.double().cpu().numpy(),
+                               rtol=0, atol=lse_tol or LSE_TOL[dtype])
     refs = attention_backward_reference(tr(q), tr(k), tr(v), tr(out), lse,
                                         tr(do), causal=causal, window=window)
     largest = max(float(r.abs().max()) for r in refs)
@@ -277,6 +284,27 @@ def test_flash_backward_matches_plain_at_training_shapes_on_card(
         B, S, H, KV, D, causal, window, amp):
     _cuda_or_skip()
     _bwd_case_hold(3, B, S, H, KV, D, "bfloat16", causal, window, amp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV", [
+    (1, 2048, 32, 8),      # the small head dims' timed shape
+    (2, 1000, 15, 3)])     # G = 5, B = 2: TMA's fill past S
+@pytest.mark.parametrize("D", SMALL_D)
+@pytest.mark.parametrize("amp", [1, 8])
+def test_flash_f32_backward_matches_plain_at_small_head_dims_on_card(
+        B, S, H, KV, D, amp):
+    """float32 below D = 64 at long sequences: the 3xTF32 backward kernels
+    (64-key dK/dV items) against the plain backward, scores up to +-60 at
+    amp 8; the FMA forward's o and lse against the plain forward in
+    float64. lse is held at 1e-5 per unit of the scores' standard
+    deviation (amp): its error is float32's rounding of the scores, which
+    grows with them (at amp 8 and |lse| ~30 the FMA forward's lse is
+    1.1e-5 to 1.5e-5 off float64's, ~8 float32 ulps, on an H100)."""
+    _cuda_or_skip()
+    assert flash_route(torch.float32, D, backward=True)[0] == "wgmma.3xtf32"
+    _bwd_case_hold(3, B, S, H, KV, D, "float32", True, None, amp,
+                   ref_dtype=torch.float64, lse_tol=LSE_TOL["float32"] * amp)
 
 
 @pytest.mark.cuda
@@ -349,14 +377,14 @@ def test_flash_backward_replays_from_cuda_graph_on_card(D, dtype):
 
 @pytest.mark.cuda
 def test_flash_backward_routes_on_card():
-    """bf16 at every head dim takes the TMA + wgmma kernels; float32 at
-    64..128 the TMA + wgmma kernels in 3xTF32, below 64 the FMA kernels."""
+    """bf16 at every head dim takes the TMA + wgmma kernels, float32 the TMA
+    + wgmma kernels in 3xTF32."""
     _cuda_or_skip()
     for D in BWD_D:
         assert flash_route(torch.bfloat16, D, backward=True)[0] == "wgmma"
-        want = "wgmma.3xtf32" if D >= 64 else "fma"
-        assert flash_route(torch.float32, D, backward=True)[0] == want
+        assert flash_route(torch.float32, D, backward=True)[0] == "wgmma.3xtf32"
     assert flash_route(torch.bfloat16, 72, backward=True)[0] is None
+    assert flash_route(torch.float32, 72, backward=True)[0] is None
 
 
 @pytest.mark.cuda
