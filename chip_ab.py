@@ -2,7 +2,7 @@
 """Time kernels of several checkouts on one card, at the served shapes,
 with ``chip_smoke.py``'s clocks.
 
-    python3 chip_ab.py [--only flash,flash_bwd,flash_small,flash_small_f32,flash_f32,train_f32,decode,gla] <parent checkout>/src src src <parent checkout>/src
+    python3 chip_ab.py [--only flash,flash_bwd,flash_small,flash_small_f32,flash_f32,train_f32,decode,gla,microgrid] <parent checkout>/src src src <parent checkout>/src
 
 Each argument is a directory that holds a ``repro_torch`` package. Each runs
 in a process of its own: its kernels are built, held against their plain
@@ -21,8 +21,8 @@ ms, SDPA's backward), bf16 forward and backward at the small head dims
 B=1 S=2048 GQA 32/8 causal, no served model; bound the larger of the
 tensor cores' operations and one exp2 a visible pair
 (``chip_smoke.exp2_ms``); the backward's device
-time by kernel), the same in float32 (``--only flash_small_f32``: the FMA
-forward, the 3xTF32 wgmma backward, bound at 3xTF32 and at the FMA rate,
+time by kernel), the same in float32 (``--only flash_small_f32``: the
+3xTF32 wgmma forward and backward, bound at 3xTF32 and at the FMA rate,
 SDPA's float32 calls beside them), the float32 forward and backward (``--only
 flash_f32``: ``chip_smoke.FLASH_F32_SHAPES``, smollm-360m's training shape,
 Llama's widths and the small row, beside SDPA's float32 calls and both
@@ -32,8 +32,16 @@ Llama-3-8B's decode shapes (``chip_smoke.max_err``, ``seq_err`` and
 ``decode_times``, SDPA both ways), and ``gla_scan`` at RWKV6-1.6B's prefill shapes (rwkv, H=32, T 128,
 1000 and 2048) and Zamba2's widths (ssd, H=64, T=2048), bf16 q/k/v,
 float32 log_w and u, and the float32 kernel at RWKV6's T=2048 with
-float32 q/k/v (``chip_smoke.GLA_TOL`` and ``gla_times``). ``--only`` picks
-some of the eight (default: all). Listing
+float32 q/k/v (``chip_smoke.GLA_TOL`` and ``gla_times``), and
+``microgrid_scan`` (``--only microgrid``) at Table 2's trace (T = 1800) and
+a year at 60 s (T = 525,600), both under Table 2's battery: eager and graph
+ms, the SM clock read while it runs, graph cycles a step at that clock,
+and the serial chain's ms (``chip_smoke.microgrid_times``); both traces are
+timed first, then held bit for bit against the plain step loop (Table 2's
+on the card, the year's on the CPU, whose loop gives the card's bits:
+``tests/test_torch_card.py::test_microgrid_loop_on_card_matches_cpu``),
+so a scratch variant that computes less still prints its times before it
+fails. ``--only`` picks some of the nine (default: all). Listing
 the trees as parent, change, change, parent shows the card's drift within
 the call. One JSON line per (tree, shape); a kernel that disagrees with
 its plain version exits non-zero.
@@ -57,7 +65,7 @@ GLA_SHAPES = (("rwkv", 32, 128, "bfloat16"), ("rwkv", 32, 1000, "bfloat16"),
 
 
 KERNELS = ("flash", "flash_bwd", "flash_small", "flash_small_f32", "flash_f32",
-           "train_f32", "decode", "gla")
+           "train_f32", "decode", "gla", "microgrid")
 
 
 def one(src: Path, only):
@@ -180,6 +188,31 @@ def gla(cs, src: Path):
                                    cs.max_err(state, ref_s, dtype, cs.GLA_TOL)))
         row.update(cs.gla_times(kernel, q, k, v, log_w, u, mode))
         print(json.dumps(row), flush=True)
+
+
+def microgrid(cs, src: Path):
+    import torch
+    from repro_torch.core.microgrid import constants
+    from repro_torch.kernels.microgrid_scan import (microgrid_scan,
+                                                    microgrid_scan_reference)
+    k = constants(cs.microgrids()["table1b"])
+    traces = {"table2": cs.table2_inputs(),
+              "year": cs.microgrid_inputs(cs.MICROGRID_YEAR, 11)}
+    for name, inputs in traces.items():
+        T = inputs[0].shape[1]
+        row = dict(src=str(src), kernel="microgrid_scan", trace=name, B=1, T=T)
+        row.update(cs.microgrid_times(lambda: microgrid_scan(*inputs, k), T))
+        row.update(cs.microgrid_bound(T))
+        print(json.dumps(row), flush=True)
+    for name, inputs in traces.items():
+        dev = "cuda" if name == "table2" else "cpu"
+        out = microgrid_scan(*inputs, k).cpu()
+        ref = microgrid_scan_reference(*(x.to(dev) for x in inputs), k).cpu()
+        equal = out.shape == ref.shape and cs.equal_nan(out, ref)
+        print(json.dumps(dict(src=str(src), kernel="microgrid_scan", trace=name,
+                              plain_on=dev, equal=equal)), flush=True)
+        if not equal:
+            cs.fail(f"microgrid_scan {name}: kernel differs from the plain loop")
 
 
 def main():

@@ -18,8 +18,8 @@ result:
    shapes, each timed with CUDA events beside its bound, its plain version
    and, for attention, ``scaled_dot_product_attention`` (a yardstick the
    port never calls; no PyTorch call computes the GLA scan); every flash
-   and decode case names the path that ran it (flash: ``wgmma``,
-   ``wgmma.3xtf32`` or ``fma``; decode: ``mma.sync`` or ``fma``; a float32
+   and decode case names the path that ran it (flash: ``wgmma`` or
+   ``wgmma.3xtf32``; decode: ``mma.sync`` or ``fma``; a float32
    flash case is held against the plain version evaluated in float64) and
    every gla_scan case its route (``mma`` or ``fma``); the
    flash wgmma, decode mma.sync and gla_scan mma paths' own case lists run
@@ -35,8 +35,10 @@ result:
    RWKV6's served shape; ``microgrid_scan`` (the co-sim's steps in one
    launch) is held bit for bit against its plain step loop (Table 2's
    trace, seeded random loads under four batteries, no battery, a batch
-   of traces, T = 0, traces longer than one shared-memory window) and
-   timed at Table 2's 1800 steps beside its bound and the serial chain's;
+   of traces, T = 0, one window and one step, three windows, signed zeros
+   and a NaN in the surplus, a year at 60 s) and timed at Table 2's 1800
+   steps and the year's 525,600 beside its bound and the serial chain's,
+   with cycles a step at the SM clock read while it runs;
    flash attention's backward kernels (and the forward's lse) against the
    plain backward (``attention_backward_reference``) over the card tests'
    grid (float32 at 2e-4, bf16 at 2e-2 of each gradient's largest
@@ -48,7 +50,7 @@ result:
    (``FLASH_F32_SHAPES``) beside SDPA's float32 calls, their bound at the
    3xTF32 rate and at float32's FMA rate; the small head dims (16, 32, 48,
    no served model) at B=1 S=2048 GQA 32/8 causal, forward and backward,
-   bf16 (wgmma) and float32 (the FMA forward, the wgmma.3xtf32 backward),
+   bf16 (wgmma) and float32 (wgmma.3xtf32, both ways),
    each backward's device time by kernel; every bf16 flash row's bound is the
    larger of its tensor-core operations and its exp2 (one a visible pair,
    split between the special-function units and a cubic on the FMA
@@ -182,11 +184,11 @@ FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 DECODE_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
 GLA_REPLACES = "src/repro/kernels/gla_scan/kernel.py:103"
 GLA_SOURCE = "src/repro_torch/kernels/gla_scan/csrc/gla_scan.cu"
-# the wgmma flash path's cases, as in tests/test_torch_card.py: bf16 at
-# every head dim, float32 (3xTF32) from 64
+# the wgmma flash paths' cases, as in tests/test_torch_card.py: bf16 and
+# float32 (3xTF32) at every head dim
 WGMMA_D = (64, 80, 96, 112, 128)
 SMALL_D = (16, 32, 48)
-WGMMA_D_OF = {torch.bfloat16: SMALL_D + WGMMA_D, torch.float32: WGMMA_D}
+FLASH_D = SMALL_D + WGMMA_D
 WGMMA_S = (1, 63, 64, 127, 128, 129, 1000, 2048)
 WGMMA_MASKS = ((True, None), (True, 64), (True, 1000), (False, None))
 # the decode mma.sync path's cases, as in tests/test_torch_card.py: W = 1024,
@@ -257,8 +259,11 @@ F32_GRAD_TOL = 1e-4         # per leaf, relative Frobenius: the CPU parity tests
 F32_LOSS_TOL = 1e-5         # relative
 MICROGRID_REPLACES = "src/repro/core/microgrid.py:45 (simulate, lax.scan)"
 MICROGRID_SOURCE = "src/repro_torch/kernels/microgrid_scan/csrc/microgrid_scan.cu"
-# dependent float32 operations that carry soc_wh from one step to the next
-MICROGRID_CHAIN_OPS = 8
+# dependent float32 operations that carry soc_wh from one step to the next:
+# sub, max, mul, min, mul, add, sub (the kernel folds max_chg and max_dis_w
+# into caps computed off the chain; min is associative)
+MICROGRID_CHAIN_OPS = 7
+MICROGRID_YEAR = 525600     # steps of a year at 60 s
 
 
 def fail(msg: str):
@@ -398,15 +403,15 @@ def phase_build():
         if "registers" not in b.log:
             print(f"  {name}: library reused from an earlier build, "
                   "ptxas output not recorded")
-    for dtype, D in [(torch.bfloat16, D) for D in SMALL_D + WGMMA_D] + [
-            (torch.float32, D) for D in SMALL_D + WGMMA_D]:
+    for dtype, D in [(dt, D) for dt in (torch.bfloat16, torch.float32)
+                     for D in FLASH_D]:
         path, smem = kernel_route(dtype, D)
         print(f"  flash_attention route {dtype} D={D}: {path}, {smem} bytes "
               "dynamic smem per CTA")
         path, smem = kernel_route(dtype, D, backward=True)
         print(f"  flash_attention_bwd route {dtype} D={D}: {path}, {smem} "
               "bytes dynamic smem in its larger CTA")
-    for D in SMALL_D + WGMMA_D:
+    for D in FLASH_D:
         print(f"  flash float32 (3xTF32) tiles D={D}: {tf32_plan(D)}")
     for qdt, cdt, D in [(torch.bfloat16, torch.bfloat16, 128),
                         (torch.bfloat16, torch.bfloat16, 64),
@@ -835,12 +840,11 @@ def phase_kernels() -> dict:
             print(f"decode sweep B={B} W={W} H={H} KV={KV} D={D} {dtype}: "
                   f"{fmt(row)}")
     print("-- flash, the wgmma paths' cases (tests/test_torch_card.py: bf16 "
-          f"at D {'/'.join(map(str, WGMMA_D_OF[torch.bfloat16]))} and float32 "
-          f"(3xTF32) at D {'/'.join(map(str, WGMMA_D))}, H=8, GQA groups 1/4/8, "
-          "B 1 and 2, causal / window 64 / window 1000 / non-causal, q x1 and "
-          "x8), max error per (dtype, D, S)")
+          f"and float32 (3xTF32) at D {'/'.join(map(str, FLASH_D))}, H=8, GQA "
+          "groups 1/4/8, B 1 and 2, causal / window 64 / window 1000 / "
+          "non-causal, q x1 and x8), max error per (dtype, D, S)")
     for dtype in (torch.bfloat16, torch.float32):
-        for D in WGMMA_D_OF[dtype]:
+        for D in FLASH_D:
             for S in WGMMA_S:
                 worst, paths, n = 0.0, set(), 0
                 for B in (1, 2):
@@ -995,7 +999,7 @@ def phase_kernels() -> dict:
     row = gla_case(1, 2048, 64, 64, 64, "ssd", bf16, gen,
                    lw_dtype=torch.float32, timed=True)
     print(f"gla ssd B=1 T=2048 H=64 K=V=64 (Zamba2's served prefill): {fmt(row)}")
-    rows["microgrid"] = microgrid_cases()
+    rows.update(microgrid_cases())
     return rows
 
 
@@ -1062,8 +1066,8 @@ def flash_f32_rows(gen) -> dict:
 
 def flash_small_rows(gen) -> dict:
     """The head dims below 64 (no served model) at FLASH_SMALL, causal:
-    bf16 forward and backward (the wgmma kernels) and float32 forward (the
-    FMA kernel) and backward (the wgmma.3xtf32 kernels), each beside SDPA's
+    bf16 forward and backward (the wgmma kernels) and float32 forward and
+    backward (the wgmma.3xtf32 kernels), each beside SDPA's
     call in its dtype, each backward's device time by kernel beside it
     (delta, dK/dV, dQ)."""
     B, S, H, KV = FLASH_SMALL
@@ -1116,6 +1120,19 @@ def microgrid_inputs(T: int, seed: int, B: int = 1):
     return draw(0, 600.0), draw(0, 800.0), draw(50, 800.0)
 
 
+def signed_zero_inputs(T: int, seed: int):
+    """``microgrid_inputs`` with signed zeros and a NaN placed in the
+    surplus: every 7th step solar -0 against load +0 (surplus -0), every
+    11th load -0 against solar +0 (surplus +0), every 13th both +0, and a
+    NaN load 100 steps before the end (NaN from there on). The kernel's
+    reordered chain must give the loop's values here too."""
+    load, solar, ci = microgrid_inputs(T, seed)
+    for every, ld, sol in ((7, 0.0, -0.0), (11, -0.0, 0.0), (13, 0.0, 0.0)):
+        load[:, ::every], solar[:, ::every] = ld, sol
+    load[:, T - 100] = float("nan")
+    return load, solar, ci
+
+
 def table2_inputs():
     """Table 2's co-sim inputs as ``core.run_cosim`` hands them to the
     scan (the stage log of ``run_simulation(PAPER_DEFAULT)`` as a 60 s
@@ -1127,13 +1144,71 @@ def table2_inputs():
             for x in (cos.load.values, cos.solar.values, cos.ci.values)]
 
 
+def microgrids() -> dict:
+    """The co-sim configurations the microgrid cases take: the default,
+    Table 1b's 100 Wh battery at SoC 20-80 % (Table 2's), a slow 5-minute
+    grid, no battery, and zero charge and discharge rates (caps of zero)."""
+    from repro_torch import core
+    battery = lambda **kw: core.MicrogridConfig(battery=core.BatteryConfig(**kw))
+    return {"default": core.MicrogridConfig(),
+            "table1b": battery(capacity_wh=100.0, soc_init=0.5, soc_min=0.2,
+                               soc_max=0.8),
+            "slow-5min": core.MicrogridConfig(
+                step_s=300.0, battery=core.BatteryConfig(
+                    capacity_wh=500.0, soc_init=0.2, max_charge_w=150.0,
+                    max_discharge_w=90.0, efficiency=0.9)),
+            "no-battery": battery(capacity_wh=0.0),
+            "zero-rates": battery(max_charge_w=0.0, max_discharge_w=0.0)}
+
+
+def sm_clock_during(fn) -> float:
+    """The SM clock (MHz) that nvidia-smi reads while ``fn`` runs again and
+    again on the card."""
+    import threading
+    got = []
+    reader = threading.Thread(target=lambda: got.append(nvidia_smi("clocks.sm")))
+    reader.start()
+    while reader.is_alive():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    reader.join()
+    return float(got[0].split()[0])
+
+
+def microgrid_times(kernel, T: int) -> dict:
+    """A microgrid_scan call over T steps: eager and CUDA-graph ms, the SM
+    clock read while it runs (``sm_mhz``, beside ``max_sm_mhz``), graph
+    cycles a step at that clock, and ``chain_ms``: the serial chain's
+    MICROGRID_CHAIN_OPS dependent operations a step at ~4 cycles each, at
+    the card's maximum SM clock."""
+    long = T > 100_000
+    max_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    row = {"ms": time_ms(kernel, 5 if long else 50),
+           "graph_ms": graph_ms(kernel, iters=4 if long else 20),
+           "sm_mhz": sm_clock_during(kernel), "max_sm_mhz": max_mhz,
+           "chain_ms": T * MICROGRID_CHAIN_OPS * 4 / (max_mhz * 1e3)}
+    row["cycles_per_step"] = row["graph_ms"] * row["sm_mhz"] * 1e3 / T
+    return row
+
+
+def microgrid_bound(T: int) -> dict:
+    """Bytes (three float32 inputs read and seven traces written once a
+    step) against operations (~25 float32 a step) at the card's rates."""
+    nbytes, flops = 4 * T * (3 + 7), 25 * T
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = ((t_ops, "operations") if t_ops >= t_bytes
+                          else (t_bytes, "bytes"))
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def microgrid_cases() -> dict:
     """``microgrid_scan`` against its plain step loop on the card, held
     with ``equal_nan`` (bit for bit): Table 2's trace, seeded random
-    loads under four batteries, no battery, a batch of traces, T = 0,
-    and traces longer than one shared-memory window. Returns the Table 2
-    row, timed."""
-    from repro_torch import core
+    loads under four batteries, no battery, a batch of traces, T = 0, one
+    window and one step, three windows, signed zeros and a NaN in the
+    surplus, and a year at 60 s. Returns the Table 2 row and the year's,
+    timed."""
     from repro_torch.core.microgrid import constants
     from repro_torch.kernels.microgrid_scan import (microgrid_scan,
                                                     microgrid_scan_reference)
@@ -1141,14 +1216,7 @@ def microgrid_cases() -> dict:
     print("-- microgrid_scan against its plain step loop (torch.equal, NaN "
           "in the same places); no PyTorch call computes this scan, so "
           "library_ms is none")
-    battery = lambda **kw: core.MicrogridConfig(battery=core.BatteryConfig(**kw))
-    table1b = battery(capacity_wh=100.0, soc_init=0.5, soc_min=0.2, soc_max=0.8)
-    grids = {"default": core.MicrogridConfig(), "table1b": table1b,
-             "slow-5min": core.MicrogridConfig(
-                 step_s=300.0, battery=core.BatteryConfig(
-                     capacity_wh=500.0, soc_init=0.2, max_charge_w=150.0,
-                     max_discharge_w=90.0, efficiency=0.9)),
-             "no-battery": battery(capacity_wh=0.0)}
+    grids = microgrids()
     window = window_steps()
 
     def case(label, inputs, cfg):
@@ -1159,7 +1227,10 @@ def microgrid_cases() -> dict:
         launched = microgrid_scan.launches - n0
         if launched != (1 if out.numel() else 0):
             fail(f"microgrid_scan {label}: {launched} launches")
+        t = time.perf_counter()
         ref = microgrid_scan_reference(*inputs, k)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
         if out.shape != ref.shape or not equal_nan(out, ref):
             diff = (out - ref).abs().nan_to_num(float("inf"))
             fail(f"microgrid_scan {label}: kernel differs from the plain loop "
@@ -1167,40 +1238,43 @@ def microgrid_cases() -> dict:
         print(f"microgrid {label}: B={inputs[0].shape[0]} "
               f"T={inputs[0].shape[1]} equal=True launches={launched} "
               f"nan_soc={bool(torch.isnan(out[0]).any())}")
-        return out, ref, k
+        return k, plain_s
 
     t2 = table2_inputs()
-    out, ref, k = case("table2", t2, table1b)
+    k, _ = case("table2", t2, grids["table1b"])
     for seed in range(2):
-        for name, cfg in grids.items():
-            case(f"random seed={seed} {name}", microgrid_inputs(1800, seed), cfg)
+        for name in ("default", "table1b", "slow-5min", "no-battery"):
+            case(f"random seed={seed} {name}", microgrid_inputs(1800, seed),
+                 grids[name])
     case("batch of 3", microgrid_inputs(window + 5, 7, B=3), grids["default"])
-    case("T=0", microgrid_inputs(0, 0), table1b)
+    case("T=0", microgrid_inputs(0, 0), grids["table1b"])
+    case(f"T={window}+1 (a one-step tail)", microgrid_inputs(window + 1, 12),
+         grids["default"])
     case(f"T=2x{window}+123 (three windows)",
          microgrid_inputs(2 * window + 123, 9), grids["default"])
     case(f"T=2x{window}+123 no battery",
          microgrid_inputs(2 * window + 123, 10), grids["no-battery"])
+    for name in ("table1b", "zero-rates"):
+        case(f"signed zeros and NaN {name}", signed_zero_inputs(1800, 13),
+             grids[name])
+    year = microgrid_inputs(MICROGRID_YEAR, 11)
+    # the plain loop over a year runs once (minutes on the card): its time
+    # is that run's, host clock to a sync
+    _, year_plain_s = case("year", year, grids["table1b"])
 
-    T = t2[0].shape[1]
-    kernel = lambda: microgrid_scan(*t2, k)
-    # bytes: three float32 inputs read and seven traces written once per
-    # step; operations: ~25 float32 operations per step
-    nbytes, flops = 4 * T * (3 + 7), 25 * T
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms, bound_by = ((t_ops, "operations") if t_ops >= t_bytes
-                          else (t_bytes, "bytes"))
-    sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    row = {"max_abs_err": 0.0, "path": "cuda",
-           "ms": time_ms(kernel, 50), "graph_ms": graph_ms(kernel),
-           "plain_ms": time_ms(lambda: microgrid_scan_reference(*t2, k), 2,
-                               warmup=1),
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-           # the serial chain: 8 dependent float32 operations of ~4
-           # cycles per step, at the card's maximum SM clock
-           "chain_ms": T * MICROGRID_CHAIN_OPS * 4 / (sm_mhz * 1e3)}
-    print(f"microgrid table2 B=1 T={T}: {fmt(row)} chain_ms="
-          f"{row['chain_ms']:.4f} (serial chain at {sm_mhz:.0f} MHz)")
-    return row
+    rows = {}
+    for key, inputs in (("microgrid", t2), ("microgrid_year", year)):
+        T = inputs[0].shape[1]
+        kernel = lambda: microgrid_scan(*inputs, k)
+        row = {"max_abs_err": 0.0, "path": "cuda",
+               **microgrid_times(kernel, T), **microgrid_bound(T)}
+        row["plain_ms"] = year_plain_s * 1e3 if key == "microgrid_year" else \
+            time_ms(lambda: microgrid_scan_reference(*inputs, k), 2, warmup=1)
+        print(f"{key} B=1 T={T}: {fmt(row)} chain_ms={row['chain_ms']:.4f} "
+              f"cycles_per_step={row['cycles_per_step']:.1f} at "
+              f"{row['sm_mhz']:.0f} MHz (max {row['max_sm_mhz']:.0f})")
+        rows[key] = row
+    return rows
 
 
 # ---------------------------------------------------------------------------

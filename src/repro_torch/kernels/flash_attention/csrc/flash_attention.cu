@@ -32,7 +32,7 @@
 // (128 a clock per SM; ~6 instructions an exp2 beside the softmax's ~2 a
 // pair), the exp2 can take ~0.57x of that time, as long as the flops at
 // D ~ 37: below it the softmax, not the products, bounds the kernel.
-// Three kernels, chosen by (dtype, D) in flash_attention_fwd:
+// Two kernels, chosen by dtype in flash_attention_fwd:
 //   - bfloat16 at every D (16 to 128 in steps of 16; Llama-3-8B and the other
 //     served D = 128 models, Zamba2's D = 64, HuBERT's, phi-2's and
 //     h2o-danube's D = 80; no served model below 64):
@@ -76,13 +76,14 @@
 //     S = 2048, GQA 32/8, D = 32 ran 0.046 ms against 0.017 for the exp2 on
 //     the special-function units alone. Every exp2 here is ex2.approx; what
 //     holds the kernel between the floor and its time is not yet measured.
-//   - float32 at D = 64, 80, 96, 112 and 128 (float32 models, training in
-//     float32): flash_fwd_tf32_kernel, the same shape on the tensor cores in
-//     TF32 with every operand split into a hi and a lo part (3xTF32; see
+//   - float32 at every D (float32 models, training in float32; no model
+//     below 64): flash_fwd_tf32_kernel, the same shape on the tensor cores
+//     in TF32 with every operand split into a hi and a lo part (3xTF32; see
 //     "float32: TMA + wgmma in TF32" below): one TF32 pass keeps about
-//     three digits, the split float32's.
-//   - float32 at D = 16, 32 and 48 (no model): float32 FMAs on shared-memory
-//     tiles.
+//     three digits, the split float32's. At D = 16, 32 and 48 it replaced
+//     float32 FMAs on shared-memory tiles (synchronous loads, no tensor
+//     cores), which ran 0.96 / 1.09 / 1.26 ms on an H100 at B = 1, S = 2048,
+//     GQA 32/8, causal.
 // A refused launch or a failed tensor-map encode returns its error; there is
 // no fallback from one kernel to another.
 #include <cuda.h>  // CUtensorMap and its enums; no link against libcuda
@@ -92,191 +93,7 @@
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per CTA
-constexpr int BK = 64;        // key rows per KV tile
-constexpr int THREADS = 256;  // 16 x 16 threads; each owns 4 rows x 4 score columns
-constexpr int DMAX = 128;
-constexpr int NJ = DMAX / 16; // output columns per thread at D = DMAX
-constexpr float NEG_INF = -1e30f;
-
-__host__ __device__ constexpr size_t smem_bytes(int D) {
-  // Q and K tiles padded to D + 1 columns (conflict-free column reads), V
-  // tile unpadded (read along rows), P tile padded to BK + 1.
-  return sizeof(float) * ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) +
-                          (size_t)BK * D + (size_t)BQ * (BK + 1));
-}
-
-// ---------------------------------------------------------------------------
-// float32: FMAs on shared-memory tiles
-// ---------------------------------------------------------------------------
-
-// q, o: (B, S, H, D); k, v: (B, S, KV, D); float32, contiguous. With LSE,
-// lse (B, H, S) float32 takes each row's natural-log sum of exp(scores).
-// grid: (ceil(S / BQ), H, B); block: THREADS; dynamic smem: smem_bytes(D).
-template <bool LSE>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S, int H,
-                 int KV, int D, float scale, int causal, int window,
-                 float* __restrict__ lse) {
-  extern __shared__ float smem[];
-  const int ldq = D + 1;
-  float* Qs = smem;               // [BQ][D + 1]
-  float* Ks = Qs + BQ * ldq;      // [BK][D + 1]
-  float* Vs = Ks + BK * ldq;      // [BK][D]
-  float* Ps = Vs + BK * D;        // [BQ][BK + 1]
-
-  // heaviest causal tiles (the last query rows) are scheduled first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int nd = D >> 4;
-
-  const size_t q_row = (size_t)H * D, kv_row = (size_t)KV * D;
-  const float* qb = q + (size_t)b * S * q_row + (size_t)h * D;
-  const float* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
-  const float* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i - r * D;
-    const int pos = q0 + r;
-    Qs[r * ldq + c] = pos < S ? qb[(size_t)pos * q_row + c] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  int k_begin = 0, k_end = S;
-  if (causal) k_end = min(S, q0 + BQ);
-  if (window > 0) k_begin = max(0, q0 - window + 1);
-  k_begin = (k_begin / BK) * BK;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done; orders the Q load
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, c = i - r * D;
-      const int pos = k0 + r;
-      const bool ok = pos < S;
-      Ks[r * ldq + c] = ok ? kb[(size_t)pos * kv_row + c] : 0.f;
-      Vs[r * D + c] = ok ? vb[(size_t)pos * kv_row + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * ldq + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * ldq + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      bool ok[4];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        ok[j] = kpos < S && (!causal || kpos <= qpos) &&
-                (window <= 0 || kpos > qpos - window);
-        s[i][j] = ok[j] ? s[i][j] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the 16 threads of a row group are lanes of one half-warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // a masked score contributes nothing, also while the row has no
-        // unmasked score yet (m_new == NEG_INF)
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty * 4 + i) * (BK + 1) + tx + 16 * j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    for (int t = 0; t < BK; ++t) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * (BK + 1) + t];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        if (j < nd) {
-          const float vv = Vs[t * D + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-    if (qpos >= S) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-37f);
-    float* orow = o + ((size_t)b * S + qpos) * q_row + (size_t)h * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (j < nd) orow[tx + 16 * j] = acc[i][j] * inv;
-    // m and l are whole-row values in every lane of the row group
-    if constexpr (LSE)
-      if (tx == 0) lse[((size_t)b * H + h) * S + qpos] = m[i] + logf(l[i]);
-  }
-}
-
-template <bool LSE>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int S, int H, int KV, int D,
-                       float scale, int causal, int window, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  // two CTAs of ~113 KB share an SM only with the whole carveout as shared memory
-  err = cudaFuncSetAttribute(flash_fwd_f32_kernel<LSE>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_f32_kernel<LSE><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, D, scale,
-      causal, window, lse);
-  return cudaGetLastError();
-}
+constexpr int DMAX = 128;  // the largest head dim
 
 // ---------------------------------------------------------------------------
 // bfloat16: TMA ring, warp-specialised wgmma
@@ -1506,11 +1323,10 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   }
 }
 
-// ---- float32: TMA + wgmma in TF32, 3xTF32 (forward at D = 64, 80, 96,
-// 112, 128; backward at every D) ----
+// ---- float32: TMA + wgmma in TF32, 3xTF32 (forward and backward at every
+// D) ----
 //
-// Replaces FMA kernels on shared-memory tiles: the forward's at these head
-// dims (flash_fwd_f32_kernel above keeps D = 16, 32, 48) and the
+// Replaces FMA kernels on shared-memory tiles, the forward's and the
 // backward's at every D: the same functions, on the tensor cores. float32
 // FMAs reach 67 TFLOP/s on this card, TF32 wgmma 495. One TF32 pass keeps
 // 11 bits of each operand, about three digits, and would
@@ -1550,11 +1366,12 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 //     accumulator's registers are the A fragment as they stand.
 //   - Shared memory: float32 tiles are twice bf16's, and hi/lo doubles them
 //     again; at D = 128 a 128-key stage of K and V^T would need 256 KB. The
-//     tiles and ring depths below are the largest that fit 227 KB
+//     tiles and ring depths below fit 227 KB
 //     (FwdTf32Smem, BwdQTf32Smem, BwdKvTf32Smem; flash_attention_tf32_plan
-//     reports them): 64-key tiles at D = 64 and 32 above for the forward,
-//     32 and 16 for dQ; dK/dV items of 128 keys to D = 96 (32-query steps
-//     at 64, 16 above) and of 64 keys from 112.
+//     reports them): the forward's key tiles 128 to D = 32, 64 at 48 and
+//     64, 32 above; dQ's 64 to D = 32, 32 at 48 and 64, 16 above; dK/dV
+//     items of 128 keys from D = 64 to 96 (32-query steps at 64, 16 above)
+//     and of 64 keys elsewhere (D = 16, 32 and 48: the last two notes).
 //   - Splitting costs the converters more instructions and shared-memory
 //     traffic than the products cost the tensor cores: a dK/dV step splits
 //     four tiles (Q, dO, Q^T, dO^T) for S^T, dP^T, dV and dK. With 64-key
@@ -1603,6 +1420,18 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 //     128-key items with 64-query steps lost or tied. dQ takes 64-key
 //     tiles to D = 32 (0.18 / 0.23 ms against 32-key tiles' 0.20 / 0.26),
 //     32 at 48; a fourth stage of either kernel gained nothing.
+//   - The forward at D = 16, 32 and 48 (no model): the same carry-down, the
+//     forward's Q split in registers D / 16 chunks at a time (one chunk at
+//     16, so the chunk buffers' double-buffering never waits), Q K^T in
+//     D / 8 k-steps (one per chain at 16), P V an n = D product, V^T split
+//     into D rows. Each visible pair's exp2, P split and float32 rescaling
+//     weigh about as much as its three products here, so fewer, longer
+//     tiles pay: on an H100 at B = 1 S = 2048 GQA 32/8 causal (graph ms,
+//     D = 16 / 32 / 48) 64-key tiles took 0.146 / 0.195 / 0.266, 128-key
+//     tiles 0.142 / 0.178 (at 32 with a 48-byte spill; at 48 two 128-key
+//     stages do not fit 227 KB, nor a third 64-key one), and 3 or 4 stages
+//     of 64 keys 0.145 / 0.193. So 128-key tiles to D = 32, 64 at 48, two
+//     stages. The FMA kernel it replaced took 0.96 / 1.10 / 1.26.
 
 constexpr int F_BOX = 32;           // 128-byte swizzle: boxes of 32 float32 columns
 constexpr int F_CONVERTERS = 96;    // producer warps 1-3 split the tiles
@@ -1620,7 +1449,7 @@ __host__ __device__ constexpr int f_trans(int D, int R) { return D * R * 4; }
 template <int D>
 struct FwdTf32Smem {
   static constexpr int NB = f_nb(D);
-  static constexpr int BK = D <= 64 ? 64 : 32;
+  static constexpr int BK = D <= 32 ? 128 : D <= 64 ? 64 : 32;
   static constexpr int STAGES = 2;
   static constexpr int Q_TILE = f_nat(D, WG_BQ);
   static constexpr int NAT = f_nat(D, BK), TR = f_trans(D, BK);
@@ -2878,10 +2707,9 @@ cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The float32 (3xTF32) kernels' head dims: the forward's from 64 (below it
-// the FMA kernel), the backward's every multiple of 16 up to DMAX.
-#define REPRO_TF32_D(X) X(64) X(80) X(96) X(112) X(128)
-#define REPRO_TF32_BWD_D(X) X(16) X(32) X(48) REPRO_TF32_D(X)
+// The float32 (3xTF32) kernels' head dims, both ways: every multiple of 16
+// up to DMAX.
+#define REPRO_TF32_D(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
 
 template <bool LSE>
 cudaError_t dispatch_fwd_tf32(const void* q, const void* k, const void* v, void* o,
@@ -2906,7 +2734,7 @@ cudaError_t dispatch_bwd_tf32(const void* q, const void* k, const void* v,
   case DD:                                                                         \
     return launch_bwd_tf32<DD>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV, \
                                scale, causal, window, stream);
-    REPRO_TF32_BWD_D(REPRO_FLASH_CASE)
+    REPRO_TF32_D(REPRO_FLASH_CASE)
 #undef REPRO_FLASH_CASE
     default: return cudaErrorInvalidValue;
   }
@@ -2915,18 +2743,13 @@ cudaError_t dispatch_bwd_tf32(const void* q, const void* k, const void* v,
 // The float32 wgmma kernels' plan at head dim D (forward keys a tile and
 // stages, dQ keys a tile and stages, dK/dV keys an item, queries a step and
 // stages, and the three kernels' dynamic shared memory), or false where D
-// has none. Below D = 64 only the backward runs them: the forward's fields
-// are 0.
+// has none.
 template <int D>
 void tf32_plan_of(int (&plan)[10]) {
+  using F = FwdTf32Smem<D>;
   using Q = BwdQTf32Smem<D>;
   using K = BwdKvTf32Smem<D>;
-  int f[3] = {0, 0, 0};
-  if constexpr (D >= 64) {
-    using F = FwdTf32Smem<D>;
-    f[0] = F::BK, f[1] = F::STAGES, f[2] = F::BYTES;
-  }
-  const int p[10] = {f[0], f[1], Q::BK, Q::STAGES, K::KB, K::BQ, K::STAGES, f[2],
+  const int p[10] = {F::BK, F::STAGES, Q::BK, Q::STAGES, K::KB, K::BQ, K::STAGES, F::BYTES,
                      Q::BYTES, K::BYTES};
   for (int i = 0; i < 10; ++i) plan[i] = p[i];
 }
@@ -2935,7 +2758,7 @@ bool tf32_plan(int D, int (&plan)[10]) {
   switch (D) {
 #define REPRO_FLASH_CASE(DD) \
   case DD: tf32_plan_of<DD>(plan); return true;
-    REPRO_TF32_BWD_D(REPRO_FLASH_CASE)
+    REPRO_TF32_D(REPRO_FLASH_CASE)
 #undef REPRO_FLASH_CASE
     default: return false;
   }
@@ -2963,18 +2786,15 @@ cudaError_t dispatch_bwd_bf16(const void* q, const void* k, const void* v,
 
 // The kernel flash_attention_fwd runs for (dtype, D), and its dynamic
 // shared memory in bytes.
-enum Route { ROUTE_NONE, ROUTE_FMA, ROUTE_WGMMA, ROUTE_TF32 };
+enum Route { ROUTE_NONE, ROUTE_WGMMA, ROUTE_TF32 };
 
 Route route(int dtype, int D, size_t* smem) {
   if (D % 16 != 0 || D < 16 || D > DMAX) return ROUTE_NONE;
   if (dtype == 0) {
     int plan[10];
-    if (tf32_plan(D, plan) && plan[0] > 0) {  // the forward has tiles at D
-      *smem = plan[7];
-      return ROUTE_TF32;
-    }
-    *smem = smem_bytes(D);
-    return ROUTE_FMA;
+    if (!tf32_plan(D, plan)) return ROUTE_NONE;
+    *smem = plan[7];
+    return ROUTE_TF32;
   }
   if (dtype != 1) return ROUTE_NONE;
   // one 64-column box per tile row up to D = 64, two from D = 80 to 128
@@ -3013,11 +2833,6 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (r) {
-    case ROUTE_FMA:
-      return (int)(l ? launch_f32<true>(q, k, v, o, l, B, S, H, KV, D, scale,
-                                        causal, window, st)
-                     : launch_f32<false>(q, k, v, o, l, B, S, H, KV, D, scale,
-                                         causal, window, st));
     case ROUTE_TF32:
       return (int)(l ? dispatch_fwd_tf32<true>(q, k, v, o, l, B, S, H, KV, D,
                                                scale, causal, window, st)
@@ -3032,23 +2847,20 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // Name of the kernel flash_attention_fwd runs for (dtype, D): "wgmma" (bf16
-// at every D), "wgmma.3xtf32" (float32 at 64..128) or "fma" (float32 at 16,
-// 32, 48), or NULL where it refuses them; *smem_bytes is that kernel's
-// dynamic shared memory per CTA.
+// at every D) or "wgmma.3xtf32" (float32 at every D), or NULL where it
+// refuses them; *smem_bytes is that kernel's dynamic shared memory per CTA.
 const char* flash_attention_route(int dtype, int D, int* smem_bytes) {
   size_t smem = 0;
   const Route r = route(dtype, D, &smem);
   *smem_bytes = (int)smem;
-  return r == ROUTE_WGMMA ? "wgmma" : r == ROUTE_TF32 ? "wgmma.3xtf32"
-         : r == ROUTE_FMA ? "fma" : nullptr;
+  return r == ROUTE_WGMMA ? "wgmma" : r == ROUTE_TF32 ? "wgmma.3xtf32" : nullptr;
 }
 
 // The float32 wgmma kernels' tiles at head dim D: plan = {forward keys a
 // tile, forward ring stages, dQ keys a tile, dQ stages, dK/dV keys an
 // item, dK/dV queries a step, dK/dV stages, and the forward's, dQ's and
-// dK/dV's dynamic shared memory in bytes}; below D = 64 the backward's
-// alone, the forward's three fields 0 (the FMA kernel runs it there).
-// Returns 0, or -1 where D has no such kernels.
+// dK/dV's dynamic shared memory in bytes}. Returns 0, or -1 where D has no
+// such kernels.
 int flash_attention_tf32_plan(int D, int* plan) {
   int p[10];
   if (!tf32_plan(D, p)) return -1;

@@ -11,12 +11,11 @@ kernels or raises. The C forward picks its kernel by (dtype, head_dim): bf16
 at every head dim (16 to 128 in steps of 16) runs the TMA + wgmma kernel
 (its floor is the tensor cores' operations from D = 64 and the softmax's
 exp2 below), float32 at
-64, 80, 96, 112 and 128 the TMA + wgmma kernel in TF32 with every operand
-split into a hi and a lo part (3xTF32: three products a multiply,
-float32's precision on the tensor cores), float32 at 16, 32 and 48 the FMA
-kernel. The backward is three launches a call (delta, dK/dV, dQ, no
-atomics): TMA + wgmma kernels at every head dim, for bf16 and (3xTF32) for
-float32.
+every head dim the TMA + wgmma kernel in TF32 with every operand split into
+a hi and a lo part (3xTF32: three products a multiply, float32's precision
+on the tensor cores). The backward is three launches a call (delta, dK/dV,
+dQ, no atomics): TMA + wgmma kernels at every head dim, for bf16 and
+(3xTF32) for float32.
 ``flash_attention.launches`` counts forward calls that launched (with or
 without lse), ``flash_attention_bwd.launches`` backward calls.
 """
@@ -62,11 +61,9 @@ def _lib() -> ctypes.CDLL:
 def kernel_route(dtype: torch.dtype, head_dim: int, backward: bool = False):
     """(name, dynamic shared memory in bytes) of the kernel the C forward
     (or, with ``backward``, the larger of the C backward's two tile
-    kernels) runs for ``dtype`` and ``head_dim``: "wgmma" (bf16 at every
-    head dim, both ways), "wgmma.3xtf32" (float32: the backward at every
-    head dim, the forward at 64, 80, 96, 112, 128) or "fma" (the float32
-    forward at 16, 32, 48); name None where it refuses them. Builds the
-    library (card machine only)."""
+    kernels) runs for ``dtype`` and ``head_dim``: "wgmma" (bf16) or
+    "wgmma.3xtf32" (float32), both ways at every head dim; name None where
+    it refuses them. Builds the library (card machine only)."""
     smem = ctypes.c_int(0)
     lib = _lib()
     route = lib.flash_attention_bwd_route if backward else lib.flash_attention_route
@@ -84,9 +81,8 @@ def tf32_plan(head_dim: int):
     sizes them from its shared-memory budget: the forward's keys a tile and
     ring stages, dQ's keys a tile and stages, dK/dV's keys an item, queries
     a step and stages, and each kernel's dynamic shared memory in bytes; None where
-    the head dim has no such kernels. At 16, 32 and 48 only the backward
-    runs them: the forward's three fields are 0 (the FMA kernel runs the
-    forward there). Builds the library (card machine only)."""
+    the head dim has no such kernels. Builds the library (card machine
+    only)."""
     plan = (ctypes.c_int * len(TF32_PLAN_KEYS))()
     if _lib().flash_attention_tf32_plan(head_dim, plan) != 0:
         return None

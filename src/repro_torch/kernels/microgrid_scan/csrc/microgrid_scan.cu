@@ -17,18 +17,54 @@
 //               discharge, (max(-grid, 0) * k_emis) * ci, min(solar, load + charge)
 //
 // What bounds it on this card. The only carried state is soc_wh, so the
-// steps are serial: each carries a chain of eight dependent float32
-// operations (sub, max, mul, min, min, mul, add, sub), ~4 cycles each,
-// ~0.03 ms for Table 2's 1800 steps. Bytes
-// (3 inputs and 7 traces of 4 bytes a step, ~72 KB) and operations are far
-// below that at the card's rates. So one CTA walks one trace: its threads
-// stage load, solar and ci into shared memory a window of WINDOW steps at a
-// time (a year at 60 s still fits, window after window), and one thread
-// walks the window and stores the seven traces. It reads UNROLL steps'
-// inputs into registers before it computes them, so one shared-memory
-// latency serves UNROLL steps instead of stalling every step.
-// The launch takes a leading batch of B traces, one CTA (one walking thread)
-// each.
+// steps are serial, and nothing else is: bytes (3 inputs and 7 traces of 4
+// bytes a step, ~72 KB at Table 2's 1800 steps) and operations are far below
+// the chain at the card's rates. Of a step's ~27 operations only those that
+// read soc_wh lie on the chain, and two of them do not need to: charge is
+// min(max(surplus, 0), min(max_chg, room k_room)), and min is associative
+// (max.NaN / min.NaN too, with the operands kept in order), so
+// min(min(max(surplus, 0), max_chg), room k_room) is the same bits, and its
+// inner min reads no soc; so for discharge and max_dis_w. That leaves seven
+// dependent operations a step (sub, max, mul, min, mul, add, sub). No sum is
+// reassociated and nothing is contracted into an FMA.
+//
+// Design: one CTA a trace, B traces a launch. Warp 0 walks: its lane 0
+// carries soc_wh alone through each window of WINDOW steps, reading the
+// step's two caps (pos = min(max(surplus, 0), max_chg), neg = min(max(-surplus,
+// 0), max_dis_w)) from shared memory UNROLL at a time, the next UNROLL
+// loaded before the current ones are walked, and writing each step's
+// incoming soc_wh back beside them. It stores nothing to device memory and
+// waits only for a window's inputs. Warps 1-3 stage and write: they load a
+// window's load, solar and ci into a ring of RING windows in shared memory
+// and compute its caps, and, LAG windows behind, recompute each walked
+// step from its inputs and its incoming soc_wh with the loop's operations in
+// the loop's order (so the traces are the plain loop's bits) and store the
+// seven traces, consecutive threads on consecutive 4-step quads of each
+// plane (16-byte stores when T is a multiple of 4). Named barriers hand the
+// windows over: STAGED + slot (stagers arrive, the walker waits) and WALKED
+// + slot (the walker arrives, the writers wait), RING of each; each
+// instance counts all THREADS threads once, and no thread arrives on a slot's
+// barrier again before the other side has passed its previous instance. The
+// writers' turn j writes window j - LAG and then stages window j into the
+// slot window j - RING left: LAG = RING - 1 keeps that slot's writes one turn
+// (and one barrier that every writer joins) back, and LAG >= 2 stages
+// window j while the walker walks window j - 1, so it never waits on a
+// store. A year at 60 s still runs window after window.
+//
+// Readings on an H100 (700 W, SM clock 1980 MHz while it ran; graph cycles
+// a step at Table 2's 1800 steps / over a year of 525,600). The one-thread
+// kernel this replaces (one CTA a trace, 2048-step windows staged before
+// one thread walked them and stored the seven traces) took 80.0 / 78.5;
+// the same kernel without its seven stores 42.3 / 40.9, and with its
+// walker doing only the soc recurrence (8 operations, no traces) 42.9 /
+// 41.4: the stores, one-lane scalar writes into seven planes, held the
+// other half of its time, the off-chain arithmetic none of it. This
+// design: 38.0 / 35.5 at 512-step windows (256: 38.9 / 36.3, 128: 39.8 /
+// 37.4; a ring of 4: 40.2 / 37.5), 0.0345 ms at Table 2's trace. Its
+// walker's loop is the seven dependent instructions a step (FADD, FMNMX.NAN,
+// FMUL, FMNMX.NAN, FMUL, FADD, FADD in the SASS), so ~5 cycles each on
+// this card, not 4; the parent's walker took 5.9 cycles a step more for the
+// one FMNMX.NAN the fold takes off the chain.
 //
 // Bitwise equal to the plain loop (ref.py) on the same device: every
 // operation is written with __fadd_rn, __fsub_rn and __fmul_rn in the loop's
@@ -40,14 +76,29 @@
 
 namespace {
 
-constexpr int WINDOW = 2048;  // steps of the three inputs staged per window
-constexpr int THREADS = 128;  // threads that stage a window
-constexpr int UNROLL = 8;     // steps whose inputs the walker loads at once
+constexpr int WINDOW = 512;   // steps a window: the walker's unit of hand-over
+constexpr int RING = 3;       // windows in shared memory
+constexpr int LAG = RING - 1; // windows the trace writers run behind the stagers
+constexpr int THREADS = 128;  // warp 0 walks, warps 1-3 stage and write
+constexpr int WRITERS = THREADS - 32;
+constexpr int UNROLL = 8;     // steps whose caps the walker loads at once
+constexpr int STAGED = 1;     // named barrier ids (0 is __syncthreads'):
+constexpr int WALKED = STAGED + RING;  // STAGED + slot, WALKED + slot
+static_assert(LAG >= 2 && LAG <= RING - 1, "see the hand-over above");
+static_assert(WALKED + RING <= 16, "16 named barriers a CTA");
+static_assert(WINDOW % UNROLL == 0 && UNROLL % 4 == 0, "float4 loads");
 
 // the folded constants, in the order of ops.CONSTANTS
 struct Constants {
   float soc_init_wh, soc_hi, soc_lo, max_chg, max_dis_w, k_room, k_avail,
       k_charge, k_discharge, k_emis, k_soc;
+};
+
+// One window of the ring: the staged inputs, the caps the walker reads and
+// the incoming soc_wh it writes.
+struct __align__(16) Slot {
+  float load[WINDOW], solar[WINDOW], ci[WINDOW], pos[WINDOW], neg[WINDOW],
+      soc[WINDOW];
 };
 
 // torch.maximum / torch.minimum: NaN where either operand is NaN. PTX's
@@ -64,11 +115,63 @@ __device__ __forceinline__ float tmin(float a, float b) {
   return d;
 }
 
-// One step: advances soc_wh and stores step i's seven traces at o + j * plane.
-__device__ __forceinline__ void step(float ld, float sol, float c,
-                                     float& soc_wh, const Constants& k,
-                                     float* __restrict__ o, size_t plane,
-                                     int i) {
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(THREADS) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(THREADS) : "memory");
+}
+
+// The chain: soc_wh after one step, from the step's caps. The same bits as
+// step()'s soc_wh (the note above).
+__device__ __forceinline__ float advance(float soc_wh, float pos, float neg,
+                                         const Constants& k) {
+  const float charge =
+      tmin(pos, __fmul_rn(tmax(__fsub_rn(k.soc_hi, soc_wh), 0.0f), k.k_room));
+  const float discharge =
+      tmin(neg, __fmul_rn(tmax(__fsub_rn(soc_wh, k.soc_lo), 0.0f), k.k_avail));
+  return __fsub_rn(__fadd_rn(soc_wh, __fmul_rn(charge, k.k_charge)),
+                   __fmul_rn(discharge, k.k_discharge));
+}
+
+// The walker (lane 0 of warp 0): n steps of one staged window from soc_wh;
+// writes each step's incoming soc_wh into s.soc and returns the outgoing one.
+__device__ __forceinline__ float walk(Slot& s, int n, float soc_wh,
+                                      const Constants& k) {
+  const float4* pos = reinterpret_cast<const float4*>(s.pos);
+  const float4* neg = reinterpret_cast<const float4*>(s.neg);
+  float4* soc = reinterpret_cast<float4*>(s.soc);
+  float4 p0 = pos[0], p1 = pos[1], n0 = neg[0], n1 = neg[1];
+  int i = 0;
+  for (; i + UNROLL <= n; i += UNROLL) {
+    // the next UNROLL steps' caps (stale past n, never used), in flight
+    // while these are walked
+    const int nx = min(i + UNROLL, WINDOW - UNROLL) / 4;
+    const float4 q0 = pos[nx], q1 = pos[nx + 1], m0 = neg[nx], m1 = neg[nx + 1];
+    float4 a, b;
+    a.x = soc_wh; soc_wh = advance(soc_wh, p0.x, n0.x, k);
+    a.y = soc_wh; soc_wh = advance(soc_wh, p0.y, n0.y, k);
+    a.z = soc_wh; soc_wh = advance(soc_wh, p0.z, n0.z, k);
+    a.w = soc_wh; soc_wh = advance(soc_wh, p0.w, n0.w, k);
+    b.x = soc_wh; soc_wh = advance(soc_wh, p1.x, n1.x, k);
+    b.y = soc_wh; soc_wh = advance(soc_wh, p1.y, n1.y, k);
+    b.z = soc_wh; soc_wh = advance(soc_wh, p1.z, n1.z, k);
+    b.w = soc_wh; soc_wh = advance(soc_wh, p1.w, n1.w, k);
+    soc[i / 4] = a;
+    soc[i / 4 + 1] = b;
+    p0 = q0, p1 = q1, n0 = m0, n1 = m1;
+  }
+  for (; i < n; ++i) {
+    s.soc[i] = soc_wh;
+    soc_wh = advance(soc_wh, s.pos[i], s.neg[i], k);
+  }
+  return soc_wh;
+}
+
+// One step from its incoming soc_wh, as the plain loop computes it: the
+// seven traces into t, in TRACE_KEYS order.
+__device__ __forceinline__ void step(float ld, float sol, float c, float soc_wh,
+                                     const Constants& k, float (&t)[7]) {
   const float surplus = __fsub_rn(sol, ld);
   const float room = tmax(__fsub_rn(k.soc_hi, soc_wh), 0.0f);
   const float charge = tmin(tmax(surplus, 0.0f),
@@ -80,13 +183,56 @@ __device__ __forceinline__ void step(float ld, float sol, float c,
                      __fmul_rn(discharge, k.k_discharge));
   const float grid = __fadd_rn(__fsub_rn(surplus, charge), discharge);
   const float grid_import = tmax(-grid, 0.0f);
-  o[i] = __fmul_rn(soc_wh, k.k_soc);
-  o[plane + i] = grid_import;
-  o[2 * plane + i] = tmax(grid, 0.0f);
-  o[3 * plane + i] = charge;
-  o[4 * plane + i] = discharge;
-  o[5 * plane + i] = __fmul_rn(__fmul_rn(grid_import, k.k_emis), c);
-  o[6 * plane + i] = tmin(sol, __fadd_rn(ld, charge));
+  t[0] = __fmul_rn(soc_wh, k.k_soc);
+  t[1] = grid_import;
+  t[2] = tmax(grid, 0.0f);
+  t[3] = charge;
+  t[4] = discharge;
+  t[5] = __fmul_rn(__fmul_rn(grid_import, k.k_emis), c);
+  t[6] = tmin(sol, __fadd_rn(ld, charge));
+}
+
+// Stagers (ct = 0..WRITERS-1): the window's n steps of input from x + w0,
+// and their caps.
+__device__ __forceinline__ void stage(Slot& s, const float* __restrict__ load,
+                                      const float* __restrict__ solar,
+                                      const float* __restrict__ ci, int n,
+                                      const Constants& k, int ct) {
+  for (int i = ct; i < n; i += WRITERS) {
+    const float ld = load[i], sol = solar[i];
+    s.load[i] = ld;
+    s.solar[i] = sol;
+    s.ci[i] = ci[i];
+    const float surplus = __fsub_rn(sol, ld);
+    s.pos[i] = tmin(tmax(surplus, 0.0f), k.max_chg);
+    s.neg[i] = tmin(tmax(-surplus, 0.0f), k.max_dis_w);
+  }
+}
+
+// Writers: the seven traces of the window's n walked steps at o (step 0 of
+// the window in plane 0; planes `plane` floats apart), a 4-step quad a
+// thread; vec: o and plane are multiples of 4 floats.
+__device__ __forceinline__ void write(const Slot& s, float* __restrict__ o,
+                                      size_t plane, int n, bool vec,
+                                      const Constants& k, int ct) {
+  for (int i = 4 * ct; i < n; i += 4 * WRITERS) {
+    float t[4][7];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (i + u < n) step(s.load[i + u], s.solar[i + u], s.ci[i + u], s.soc[i + u], k, t[u]);
+    if (vec && i + 4 <= n) {
+#pragma unroll
+      for (int p = 0; p < 7; ++p)
+        *reinterpret_cast<float4*>(o + p * plane + i) =
+            make_float4(t[0][p], t[1][p], t[2][p], t[3][p]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i + u < n)
+#pragma unroll
+          for (int p = 0; p < 7; ++p) o[p * plane + i + u] = t[u][p];
+    }
+  }
 }
 
 // out: (7, B, T), the traces in TRACE_KEYS order
@@ -95,37 +241,36 @@ microgrid_scan_kernel(const float* __restrict__ load,
                       const float* __restrict__ solar,
                       const float* __restrict__ ci, float* __restrict__ out,
                       int B, int T, Constants k) {
-  __shared__ float s_load[WINDOW];
-  __shared__ float s_solar[WINDOW];
-  __shared__ float s_ci[WINDOW];
+  __shared__ Slot ring[RING];
   const size_t row = (size_t)blockIdx.x * T;
   const size_t plane = (size_t)B * T;
-  float soc_wh = k.soc_init_wh;
-  for (int w0 = 0; w0 < T; w0 += WINDOW) {
-    const int n = min(WINDOW, T - w0);
-    __syncthreads();  // the walker is done with the previous window
-    for (int i = threadIdx.x; i < n; i += THREADS) {
-      s_load[i] = load[row + w0 + i];
-      s_solar[i] = solar[row + w0 + i];
-      s_ci[i] = ci[row + w0 + i];
+  const int n_win = (T + WINDOW - 1) / WINDOW;
+  if (threadIdx.x < 32) {
+    float soc_wh = k.soc_init_wh;
+    for (int w = 0; w < n_win; ++w) {
+      const int slot = w % RING;
+      bar_sync(STAGED + slot);
+      if (threadIdx.x == 0) soc_wh = walk(ring[slot], min(WINDOW, T - w * WINDOW), soc_wh, k);
+      __syncwarp();
+      bar_arrive(WALKED + slot);
     }
-    __syncthreads();
-    if (threadIdx.x != 0) continue;
-    float* o = out + row + w0;
-    int i = 0;
-    for (; i + UNROLL <= n; i += UNROLL) {
-      float ld[UNROLL], sol[UNROLL], c[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        ld[u] = s_load[i + u];
-        sol[u] = s_solar[i + u];
-        c[u] = s_ci[i + u];
+  } else {
+    const int ct = threadIdx.x - 32;
+    const bool vec = T % 4 == 0;
+    for (int j = 0; j < n_win + LAG; ++j) {
+      if (j >= LAG) {
+        const int w = j - LAG, slot = w % RING;
+        bar_sync(WALKED + slot);
+        write(ring[slot], out + row + (size_t)w * WINDOW, plane,
+              min(WINDOW, T - w * WINDOW), vec, k, ct);
       }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u)
-        step(ld[u], sol[u], c[u], soc_wh, k, o, plane, i + u);
+      if (j < n_win) {
+        const size_t at = row + (size_t)j * WINDOW;
+        stage(ring[j % RING], load + at, solar + at, ci + at,
+              min(WINDOW, T - j * WINDOW), k, ct);
+        bar_arrive(STAGED + j % RING);
+      }
     }
-    for (; i < n; ++i) step(s_load[i], s_solar[i], s_ci[i], soc_wh, k, o, plane, i);
   }
 }
 
@@ -152,7 +297,8 @@ int microgrid_scan_fwd(const float* load, const float* solar, const float* ci,
   return (int)cudaGetLastError();
 }
 
-// Steps staged per shared-memory window.
+// Steps a shared-memory window: the unit the walker and the trace writers
+// hand over.
 int microgrid_scan_window(void) { return WINDOW; }
 
 const char* microgrid_scan_error_string(int code) {

@@ -24,6 +24,8 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_fwd)
 from repro_torch.kernels.flash_attention.ops import \
     kernel_route as flash_route
+from repro_torch.kernels.flash_attention.ops import \
+    tf32_plan as flash_tf32_plan
 from repro_torch.kernels.gla_scan import gla_scan, gla_scan_reference
 from repro_torch.kernels.gla_scan import ops as gla_ops
 from repro_torch.kernels.gla_scan.ops import kernel_route as gla_route
@@ -35,18 +37,19 @@ FLASH_SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 64),
                 (1, 200, 8, 1, 32),   # unpadded seq, MQA
                 (2, 64, 6, 3, 80)]    # odd heads / head_dim
 FLASH_MASKS = [(True, None), (True, 64), (False, None)]
-# The wgmma paths (bf16 at every head dim, 16 to 128: one 64-column box per
-# tile row up to 64, zero-filled past D below 64, two at the others, the
-# second zero-filled past D below 128; float32 at 64, 80, 96, 112 and 128 in
-# TF32 with the 3xTF32 split: 32-column boxes, two to four a row, 64-key
-# tiles at D = 64 and 32 above):
+# The wgmma paths, at every head dim from 16 to 128 (bf16: one 64-column box
+# per tile row up to 64, zero-filled past D below 64, two at the others, the
+# second zero-filled past D below 128; float32 in TF32 with the 3xTF32
+# split: 32-column boxes, one to four a row, the last zero-filled past D
+# where D is not a multiple of 32, key tiles as ``ops.tf32_plan`` gives
+# them):
 # S on both sides of the 64-row consumer and 128-row tiles, batch 1 and 2,
 # GQA groups 1, 4 and 8 of H = 8, causal, windows 64 and 1000, non-causal;
 # q scaled x8 as well, so that scores (standard deviation 8) reach about
-# +-60 and exercise the exp2 rescaling.
+# +-60 and exercise the exp2 rescaling. Below D = 64, float32 also at the
+# small head dims' timed shape (B=1 S=2048 GQA 32/8 causal).
 WGMMA_D = [64, 80, 96, 112, 128]
 SMALL_D = [16, 32, 48]
-WGMMA_D_OF = {"bfloat16": SMALL_D + WGMMA_D, "float32": WGMMA_D}
 WGMMA_S = [1, 63, 64, 127, 128, 129, 1000, 2048]
 WGMMA_MASKS = [(True, None), (True, 64), (True, 1000), (False, None)]
 # (B, S, H, KV, D, dtype, causal, window, amp): amp scales q
@@ -56,8 +59,10 @@ FLASH_CASES = (
      for causal, window in FLASH_MASKS]
     + [(B, S, 8, 8 // group, D, dtype, causal, window, amp)
        for dtype in ("bfloat16", "float32")
-       for D in WGMMA_D_OF[dtype] for S in WGMMA_S for B in (1, 2)
+       for D in SMALL_D + WGMMA_D for S in WGMMA_S for B in (1, 2)
        for group in (1, 4, 8) for causal, window in WGMMA_MASKS
+       for amp in (1, 8)]
+    + [(1, 2048, 32, 8, D, "float32", True, None, amp) for D in SMALL_D
        for amp in (1, 8)])
 DECODE_SHAPES = [(2, 512, 8, 2, 64), (1, 1024, 4, 4, 128), (3, 300, 6, 3, 80)]
 # The decode mma.sync path (bf16 q and cache; the served head dims 64 and 128
@@ -152,18 +157,22 @@ def test_flash_kernel_matches_plain_at_hubert_shape_on_card(amp):
 
 @pytest.mark.cuda
 def test_flash_routes_by_dtype_and_head_dim_on_card():
-    """bf16 at every head dim takes the TMA + wgmma kernel; float32 at
-    64..128 the TMA + wgmma kernel in 3xTF32, below 64 the FMA kernel (the
-    backward takes 3xTF32 there, the forward does not); a head dim off the
-    grid of 16 none."""
+    """bf16 at every head dim takes the TMA + wgmma kernel, float32 the TMA
+    + wgmma kernel in 3xTF32, both ways; a head dim off the grid of 16
+    none."""
     _cuda_or_skip()
     for D in SMALL_D + WGMMA_D:
         assert flash_route(torch.bfloat16, D)[0] == "wgmma"
-    for D in WGMMA_D:
-        assert flash_route(torch.float32, D)[0] == "wgmma.3xtf32"
-    for D in SMALL_D:
-        assert flash_route(torch.float32, D)[0] == "fma"
+        for backward in (False, True):
+            assert flash_route(torch.float32, D, backward)[0] == "wgmma.3xtf32"
+    # below D = 64 the CPU mirror of the 3xTF32 arithmetic takes these tiles
+    # (tests/test_torch_kernels.py::TF32_SMALL_TILES)
+    assert {D: tuple(flash_tf32_plan(D)[k] for k in ("fwd_keys", "dkdv_queries",
+                                                      "dq_keys"))
+            for D in SMALL_D} == {16: (128, 64, 64), 32: (128, 64, 64),
+                                  48: (64, 48, 32)}
     assert flash_route(torch.bfloat16, 72)[0] is None
+    assert flash_route(torch.float32, 72)[0] is None
     # up to D = 64 a tile is one 64-column box, from 80 to 128 two: D = 64's
     # and D = 128's shared memory
     assert len({flash_route(torch.bfloat16, D)[1] for D in SMALL_D + [64]}) == 1
@@ -296,13 +305,14 @@ def test_flash_f32_backward_matches_plain_at_small_head_dims_on_card(
         B, S, H, KV, D, amp):
     """float32 below D = 64 at long sequences: the 3xTF32 backward kernels
     (64-key dK/dV items) against the plain backward, scores up to +-60 at
-    amp 8; the FMA forward's o and lse against the plain forward in
+    amp 8; the 3xTF32 forward's o and lse against the plain forward in
     float64. lse is held at 1e-5 per unit of the scores' standard
     deviation (amp): its error is float32's rounding of the scores, which
-    grows with them (at amp 8 and |lse| ~30 the FMA forward's lse is
+    grows with them (at amp 8 and |lse| ~30 a float32 forward's lse sat
     1.1e-5 to 1.5e-5 off float64's, ~8 float32 ulps, on an H100)."""
     _cuda_or_skip()
-    assert flash_route(torch.float32, D, backward=True)[0] == "wgmma.3xtf32"
+    for backward in (False, True):
+        assert flash_route(torch.float32, D, backward)[0] == "wgmma.3xtf32"
     _bwd_case_hold(3, B, S, H, KV, D, "float32", True, None, amp,
                    ref_dtype=torch.float64, lse_tol=LSE_TOL["float32"] * amp)
 
@@ -1022,7 +1032,8 @@ def _microgrids():
                 step_s=300.0, battery=core.BatteryConfig(
                     capacity_wh=500.0, soc_init=0.2, max_charge_w=150.0,
                     max_discharge_w=90.0, efficiency=0.9)),
-            "no-battery": battery(capacity_wh=0.0)}
+            "no-battery": battery(capacity_wh=0.0),
+            "zero-rates": battery(max_charge_w=0.0, max_discharge_w=0.0)}
 
 
 def _random_grid_inputs(T, seed, B=1):
@@ -1030,6 +1041,19 @@ def _random_grid_inputs(T, seed, B=1):
     return [torch.as_tensor(rng.uniform(lo, hi, (B, T)), dtype=torch.float32,
                             device="cuda")
             for lo, hi in ((0, 600.0), (0, 800.0), (50, 800.0))]
+
+
+def _signed_zero_grid_inputs(T, seed):
+    """Random traces with signed zeros and a NaN in the surplus (as
+    chip_smoke.signed_zero_inputs): surplus -0 every 7th step, +0 from -0
+    load every 11th, both +0 every 13th, a NaN load 100 steps before the
+    end. The kernel's chain folds max_chg and max_dis_w into caps computed
+    off the chain (min is associative): the same values here too."""
+    load, solar, ci = _random_grid_inputs(T, seed)
+    for every, ld, sol in ((7, 0.0, -0.0), (11, -0.0, 0.0), (13, 0.0, 0.0)):
+        load[:, ::every], solar[:, ::every] = ld, sol
+    load[:, T - 100] = float("nan")
+    return load, solar, ci
 
 
 def _table2_inputs():
@@ -1064,7 +1088,14 @@ MICROGRID_CASES = (
        ("three-windows", lambda w: _random_grid_inputs(2 * w + 123, 9),
         "default"),
        ("three-windows-no-battery",
-        lambda w: _random_grid_inputs(2 * w + 123, 10), "no-battery")])
+        lambda w: _random_grid_inputs(2 * w + 123, 10), "no-battery"),
+       ("one-step-tail", lambda w: _random_grid_inputs(w + 1, 12), "default"),
+       ("signed-zeros-nan", lambda w: _signed_zero_grid_inputs(1800, 13),
+        "table1b"),
+       ("signed-zeros-nan-zero-rates",
+        lambda w: _signed_zero_grid_inputs(1800, 13), "zero-rates"),
+       # a year at 60 s: windows after windows
+       ("year", lambda w: _random_grid_inputs(525600, 11), "table1b")])
 
 
 @pytest.mark.cuda
@@ -1072,7 +1103,8 @@ MICROGRID_CASES = (
                          ids=[c[0] for c in MICROGRID_CASES])
 def test_microgrid_scan_kernel_matches_plain_loop_on_card(label, inputs, grid):
     """One launch walks every trace; its traces equal the plain step loop's
-    on the card bit for bit, NaN (no battery) in the same places."""
+    on the card bit for bit, NaN (no battery, a NaN input) in the same
+    places."""
     _cuda_or_skip()
     from repro_torch.core.microgrid import constants
     from repro_torch.kernels.microgrid_scan import (microgrid_scan,
@@ -1087,8 +1119,8 @@ def test_microgrid_scan_kernel_matches_plain_loop_on_card(label, inputs, grid):
     ref = microgrid_scan_reference(*x, k)
     assert out.shape == ref.shape == (7,) + tuple(x[0].shape)
     assert _equal_nan(out, ref)
-    assert bool(torch.isnan(out[0]).any()) == (grid == "no-battery"
-                                               and out.numel() > 0)
+    assert bool(torch.isnan(out[0]).any()) == (
+        (grid == "no-battery" or label.startswith("signed")) and out.numel() > 0)
 
 
 @pytest.mark.cuda

@@ -224,11 +224,12 @@ def _tc(a, b, chains, acc=None):
     return out
 
 
-def _attention_as_kernels(q, k, v, do, tile=32, dq_tile=None):
-    """Causal forward (online softmax over key tiles) and backward (dK/dV
-    over query steps, dQ over key tiles of ``dq_tile``, ``tile`` by
-    default, each step's or tile's product apart) with the kernels'
-    products; (B, H, S, D), k and v of KV heads."""
+def _attention_as_kernels(q, k, v, do, tile=32, dq_tile=None, fwd_tile=None):
+    """Causal forward (online softmax over key tiles of ``fwd_tile``) and
+    backward (dK/dV over query steps of ``tile``, dQ over key tiles of
+    ``dq_tile``; ``fwd_tile`` and ``dq_tile`` are ``tile`` by default),
+    each step's or tile's product apart, with the kernels' products;
+    (B, H, S, D), k and v of KV heads."""
     B, H, S, D = q.shape
     G = H // k.shape[1]
     kr, vr = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
@@ -238,12 +239,13 @@ def _attention_as_kernels(q, k, v, do, tile=32, dq_tile=None):
     s = (_tc(q, kr.transpose(-1, -2), 2) * scale).masked_fill(~mask, -np.inf)
     m = torch.full((B, H, S, 1), -np.inf)
     l, o = torch.zeros(B, H, S, 1), torch.zeros(B, H, S, D)
-    for k0 in range(0, S, tile):
-        mn = torch.maximum(m, s[..., k0:k0 + tile].amax(-1, keepdim=True))
-        p = torch.exp(s[..., k0:k0 + tile] - mn)
+    fwd_tile = fwd_tile or tile
+    for k0 in range(0, S, fwd_tile):
+        mn = torch.maximum(m, s[..., k0:k0 + fwd_tile].amax(-1, keepdim=True))
+        p = torch.exp(s[..., k0:k0 + fwd_tile] - mn)
         alpha = torch.exp(m - mn)
         l = l * alpha + p.sum(-1, keepdim=True)
-        o = o * alpha + _tc(p, vr[..., k0:k0 + tile, :], 0)
+        o = o * alpha + _tc(p, vr[..., k0:k0 + fwd_tile, :], 0)
         m = mn
     o, lse = o / l, m + torch.log(l)
     dsT = _tc(kr, q.transpose(-1, -2), 1) * scale
@@ -277,10 +279,11 @@ def _attention_f64(q, k, v, do):
     return o.detach(), torch.autograd.grad(o, (q, k, v), do.double())
 
 
-# The tiles the mirror takes below D = 64: the backward's dK/dV query step
-# and dQ key tile there (``ops.tf32_plan``: dkdv_queries, dq_keys); 64 and
-# 128 keep the mirror's default.
-TF32_SMALL_TILES = {16: (64, 64), 32: (64, 64), 48: (48, 32)}
+# The tiles the mirror takes below D = 64, as ``ops.tf32_plan`` gives them:
+# the forward's key tile (fwd_keys), the backward's dK/dV query step
+# (dkdv_queries) and dQ key tile (dq_keys); 64 and 128 keep the mirror's
+# default.
+TF32_SMALL_TILES = {16: (128, 64, 64), 32: (128, 64, 64), 48: (64, 48, 32)}
 
 
 @pytest.mark.parametrize("D", [16, 32, 48, 64, 128])
@@ -291,8 +294,9 @@ def test_tf32x3_split_meets_float32_tolerances(D):
                    for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D),
                              (B, H, S, D)))
     q = q * 8
-    tile, dq_tile = TF32_SMALL_TILES.get(D, (32, 32))
-    o, grads = _attention_as_kernels(q, k, v, do, tile=tile, dq_tile=dq_tile)
+    fwd_tile, tile, dq_tile = TF32_SMALL_TILES.get(D, (32, 32, 32))
+    o, grads = _attention_as_kernels(q, k, v, do, tile=tile, dq_tile=dq_tile,
+                                     fwd_tile=fwd_tile)
     o64, want = _attention_f64(q, k, v, do)
     np.testing.assert_allclose(o.double().numpy(), o64.numpy(), rtol=2e-5, atol=2e-5)
     largest = max(float(w.abs().max()) for w in want)
