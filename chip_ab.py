@@ -31,8 +31,11 @@ bounds), phase 17d's float32 training steps (``--only train_f32``:
 Llama-3-8B's decode shapes (``chip_smoke.max_err``, ``seq_err`` and
 ``decode_times``, SDPA both ways), and ``gla_scan`` at RWKV6-1.6B's prefill shapes (rwkv, H=32, T 128,
 1000 and 2048) and Zamba2's widths (ssd, H=64, T=2048), bf16 q/k/v,
-float32 log_w and u, and the float32 kernel at RWKV6's T=2048 with
-float32 q/k/v (``chip_smoke.GLA_TOL`` and ``gla_times``), and
+float32 log_w and u, and the float32 route at RWKV6's T=2048 and 128 and
+Zamba2's widths with float32 q/k/v (``chip_smoke.GLA_TOL`` and
+``gla_times``; device ms by kernel, ``chip_smoke.device_ms_by_kernel``; a
+float32 row's error against a float64 scan, ``f64_err``, beside the float32
+plain scan's), and
 ``microgrid_scan`` (``--only microgrid``) at Table 2's trace (T = 1800) and
 a year at 60 s (T = 525,600), both under Table 2's battery: eager and graph
 ms, the SM clock read while it runs, graph cycles a step at that clock,
@@ -61,7 +64,8 @@ FLASH_SHAPES = ((4, 1024, 16, 16, 80, False, None), (1, 2048, 32, 32, 80, True, 
                 (1, 2048, 32, 8, 128, True, None))
 GLA_SHAPES = (("rwkv", 32, 128, "bfloat16"), ("rwkv", 32, 1000, "bfloat16"),
               ("rwkv", 32, 2048, "bfloat16"), ("ssd", 64, 2048, "bfloat16"),
-              ("rwkv", 32, 2048, "float32"))  # (mode, H, T, q/k/v) at B = 1, K = V = 64
+              ("rwkv", 32, 2048, "float32"), ("ssd", 64, 2048, "float32"),
+              ("rwkv", 32, 128, "float32"))  # (mode, H, T, q/k/v) at B = 1, K = V = 64
 
 
 KERNELS = ("flash", "flash_bwd", "flash_small", "flash_small_f32", "flash_f32",
@@ -166,6 +170,25 @@ def decode(cs, src: Path):
         print(json.dumps(row), flush=True)
 
 
+def gla_scan_f64(q, k, v, log_w, u, mode):
+    """The token-by-token scan in float64 on the card, model layout: the
+    yardstick of a float32 call's own error (``gla_scan_reference`` computes
+    in float32)."""
+    import torch
+    q, k, v, log_w = (x.double() for x in (q, k, v, log_w))
+    state = q.new_zeros(q.shape[0], q.shape[2], q.shape[3], v.shape[3])
+    out = []
+    for t in range(q.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        if mode == "rwkv":
+            out.append(torch.einsum("bhk,bhkv->bhv", q[:, t],
+                                    state + u.double()[None, :, :, None] * kv))
+        state = torch.exp(log_w[:, t])[..., None] * state + kv
+        if mode != "rwkv":
+            out.append(torch.einsum("bhk,bhkv->bhv", q[:, t], state))
+    return torch.stack(out, 1), state
+
+
 def gla(cs, src: Path):
     import torch
     from repro_torch.kernels.gla_scan import gla_scan, gla_scan_reference
@@ -186,7 +209,14 @@ def gla(cs, src: Path):
                    K=64, V=64, dtype=dtype_name,
                    max_abs_err=max(cs.max_err(out, tr(ref_o), dtype, cs.GLA_TOL),
                                    cs.max_err(state, ref_s, dtype, cs.GLA_TOL)))
+        if dtype == torch.float32:
+            o64, s64 = gla_scan_f64(q, k, v, log_w, u, mode)
+            err = lambda a, b: float((a.double() - b).abs().max())
+            row.update(max_abs_ref=float(o64.abs().max()), f64_err=err(out, o64),
+                       plain_f64_err=err(tr(ref_o), o64),
+                       state_f64_err=err(state, s64), plain_state_f64_err=err(ref_s, s64))
         row.update(cs.gla_times(kernel, q, k, v, log_w, u, mode))
+        row["by_kernel"] = cs.device_ms_by_kernel(kernel, 3)
         print(json.dumps(row), flush=True)
 
 

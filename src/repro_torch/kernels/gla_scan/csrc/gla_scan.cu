@@ -14,11 +14,10 @@
 //   S      = exp(Lc)^T * S + (k * exp(Lc - L))^T @ v,   Lc = L[last]
 //
 // What bounds it on this card. By bytes (q, k, v once, float32 log_w once,
-// o and the final state once): ~51 MB at B=1, T=2048, H=32, K=V=64, bf16,
-// ~15 us at 3.35 TB/s; the matrix products are ~2 GFLOP (~2 us of bf16
-// tensor cores). Two kernels, chosen by dtype in route():
-//
-// bfloat16 q, k, v (RWKV6's prefill): three launches, all of them parallel
+// o and the final state once): ~51 MB at B=1, T=2048, H=32, K=V=64, bf16
+// (~84 MB float32), ~15 us (25 us) at 3.35 TB/s; the matrix products are
+// ~2 GFLOP (~2 us of bf16 tensor cores, ~12 us of 3xTF32). One design, two
+// routes chosen by dtype in route(): three launches, all of them parallel
 // over (chunk, head, batch) but the middle one, on chunks of MC = 64 tokens
 // cut into four sub-chunks of 16 (one warp's rows, one mma row tile). The
 // TPU kernel's sequential chunk axis, with S in VMEM scratch, becomes the
@@ -28,12 +27,12 @@
 //   1. gla_scan_chunk_state_kernel: each chunk's own state dS_c = (k * 2^(later
 //      log2 decays of the chunk))^T v on mma.sync, and its decay 2^(sum of
 //      its log2 decays), into float32 scratch (1024 CTAs at the served
-//      shape, where the float32 kernel has 32: one per (batch, head)).
+//      shape).
 //   2. gla_scan_state_prefix_kernel: S_c = decay_c * S_(c-1) + dS_c, elementwise
 //      per (k, v): one thread per state element walks the chunks, its loads
 //      independent of the recurrence, and leaves in the scratch the state
 //      each chunk starts from; the final state goes out once. The serial
-//      path is T / MC fused multiply-adds, not T / 32 CTA-wide steps.
+//      path is T / MC fused multiply-adds.
 //   3. gla_scan_chunk_output_kernel: o of each chunk, warp a for sub-chunk a:
 //      - inter: (q * 2^(P_a + Lr)) @ S_(c-1), P_a the log2 decay of the
 //        chunk's sub-chunks before a, Lr the local read decay inside a;
@@ -44,14 +43,6 @@
 //      - diagonal sub-block pairwise, 2^(Lr[t] - Ll[j]) on the pairs the mask
 //        keeps, Ll the local inclusive log2 decay; the rwkv bonus u takes
 //        the place of the decay on its diagonal; then A_aa @ v_a.
-//   Every product runs on tensor cores (mma.sync m16n8k16, bf16 in, float32
-//   accumulate), A and B from ldmatrix of 16-byte padded rows (conflict-
-//   free) or from registers. Operands that are not bf16 inputs (decayed q
-//   and k, the state, the intra scores) go in as a bf16 pair hi + lo with
-//   three products (lo @ lo dropped), ~16 bits of mantissa: with one
-//   bf16 rounding of any one of them in place of the pair, the 5e-2
-//   tolerance failed at T = 2048 with weak decays (tests/
-//   test_torch_gla_design.py mirrors this arithmetic on the CPU).
 //   Stability. Decays enter in log2 units, each token's clamped at -64 (a
 //   weight across such a token is below 2^-64 either way). Every exponent
 //   is a sum of non-positive decays, or, in the diagonal sub-block, the
@@ -60,44 +51,57 @@
 //   Factors may underflow to 0, never overflow. No cumulative sum spans
 //   more than 16 tokens (|sum| <= 1024 after the clamp), so a difference
 //   of two keeps ~1e-4 relative accuracy even beside RWKV6's floor of
-//   -22026 per token.
-//   Against the four limits of the float32 kernel: (1) parallelism: 1024
-//   CTAs per launch at the served shape instead of B * H = 32, and the
-//   serial part is one FMA per state element per chunk; (2) tensor cores:
-//   all three products; (3) exps: ex2.approx, pairwise only inside the
-//   16-token diagonal sub-blocks (12 K per token and head, 6 of each lane's
-//   8 pairs formed where the mask keeps 4.25), plus the decayed q and k and
-//   the sub-chunk factors: ~68 M at the served shape, against its ~82 M
-//   expf; (4) loads: 16-byte cp.async of q, k and v rows into padded tiles,
-//   and every load of a CTA issued before its first use.
-//   What holds it back: the three launches move ~152 MB at the served
-//   shape (log_w read twice, the chunk states written, rewritten and read
-//   through the scratch), three times the bound's bytes; the output kernel
-//   keeps 83,472 bytes of tiles at K = V = 64, so two CTAs share an SM.
-//   Loads: log_w by one thread per (sub-chunk, channel), coalesced across
-//   channels. The float32 scratch of chunk states is
-//   B * H * ceil(T / MC) * (K * V + K) floats (16.8 MB at the served
-//   shape), allocated by the wrapper at the size gla_scan_scratch_floats
-//   reports. Launches per call: 3;
-//   gla_scan.launches counts calls.
+//   -22026 per token (a form that subtracts chunk-wide sums, ~7e5 there
+//   where a float32 ulp is 0.06, is off by whole units).
+//   Parallelism: 1024 CTAs per launch at the served shape, not one per
+//   (batch, head), and the serial part is one FMA per state element per
+//   chunk. Exps: ex2.approx, pairwise only inside the 16-token diagonal
+//   sub-blocks (6 of each lane's 8 pairs formed where the mask keeps 4.25),
+//   plus the decayed q and k and the sub-chunk factors: ~68 M at the served
+//   shape. Loads: 16-byte cp.async of q, k and v rows into padded tiles,
+//   log_w by one thread per (sub-chunk, channel), coalesced across
+//   channels, every load of a CTA issued before its first use.
+//   Scratch: B * H * ceil(T / MC) * (K * V + K) floats of chunk states and
+//   decays (16.8 MB at the served shape), allocated by the wrapper at the
+//   size gla_scan_scratch_floats reports. Launches per call: 3;
+//   gla_scan.launches counts calls. What holds both routes back: the three
+//   launches move the chunk states through the scratch (written, rewritten
+//   and read) and log_w twice, ~152 MB bf16 (~200 MB float32) at the served
+//   shape against the bound's 51 (84).
 //
-// float32 q, k, v: gla_scan_kernel, the port's first kernel for this scan, kept
-// for float32 models: TF32 or bf16 tensor cores cannot meet its 2e-4
-// tolerance. One CTA of 1024 threads per (batch, head) walks every 32-token
-// chunk in order with S in shared memory; the (t, j) pairs of the intra
-// term are one thread's loop over k each, exp (expf) taken only on the
-// pairs the causal mask keeps. Held back: B * H CTAs, no tensor cores,
-// full-precision expf.
-//   Stability, as in the bf16 path: each token's log decay is clamped at
-// LW_FLOOR (2^-64 as a factor), and a chunk is two sub-chunks of SUB = 16
-// tokens whose cumulative sums start afresh. The read decay of rwkv is the
-// sum before the token's own decay is added, not L - log_w; the decays
-// across the sub-chunk boundary and to the chunk's end are sums of the
-// tokens they span (the suffix inside a sub-chunk, the sub-chunk totals).
-// Only the diagonal pairs of a sub-chunk take a difference of two sums,
-// each at most 16 * 44.4 in size. The form it replaces took differences of
-// 32-token sums, which reach ~7e5 under RWKV6's floor of -22026 per token,
-// where a float32 ulp is 0.06: outputs were off by whole units.
+// bfloat16 q, k, v (route "mma"; RWKV6's and Zamba2's prefill): every
+//   product on mma.sync m16n8k16 (bf16 in, float32 accumulate), A and B
+//   from ldmatrix of 16-byte padded rows (conflict-free) or from registers.
+//   Operands that are not bf16 inputs (decayed q and k, the state, the
+//   intra scores) go in as a bf16 pair hi + lo with three products (lo @ lo
+//   dropped), ~16 bits of mantissa: with one bf16 rounding of any one of
+//   them in place of the pair, the 5e-2 tolerance failed at T = 2048 with
+//   weak decays (tests/test_torch_gla_design.py mirrors this arithmetic on
+//   the CPU). The output kernel keeps 83,472 bytes of tiles at K = V = 64,
+//   so two CTAs share an SM.
+//
+// float32 q, k, v (route "mma.3xtf32"; float32 models): the same kernels
+//   with float32 tiles and operands (gla_scan_chunk_state_tf32_kernel,
+//   gla_scan_chunk_output_tf32_kernel, the same prefix kernel), every
+//   product on mma.sync m16n8k8 in TF32. One TF32 rounding keeps 11 bits of
+//   an operand, which misses the 2e-4 tolerance (float32 inputs are not
+//   exact in TF32, unlike bf16 ones), so every operand, inputs included, is
+//   split after its fragment load: hi = cvt.rna.tf32(x), lo =
+//   cvt.rna.tf32(x - hi), three products, lo lo dropped (~2^-22 of |a b|).
+//   mma.sync takes A and B from registers, so the split costs no shared
+//   memory: no hi/lo copies, no transposed tiles (tests/
+//   test_torch_gla_f32_design.py mirrors this arithmetic on the CPU, one
+//   TF32 rounding in place of the pair beside it). Accumulation: hi-hi
+//   products go to a fresh accumulator per part (the inter term, each
+//   A @ v) added in float32, hi-lo and lo-hi to one chain of their own, so
+//   no hi-hi chain is longer than 8 k-steps.
+//   An accumulator's P feeds the next product's A fragment as it stands: a
+//   k-step takes tokens 2 tig and 2 tig + 1 at A columns tig and tig + 4,
+//   and v's rows are read in that order. Tiles (Tiles32): 37,888 bytes for
+//   the state kernel and 107,024 for the output kernel at K = V = 64, so
+//   two output CTAs (8 warps) share an SM. Held back further than the bf16
+//   route by 1.6x its bytes and twice its tensor instructions (k = 8 a
+//   product instead of 16, each B fragment split in registers).
 //
 // Inputs and outputs stay in the model layout (B, T, H, .): both paths read
 // a head's rows with strides, so the wrapper copies nothing. A ragged last
@@ -110,183 +114,6 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// float32 path: the first kernel
-// ---------------------------------------------------------------------------
-
-// One CTA per (batch, head) leaves most SMs empty and every thread's sums
-// are chains of dependent shared-memory reads: 1024 threads (32 warps) hide
-// more of that latency than 256 (times of both in PERF.md). Needs
-// THREADS >= K + CHUNK (step b).
-constexpr int THREADS = 1024;
-constexpr int CHUNK = 32;         // tokens per chunk tile
-constexpr int SUB32 = 16;         // tokens per sub-chunk of local sums
-constexpr int CP = CHUNK + 1;     // padded row of the transposed k and L tiles
-constexpr int KMAX = 64;          // K, V: multiples of 16 up to 64
-constexpr float LW_FLOOR = -44.36141955583650f;  // -64 * ln 2
-
-size_t smem_floats(int K, int V) {
-  return 2 * (size_t)CHUNK * K        // q (later q * exp(L_read)), L_read: [t][k]
-         + 3 * (size_t)K * CP         // k (later decayed), L, suffix: [k][t]
-         + (size_t)CHUNK * V          // v: [t][v]
-         + (size_t)K * V              // state S: [k][v]
-         + (size_t)CHUNK * CHUNK      // att: [t][j]
-         + CHUNK                      // bonus: [t]
-         + 2 * (size_t)K;             // sub-chunk totals: [2][k]
-}
-
-// q, k, log_w: (B, T, H, K); v, o: (B, T, H, V); u: (H, K) float32 or null;
-// state_out: (B, H, K, V) float32. grid: (H, B); block: THREADS.
-__global__ void __launch_bounds__(THREADS)
-gla_scan_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ log_w,
-                const float* __restrict__ u, float* __restrict__ o,
-                float* __restrict__ state_out, int T, int H, int K, int V,
-                int rwkv) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                       // [CHUNK][K]
-  float* lr_s = q_s + CHUNK * K;           // [CHUNK][K]
-  float* kt_s = lr_s + CHUNK * K;          // [K][CP]
-  float* lt_s = kt_s + K * CP;             // [K][CP] local inclusive sums
-  float* sf_s = lt_s + K * CP;             // [K][CP] log_w, then suffixes
-  float* v_s = sf_s + K * CP;              // [CHUNK][V]
-  float* s_s = v_s + CHUNK * V;            // [K][V]
-  float* att_s = s_s + K * V;              // [CHUNK][CHUNK]
-  float* bonus_s = att_s + CHUNK * CHUNK;  // [CHUNK]
-  float* tot_s = bonus_s + CHUNK;          // [2][K] sub-chunk totals
-
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const bool has_u = rwkv && u != nullptr;
-  for (int i = tid; i < K * V; i += THREADS) s_s[i] = 0.f;
-
-  for (int t0 = 0; t0 < T; t0 += CHUNK) {
-    // a. load the chunk; rows past T are q = k = v = 0, log_w = 0
-    for (int i = tid; i < CHUNK * K; i += THREADS) {
-      const int t = i / K, kk = i - t * K;
-      float qx = 0.f, kx = 0.f, lw = 0.f;
-      if (t0 + t < T) {
-        const size_t g = (((size_t)b * T + t0 + t) * H + h) * K + kk;
-        qx = q[g];
-        kx = k[g];
-        lw = fmaxf(log_w[g], LW_FLOOR);
-      }
-      q_s[t * K + kk] = qx;
-      kt_s[kk * CP + t] = kx;
-      sf_s[kk * CP + t] = lw;
-    }
-    for (int i = tid; i < CHUNK * V; i += THREADS) {
-      const int t = i / V, vv = i - t * V;
-      v_s[i] = t0 + t < T ? v[(((size_t)b * T + t0 + t) * H + h) * V + vv] : 0.f;
-    }
-    __syncthreads();
-
-    // b. per channel (threads < K), inside each sub-chunk: the inclusive
-    //    cumulative log decay, the read decay (before the token's own for
-    //    rwkv), the exclusive suffix, and the sub-chunk's total; the bonus
-    //    sum_k q u k per token (threads K .. K + CHUNK)
-    if (tid < K) {
-      float* lw = sf_s + tid * CP;
-      for (int s = 0; s < CHUNK; s += SUB32) {
-        float acc = 0.f;
-        for (int t = s; t < s + SUB32; ++t) {
-          const float before = acc;
-          acc += lw[t];
-          lt_s[tid * CP + t] = acc;
-          lr_s[t * K + tid] = rwkv ? before : acc;
-        }
-        tot_s[(s / SUB32) * K + tid] = acc;
-        float suf = 0.f;
-        for (int t = s + SUB32 - 1; t >= s; --t) {
-          const float x = lw[t];
-          lw[t] = suf;
-          suf += x;
-        }
-      }
-    } else if (tid < K + CHUNK) {
-      const int t = tid - K;
-      float acc = 0.f;
-      if (has_u)
-        for (int kk = 0; kk < K; ++kk)
-          acc = fmaf(q_s[t * K + kk] * u[h * K + kk], kt_s[kk * CP + t], acc);
-      bonus_s[t] = acc;
-    }
-    __syncthreads();
-
-    // c. intra-chunk attention, exp only on the pairs the mask keeps: in one
-    //    sub-chunk the read sum less the inclusive sum at j; from the first
-    //    sub-chunk to the second the suffix after j plus the read sum
-    for (int i = tid; i < CHUNK * CHUNK; i += THREADS) {
-      const int t = i / CHUNK, j = i - t * CHUNK;
-      float acc = 0.f;
-      if (rwkv ? j < t : j <= t) {
-        const float* qr = q_s + t * K;
-        const float* lr = lr_s + t * K;
-        const float* lj = (j < SUB32 && t >= SUB32 ? sf_s : lt_s) + j;
-        const float sign = j < SUB32 && t >= SUB32 ? 1.f : -1.f;
-#pragma unroll 8
-        for (int kk = 0; kk < K; ++kk)
-          acc = fmaf(qr[kk] * kt_s[kk * CP + j],
-                     expf(fmaf(sign, lj[kk * CP], lr[kk])), acc);
-      }
-      att_s[i] = acc;
-    }
-    __syncthreads();
-
-    // d. q * exp(L_read) for the inter term, L_read the read sum plus the
-    //    first sub-chunk's total past it; k * exp(decay after the token to
-    //    the chunk's end) for the update
-    for (int i = tid; i < CHUNK * K; i += THREADS) {
-      const int tq = i / K, kq = i - tq * K;
-      q_s[i] *= expf(lr_s[i] + (tq >= SUB32 ? tot_s[kq] : 0.f));
-      const int kk = i / CHUNK, t = i - kk * CHUNK;
-      kt_s[kk * CP + t] *= expf(sf_s[kk * CP + t] + (t < SUB32 ? tot_s[K + kk] : 0.f));
-    }
-    __syncthreads();
-
-    // e. o = q_sc @ S + att @ v + bonus * v
-    for (int i = tid; i < CHUNK * V; i += THREADS) {
-      const int t = i / V, vv = i - t * V;
-      if (t0 + t >= T) continue;
-      float acc = 0.f;
-      for (int kk = 0; kk < K; ++kk) acc = fmaf(q_s[t * K + kk], s_s[kk * V + vv], acc);
-      const int jmax = rwkv ? t : t + 1;
-      for (int j = 0; j < jmax; ++j) acc = fmaf(att_s[t * CHUNK + j], v_s[j * V + vv], acc);
-      acc = fmaf(bonus_s[t], v_s[t * V + vv], acc);
-      o[(((size_t)b * T + t0 + t) * H + h) * V + vv] = acc;
-    }
-    __syncthreads();
-
-    // f. S = exp(Lc)^T * S + k_dec^T @ v
-    for (int i = tid; i < K * V; i += THREADS) {
-      const int kk = i / V, vv = i - kk * V;
-      float acc = expf(tot_s[kk] + tot_s[K + kk]) * s_s[i];
-      for (int j = 0; j < CHUNK; ++j) acc = fmaf(kt_s[kk * CP + j], v_s[j * V + vv], acc);
-      s_s[i] = acc;
-    }
-    __syncthreads();
-  }
-
-  float* so = state_out + ((size_t)b * H + h) * K * V;
-  for (int i = tid; i < K * V; i += THREADS) so[i] = s_s[i];
-}
-
-cudaError_t launch_f32(const float* q, const float* k, const float* v,
-                       const float* log_w, const float* u, float* o,
-                       float* state_out, int B, int T, int H, int K, int V,
-                       int rwkv, cudaStream_t stream) {
-  const size_t bytes = smem_floats(K, V) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gla_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  gla_scan_kernel<<<dim3(H, B), THREADS, bytes, stream>>>(
-      q, k, v, log_w, u, o, state_out, T, H, K, V, rwkv);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16 path: chunk-parallel states and outputs on tensor cores
-// ---------------------------------------------------------------------------
-
 constexpr int MC = 64;            // tokens per chunk
 constexpr int SUB = 16;           // tokens per sub-chunk: one warp's rows
 constexpr int NSUB = MC / SUB;    // one warp per sub-chunk
@@ -295,6 +122,7 @@ constexpr int PREFIX_THREADS = 256;
 constexpr int PREFIX_BATCH = 8;   // chunks whose loads a prefix thread issues at once
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LW2_FLOOR = -64.f;  // per-token log2 decay clamp
+constexpr int KMAX = 64;          // K, V: multiples of 16 up to 64
 
 // Shared-memory tiles of one chunk. bf16 rows are padded by 8 elements
 // (16 bytes), so the 8 rows of every ldmatrix fall in distinct bank groups;
@@ -315,6 +143,24 @@ struct Tiles {
   // state hi, state lo
   static constexpr int OUTPUT_BYTES =
       4 * TILE_K + TILE_V + LL + TOT + ZERO + U + 2 * TILE_S;
+};
+
+// The float32 route's tiles, all float32, no hi/lo copies (operands are
+// split in registers). An m16n8k8 fragment load has lane (gid, tig) read row
+// gid, column tig of an 8 x 4 block (A from [m][k], B from [n][k]: rows of
+// KA = K + 4 floats put the eight rows in distinct bank quads), row tig,
+// column gid (A from [k][m], B from [k][n]: rows of K + 8 or V + 8, eight
+// banks apart), or row 2 tig (+ 1), column gid (v as the B operand of a
+// product whose A is an accumulator, below: rows of V + 4).
+template <int K, int V>
+struct Tiles32 {
+  static constexpr int KA = K + 4, KT = K + 8, VT = V + 8, VP = V + 4;
+  // chunk_state: k (then decayed) [MC][KT], v [MC][VT], totals
+  static constexpr int STATE_BYTES = 4 * (MC * KT + MC * VT + NSUB * K);
+  // chunk_output: q, k, k * 2^Sloc and Ll [MC][KA], v [MC][VP], the state
+  // [K][VT], totals, a zero row, u
+  static constexpr int OUTPUT_BYTES =
+      4 * (4 * MC * KA + MC * VP + K * VT + NSUB * K + KA + K);
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -395,6 +241,39 @@ __device__ __forceinline__ void mma2(float (&c)[4], const uint32_t (&ah)[4],
   mma(c, ah, b0, b1);
 }
 
+// x as a TF32 pair: hi = cvt.rna.tf32(x) (round to nearest, ties away from
+// zero, 10 explicit mantissa bits, the low 13 bits 0), lo = cvt.rna.tf32(x - hi).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// c += a (16x8, row) * b (8x8, col); tf32 inputs, float32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: hh += a_hi b_hi and cross += a_hi b_lo + a_lo b_hi (lo lo
+// dropped), each float32 factor split into TF32 hi + lo. wgmma truncates
+// the sums it accumulates toward zero (flash_attention.cu, "Accumulation"),
+// so the cross terms, 2^-11 of the products, keep a chain of their own and
+// hh takes one accumulation a k-step.
+__device__ __forceinline__ void mma3_tf32(float (&hh)[4], float (&cross)[4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], float b0,
+                                          float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(cross, al, bh0, bh1);
+  mma_tf32(cross, ah, bl0, bl1);
+  mma_tf32(hh, ah, bh0, bh1);
+}
+
 // Four 8x8 b16 matrices from shared memory; lane L gives the row address of
 // matrix L / 8, row L % 8. trans: each matrix transposed.
 __device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
@@ -445,21 +324,20 @@ __device__ __forceinline__ void ldsm_a_transposed(uint32_t (&r)[4],
   ldsm_t(r, smem_u32(tile + row * ld + col));
 }
 
-// Copy the chunk's MC rows of a (B, T, H, W) bf16 tensor into a [MC][W + 8]
-// tile; rows past T are zero-filled.
-template <int W>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* tile,
-                                          const __nv_bfloat16* src, int b,
+// Copy the chunk's MC rows of a (B, T, H, W) bf16 or float32 tensor into a
+// [MC][LD] tile; rows past T are zero-filled.
+template <int W, int LD = W + 8, typename E>
+__device__ __forceinline__ void load_rows(E* tile, const E* src, int b,
                                           int t0, int T, int H, int h,
                                           int tid) {
-  constexpr int CH = W / 8;  // 16-byte pieces per row
+  constexpr int PIECE = 16 / sizeof(E);  // elements per 16-byte copy
+  constexpr int CH = W / PIECE;          // copies per row
 #pragma unroll
   for (int i = tid; i < MC * CH; i += MMA_THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
+    const int r = i / CH, c = (i % CH) * PIECE;
     const bool in = t0 + r < T;
-    const __nv_bfloat16* g =
-        src + (in ? (((size_t)b * T + t0 + r) * H + h) * W + c : 0);
-    cp_async16(smem_u32(tile + r * (W + 8) + c), g, in ? 16 : 0);
+    const E* g = src + (in ? (((size_t)b * T + t0 + r) * H + h) * W + c : 0);
+    cp_async16(smem_u32(tile + r * LD + c), g, in ? 16 : 0);
   }
 }
 
@@ -879,62 +757,401 @@ gla_scan_chunk_output_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 route: the same three launches in 3xTF32 on mma.sync
+// ---------------------------------------------------------------------------
+
+// A fragment (16 x 8, tf32 hi and lo) of rows m0..m0+15, columns k0..k0+7 of
+// A = X^T for a float32 tile X stored [k][m] with rows of `ld` floats.
+__device__ __forceinline__ void a_frag_transposed(uint32_t (&ah)[4],
+                                                  uint32_t (&al)[4],
+                                                  const float* tile, int ld,
+                                                  int k0, int m0, int lane) {
+  const float* x = tile + (k0 + (lane & 3)) * ld + m0 + (lane >> 2);
+  split_tf32(x[0], ah[0], al[0]);            // (gid, tig)
+  split_tf32(x[8], ah[1], al[1]);            // (gid + 8, tig)
+  split_tf32(x[4 * ld], ah[2], al[2]);       // (gid, tig + 4)
+  split_tf32(x[4 * ld + 8], ah[3], al[3]);   // (gid + 8, tig + 4)
+}
+
+// 1. Chunk-local states, as gla_scan_chunk_state_kernel. grid: (n_chunks, H,
+// B); block: MMA_THREADS.
 template <int K, int V>
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const float* log_w, const float* u, void* o,
-                       float* state_out, float* scratch, int B, int T, int H,
-                       int rwkv, cudaStream_t stream) {
-  using Tl = Tiles<K, V>;
+__global__ void __launch_bounds__(MMA_THREADS)
+gla_scan_chunk_state_tf32_kernel(const float* __restrict__ k,
+                                 const float* __restrict__ v,
+                                 const float* __restrict__ log_w,
+                                 float* __restrict__ states,
+                                 float* __restrict__ decay, int T, int H) {
+  using Tl = Tiles32<K, V>;
+  constexpr int KT = Tl::KT, VT = Tl::VT;
+  extern __shared__ __align__(16) unsigned char tiles[];
+  float* kd = reinterpret_cast<float*>(tiles);  // [MC][KT]: k, then decayed
+  float* vs = kd + MC * KT;                     // [MC][VT]
+  float* tot = vs + MC * VT;                    // [NSUB][K]
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int t0 = c * MC;
+  load_rows<K, KT>(kd, k, b, t0, T, H, h, tid);
+  load_rows<V, VT>(vs, v, b, t0, T, H, h, tid);
+  ScanTasks<K> scan;
+  scan.load(log_w, b, t0, T, H, h, tid);
+  scan.scan(tid, nullptr, tot);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // k * 2^(Sloc + R_s) in place
+#pragma unroll
+  for (int n = 0; n < ScanTasks<K>::N; ++n) {
+    const int task = tid + n * MMA_THREADS;
+    if (task >= NSUB * K) break;
+    const int s = task / K, ch = task % K;
+    float r = 0.f;
+    for (int s2 = s + 1; s2 < NSUB; ++s2) r += tot[s2 * K + ch];
+#pragma unroll
+    for (int i = 0; i < SUB; ++i) kd[(s * SUB + i) * KT + ch] *= ex2(scan.x[n][i] + r);
+  }
+  if (tid < K) {
+    float lc = 0.f;
+    for (int s = 0; s < NSUB; ++s) lc += tot[s * K + tid];
+    decay[(((size_t)b * H + h) * gridDim.x + c) * K + tid] = ex2(lc);
+  }
+  __syncthreads();
+
+  // dS (K x V) = kd^T v: items of 16 rows x 16 columns, round-robin over the
+  // warps, MC / 8 k-steps of three mma each per 8 columns
+  float* out = states + (((size_t)b * H + h) * gridDim.x + c) * K * V;
+  const int gid = lane >> 2, tig = lane & 3;
+  for (int item = warp; item < (K / 16) * (V / 16); item += NSUB) {
+    const int m0 = (item / (V / 16)) * 16, n0 = (item % (V / 16)) * 16;
+    float hh[2][4] = {}, cross[2][4] = {};
+#pragma unroll
+    for (int k0 = 0; k0 < MC; k0 += 8) {
+      uint32_t ah[4], al[4];
+      a_frag_transposed(ah, al, kd, KT, k0, m0, lane);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float* vb = vs + (k0 + tig) * VT + n0 + nt * 8 + gid;
+        mma3_tf32(hh[nt], cross[nt], ah, al, vb[0], vb[4 * VT]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int col = n0 + nt * 8 + 2 * tig;
+      *reinterpret_cast<float2*>(out + (m0 + gid) * V + col) =
+          make_float2(hh[nt][0] + cross[nt][0], hh[nt][1] + cross[nt][1]);
+      *reinterpret_cast<float2*>(out + (m0 + gid + 8) * V + col) =
+          make_float2(hh[nt][2] + cross[nt][2], hh[nt][3] + cross[nt][3]);
+    }
+  }
+}
+
+// 3. Outputs, as gla_scan_chunk_output_kernel: warp a computes the 16 rows
+// of sub-chunk a. grid: (n_chunks, H, B); block: MMA_THREADS.
+template <int K, int V>
+__global__ void __launch_bounds__(MMA_THREADS)
+gla_scan_chunk_output_tf32_kernel(const float* __restrict__ q,
+                                  const float* __restrict__ k,
+                                  const float* __restrict__ v,
+                                  const float* __restrict__ log_w,
+                                  const float* __restrict__ u,
+                                  const float* __restrict__ states,
+                                  float* __restrict__ o, int T, int H,
+                                  int rwkv) {
+  using Tl = Tiles32<K, V>;
+  constexpr int KA = Tl::KA, VP = Tl::VP, VT = Tl::VT;
+  extern __shared__ __align__(16) unsigned char tiles[];
+  float* qs = reinterpret_cast<float*>(tiles);  // [MC][KA]
+  float* ks = qs + MC * KA;                     // [MC][KA]
+  float* ksuf = ks + MC * KA;                   // [MC][KA]: k * 2^Sloc
+  float* ll = ksuf + MC * KA;                   // [MC][KA]
+  float* vs = ll + MC * KA;                     // [MC][VP]
+  float* ss = vs + MC * VP;                     // [K][VT]: S_(c-1)
+  float* tot = ss + K * VT;                     // [NSUB][K]
+  float* zero = tot + NSUB * K;                 // [KA]
+  float* us = zero + KA;                        // [K]: u or 0
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, a = tid / 32, lane = tid % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int t0 = c * MC;
+  load_rows<K, KA>(qs, q, b, t0, T, H, h, tid);
+  load_rows<K, KA>(ks, k, b, t0, T, H, h, tid);
+  load_rows<V, VP>(vs, v, b, t0, T, H, h, tid);
+  // issue every load before any use: the state this chunk starts from,
+  // the log2 decays, u
+  constexpr int NS = (K * V / 4 + MMA_THREADS - 1) / MMA_THREADS;
+  const float4* st = reinterpret_cast<const float4*>(
+      states + (((size_t)b * H + h) * gridDim.x + c) * K * V);
+  float4 sx[NS];
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    const int i = tid + n * MMA_THREADS;
+    sx[n] = i < K * V / 4 ? st[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  ScanTasks<K> scan;
+  scan.load(log_w, b, t0, T, H, h, tid);
+  for (int i = tid; i < K; i += MMA_THREADS) us[i] = u ? u[(size_t)h * K + i] : 0.f;
+  for (int i = tid; i < KA; i += MMA_THREADS) zero[i] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    const int i = tid + n * MMA_THREADS;
+    if (i >= K * V / 4) break;
+    *reinterpret_cast<float4*>(ss + ((4 * i) / V) * VT + (4 * i) % V) = sx[n];
+  }
+  scan.scan(tid, ll, tot);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // k * 2^Sloc (the off-diagonal sub-blocks' B operand)
+#pragma unroll
+  for (int n = 0; n < ScanTasks<K>::N; ++n) {
+    const int task = tid + n * MMA_THREADS;
+    if (task >= NSUB * K) break;
+    const int s = task / K, ch = task % K;
+#pragma unroll
+    for (int i = 0; i < SUB; ++i) {
+      const int row = s * SUB + i;
+      ksuf[row * KA + ch] = ks[row * KA + ch] * ex2(scan.x[n][i]);
+    }
+  }
+  __syncthreads();
+
+  // this lane's rows r0, r1 and the local read decay Lr of each: Ll of the
+  // row itself (ssd) or of the one before it inside the sub-chunk (rwkv)
+  const int r0 = a * SUB + gid, r1 = r0 + 8;
+  const float* lr0 = rwkv ? (gid == 0 ? zero : ll + (r0 - 1) * KA) : ll + r0 * KA;
+  const float* lr1 = rwkv ? ll + (r1 - 1) * KA : ll + r1 * KA;
+
+  // This lane's channels, in A-fragment order: col(kt, j) = 8 kt + tig + 4 j.
+  // q * 2^Lr in float32 at (r0, col(kt, 0)), (r1, col(kt, 0)), (r0, col(kt,
+  // 1)), (r1, col(kt, 1)); fac: 2^g at the lane's channels, g the log2 decay
+  // of a run of sub-chunks; (q * 2^Lr * fac) split into tf32 pairs per 8
+  // channels.
+  float qf[K / 8][4], g[K / 8][2], fac[K / 8][2];
+  auto lane_col = [&](int kt, int j) { return kt * 8 + tig + 4 * j; };
+#pragma unroll
+  for (int kt = 0; kt < K / 8; ++kt)
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int col = lane_col(kt, p >> 1);
+      qf[kt][p] = qs[((p & 1) ? r1 : r0) * KA + col] * ex2(((p & 1) ? lr1 : lr0)[col]);
+    }
+  auto add_decay = [&](int s) {
+#pragma unroll
+    for (int kt = 0; kt < K / 8; ++kt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) g[kt][j] += tot[s * K + lane_col(kt, j)];
+  };
+  auto clear_decay = [&]() {
+#pragma unroll
+    for (int kt = 0; kt < K / 8; ++kt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) g[kt][j] = 0.f;
+  };
+  auto set_factors = [&]() {
+#pragma unroll
+    for (int kt = 0; kt < K / 8; ++kt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) fac[kt][j] = ex2(g[kt][j]);
+  };
+  auto a_frags = [&](int kt, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) split_tf32(qf[kt][p] * fac[kt][p >> 1], ah[p], al[p]);
+  };
+
+  // acc: the hi-hi products, each part summed in an accumulator of its own
+  // and added in float32; cross: every hi-lo and lo-hi product
+  float acc[V / 8][4] = {}, cross[V / 8][4] = {};
+
+  // acc += P @ v of sub-chunk sb for P (16 x 16 tokens) in accumulator
+  // layout, p[nt] = (gid, 8 nt + 2 tig + {0, 1}), (gid + 8, the same): k-step
+  // nt takes token 8 nt + 2 tig at A column tig and token 8 nt + 2 tig + 1 at
+  // tig + 4, and B reads v's rows in that order.
+  auto add_pv = [&](const float (&p)[2][4], int sb) {
+    float part[V / 8][4] = {};
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt) {
+      uint32_t ah[4], al[4];
+      split_tf32(p[kt][0], ah[0], al[0]);
+      split_tf32(p[kt][2], ah[1], al[1]);
+      split_tf32(p[kt][1], ah[2], al[2]);
+      split_tf32(p[kt][3], ah[3], al[3]);
+      const float* vb = vs + (sb * SUB + kt * 8 + 2 * tig) * VP + gid;
+#pragma unroll
+      for (int nt = 0; nt < V / 8; ++nt)
+        mma3_tf32(part[nt], cross[nt], ah, al, vb[nt * 8], vb[VP + nt * 8]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < V / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] += part[nt][e];
+  };
+
+  // inter: (q * 2^(P_a + Lr)) @ S, P_a = the decay of sub-chunks 0 .. a-1
+  clear_decay();
+  for (int s = 0; s < a; ++s) add_decay(s);
+  set_factors();
+#pragma unroll
+  for (int kt = 0; kt < K / 8; ++kt) {
+    uint32_t ah[4], al[4];
+    a_frags(kt, ah, al);
+    const float* srow = ss + (kt * 8 + tig) * VT + gid;
+#pragma unroll
+    for (int nt = 0; nt < V / 8; ++nt)
+      mma3_tf32(acc[nt], cross[nt], ah, al, srow[nt * 8], srow[4 * VT + nt * 8]);
+  }
+
+  // off-diagonal sub-blocks b < a, nearest first: g = the decay of the
+  // sub-chunks strictly between b and a
+  clear_decay();
+  for (int sb = a - 1; sb >= 0; --sb) {
+    set_factors();
+    float hh[2][4] = {}, cr[2][4] = {};
+#pragma unroll
+    for (int kt = 0; kt < K / 8; ++kt) {
+      uint32_t ah[4], al[4];
+      a_frags(kt, ah, al);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float* kb = ksuf + (sb * SUB + nt * 8 + gid) * KA + kt * 8 + tig;
+        mma3_tf32(hh[nt], cr[nt], ah, al, kb[0], kb[4]);
+      }
+    }
+    float p[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[nt][e] = hh[nt][e] + cr[nt][e];
+    add_pv(p, sb);
+    add_decay(sb);
+  }
+
+  // diagonal sub-block, pairwise, as the bf16 kernel: this lane's pairs in
+  // accumulator layout, rows (gid, gid + 8) x columns (2 tig, 2 tig + 1,
+  // 2 tig + 8, 2 tig + 9) of the sub-chunk; (gid, 2 tig + 8 | 9) lie above
+  // the diagonal for every lane and are never formed
+  {
+    const int base = a * SUB;
+    const int j0 = base + 2 * tig;                    // columns j0, j0 + 1
+    const int j1 = j0 + 8;                            // columns j1, j1 + 1
+    const bool keep0 = rwkv ? 2 * tig < gid : 2 * tig <= gid;
+    const bool keep1 = rwkv ? 2 * tig + 1 < gid : 2 * tig + 1 <= gid;
+    const bool diag0 = rwkv && 2 * tig == gid, diag1 = rwkv && 2 * tig + 1 == gid;
+    // e: (r0, j0), (r0, j0+1), (r1, j0), (r1, j0+1), -, -, (r1, j1), (r1, j1+1)
+    float e0 = 0.f, e1 = 0.f, e2 = 0.f, e3 = 0.f, e6 = 0.f, e7 = 0.f;
+#pragma unroll 2
+    for (int ch = 0; ch < K; ch += 4) {
+      float q0[4], q1[4], l0[4], l1[4], kj0[4], kj1[4], kj2[4], kj3[4];
+      float m0[4], m1[4], m2[4], m3[4], uu[4];
+      load4(qs + r0 * KA + ch, q0);
+      load4(qs + r1 * KA + ch, q1);
+      load4(lr0 + ch, l0);
+      load4(lr1 + ch, l1);
+      load4(ks + j0 * KA + ch, kj0);
+      load4(ks + (j0 + 1) * KA + ch, kj1);
+      load4(ks + j1 * KA + ch, kj2);
+      load4(ks + (j1 + 1) * KA + ch, kj3);
+      load4(ll + j0 * KA + ch, m0);
+      load4(ll + (j0 + 1) * KA + ch, m1);
+      load4(ll + j1 * KA + ch, m2);
+      load4(ll + (j1 + 1) * KA + ch, m3);
+      load4(us + ch, uu);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float w0 = diag0 ? uu[x] : ex2(keep0 ? l0[x] - m0[x] : -INFINITY);
+        const float w1 = diag1 ? uu[x] : ex2(keep1 ? l0[x] - m1[x] : -INFINITY);
+        const float w6 = diag0 ? uu[x] : ex2(keep0 ? l1[x] - m2[x] : -INFINITY);
+        const float w7 = diag1 ? uu[x] : ex2(keep1 ? l1[x] - m3[x] : -INFINITY);
+        e0 = fmaf(q0[x] * kj0[x], w0, e0);
+        e1 = fmaf(q0[x] * kj1[x], w1, e1);
+        e2 = fmaf(q1[x] * kj0[x], ex2(l1[x] - m0[x]), e2);
+        e3 = fmaf(q1[x] * kj1[x], ex2(l1[x] - m1[x]), e3);
+        e6 = fmaf(q1[x] * kj2[x], w6, e6);
+        e7 = fmaf(q1[x] * kj3[x], w7, e7);
+      }
+    }
+    const float p[2][4] = {{e0, e1, e2, e3}, {0.f, 0.f, e6, e7}};
+    add_pv(p, a);
+  }
+
+  // store rows r0, r1 that lie before T
+#pragma unroll
+  for (int nt = 0; nt < V / 8; ++nt) {
+    const int col = nt * 8 + 2 * tig;
+    if (t0 + r0 < T)
+      *reinterpret_cast<float2*>(o + (((size_t)b * T + t0 + r0) * H + h) * V + col) =
+          make_float2(acc[nt][0] + cross[nt][0], acc[nt][1] + cross[nt][1]);
+    if (t0 + r1 < T)
+      *reinterpret_cast<float2*>(o + (((size_t)b * T + t0 + r1) * H + h) * V + col) =
+          make_float2(acc[nt][2] + cross[nt][2], acc[nt][3] + cross[nt][3]);
+  }
+}
+
+// The three launches of either route, on q/k/v/o of element type E.
+template <typename E>
+using StateKernel = void (*)(const E*, const E*, const float*, float*, float*,
+                             int, int);
+template <typename E>
+using OutputKernel = void (*)(const E*, const E*, const E*, const float*,
+                              const float*, const float*, E*, int, int, int);
+
+template <typename E>
+cudaError_t launch_chunked(StateKernel<E> state_kernel, int state_bytes,
+                           OutputKernel<E> output_kernel, int output_bytes,
+                           const void* q, const void* k, const void* v,
+                           const float* log_w, const float* u, void* o,
+                           float* state_out, float* scratch, int B, int T,
+                           int H, int K, int V, int rwkv, cudaStream_t stream) {
   const int n_chunks = (T + MC - 1) / MC;
   float* states = scratch;
   float* decay = scratch + (size_t)B * H * n_chunks * K * V;
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  const auto* qe = static_cast<const E*>(q);
+  const auto* ke = static_cast<const E*>(k);
+  const auto* ve = static_cast<const E*>(v);
   cudaError_t err = cudaFuncSetAttribute(
-      gla_scan_chunk_state_kernel<K, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tl::STATE_BYTES);
+      state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, state_bytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gla_scan_chunk_output_kernel<K, V>,
+    err = cudaFuncSetAttribute(output_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Tl::OUTPUT_BYTES);
+                               output_bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_chunks, H, B);
-  gla_scan_chunk_state_kernel<K, V><<<grid, MMA_THREADS, Tl::STATE_BYTES, stream>>>(
-      kb, vb, log_w, states, decay, T, H);
+  state_kernel<<<grid, MMA_THREADS, state_bytes, stream>>>(ke, ve, log_w, states,
+                                                           decay, T, H);
   const long long n = (long long)B * H * K * V;
   gla_scan_state_prefix_kernel<<<(unsigned)((n + PREFIX_THREADS - 1) / PREFIX_THREADS),
                             PREFIX_THREADS, 0, stream>>>(
       states, decay, state_out, B * H, n_chunks, K, V);
-  gla_scan_chunk_output_kernel<K, V><<<grid, MMA_THREADS, Tl::OUTPUT_BYTES, stream>>>(
-      qb, kb, vb, log_w, rwkv ? u : nullptr, states,
-      static_cast<__nv_bfloat16*>(o), T, H, rwkv);
+  output_kernel<<<grid, MMA_THREADS, output_bytes, stream>>>(
+      qe, ke, ve, log_w, rwkv ? u : nullptr, states, static_cast<E*>(o), T, H,
+      rwkv);
   return cudaGetLastError();
 }
 
-// The kernel gla_scan_fwd runs for (dtype, K, V), and the dynamic shared
-// memory of its largest CTA in bytes.
-enum Route { ROUTE_NONE, ROUTE_FMA, ROUTE_MMA };
+// The kernels gla_scan_fwd runs for (dtype, K, V): float32 q, k, v on the
+// 3xTF32 kernels, bfloat16 on the bf16-pair kernels.
+enum Route { ROUTE_NONE, ROUTE_TF32, ROUTE_MMA };
 
 #define REPRO_GLA_SHAPES(X)                                              \
   X(16, 16) X(16, 32) X(16, 48) X(16, 64) X(32, 16) X(32, 32) X(32, 48)  \
   X(32, 64) X(48, 16) X(48, 32) X(48, 48) X(48, 64) X(64, 16) X(64, 32)  \
   X(64, 48) X(64, 64)
 
+// The route, and in *smem the dynamic shared memory of its largest CTA (the
+// output kernel's) in bytes.
 Route route(int dtype, int K, int V, int* smem) {
   *smem = 0;
   if (K % 16 != 0 || V % 16 != 0 || K < 16 || V < 16 || K > KMAX || V > KMAX ||
       (dtype != 0 && dtype != 1))
     return ROUTE_NONE;
-  if (dtype == 0) {
-    *smem = (int)(smem_floats(K, V) * sizeof(float));
-    return ROUTE_FMA;
-  }
-#define REPRO_GLA_SMEM(KK, VV) \
-  if (K == KK && V == VV) *smem = Tiles<KK, VV>::OUTPUT_BYTES;
+#define REPRO_GLA_SMEM(KK, VV)                                            \
+  if (K == KK && V == VV)                                                 \
+    *smem = dtype == 1 ? Tiles<KK, VV>::OUTPUT_BYTES : Tiles32<KK, VV>::OUTPUT_BYTES;
   REPRO_GLA_SHAPES(REPRO_GLA_SMEM)
 #undef REPRO_GLA_SMEM
-  return ROUTE_MMA;
+  return dtype == 1 ? ROUTE_MMA : ROUTE_TF32;
 }
 
 }  // namespace
@@ -943,57 +1160,59 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 for q, k, v and o; log_w and u are
 // float32; u may be null (no bonus). mode_rwkv: 1 = rwkv, 0 = ssd.
-// scratch: gla_scan_scratch_floats(dtype, B, T, H, K, V) floats (for
-// bfloat16 the chunk states, then the chunk decays; none for float32).
-// Returns the CUDA error code of the launches (0 on success).
+// scratch: gla_scan_scratch_floats(dtype, B, T, H, K, V) floats (the chunk
+// states, then the chunk decays). Returns the CUDA error code of the
+// launches (0 on success).
 int gla_scan_fwd(const void* q, const void* k, const void* v,
                  const float* log_w, const float* u, void* o,
                  float* state_out, float* scratch, int B, int T, int H, int K,
                  int V, int mode_rwkv, int dtype, void* stream) {
   int smem = 0;
   const Route r = route(dtype, K, V, &smem);
-  if (r == ROUTE_NONE || T < 1 || B < 1 || H < 1)
+  if (r == ROUTE_NONE || T < 1 || B < 1 || H < 1 || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (r == ROUTE_FMA)
-    return (int)launch_f32(static_cast<const float*>(q),
-                           static_cast<const float*>(k),
-                           static_cast<const float*>(v), log_w, u,
-                           static_cast<float*>(o), state_out, B, T, H, K, V,
-                           mode_rwkv, st);
-  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-#define REPRO_GLA_LAUNCH(KK, VV)                                              \
-  if (K == KK && V == VV)                                                     \
-    return (int)launch_mma<KK, VV>(q, k, v, log_w, u, o, state_out, scratch, \
-                                   B, T, H, mode_rwkv, st);
+#define REPRO_GLA_LAUNCH(KK, VV)                                                 \
+  if (K == KK && V == VV)                                                        \
+    return (int)(r == ROUTE_MMA                                                  \
+                     ? launch_chunked<__nv_bfloat16>(                            \
+                           gla_scan_chunk_state_kernel<KK, VV>,                  \
+                           Tiles<KK, VV>::STATE_BYTES,                           \
+                           gla_scan_chunk_output_kernel<KK, VV>,                 \
+                           Tiles<KK, VV>::OUTPUT_BYTES, q, k, v, log_w, u, o,    \
+                           state_out, scratch, B, T, H, K, V, mode_rwkv, st)     \
+                     : launch_chunked<float>(                                    \
+                           gla_scan_chunk_state_tf32_kernel<KK, VV>,             \
+                           Tiles32<KK, VV>::STATE_BYTES,                         \
+                           gla_scan_chunk_output_tf32_kernel<KK, VV>,            \
+                           Tiles32<KK, VV>::OUTPUT_BYTES, q, k, v, log_w, u, o,  \
+                           state_out, scratch, B, T, H, K, V, mode_rwkv, st));
   REPRO_GLA_SHAPES(REPRO_GLA_LAUNCH)
 #undef REPRO_GLA_LAUNCH
   return (int)cudaErrorInvalidValue;  // unreachable: route() took K and V
 }
 
-// Name of the kernels gla_scan_fwd runs for (dtype, K, V): "mma" or "fma",
-// or NULL where it refuses them; *smem_bytes is the dynamic shared memory of
-// its largest CTA.
+// Name of the kernels gla_scan_fwd runs for (dtype, K, V): "mma" (bfloat16)
+// or "mma.3xtf32" (float32), or NULL where it refuses them; *smem_bytes is
+// the dynamic shared memory of its largest CTA.
 const char* gla_scan_route(int dtype, int K, int V, int* smem_bytes) {
   const Route r = route(dtype, K, V, smem_bytes);
-  return r == ROUTE_MMA ? "mma" : r == ROUTE_FMA ? "fma" : nullptr;
+  return r == ROUTE_MMA ? "mma" : r == ROUTE_TF32 ? "mma.3xtf32" : nullptr;
 }
 
-// Tokens per chunk tile of the kernels gla_scan_fwd runs for dtype: 64
-// (bfloat16) or 32 (float32); 0 for another dtype.
+// Tokens per chunk tile of the kernels gla_scan_fwd runs for dtype: 64 for
+// float32 and bfloat16; 0 for another dtype.
 int gla_scan_chunk_tokens(int dtype) {
-  return dtype == 1 ? MC : dtype == 0 ? CHUNK : 0;
+  return dtype == 0 || dtype == 1 ? MC : 0;
 }
 
 // Floats of the scratch gla_scan_fwd needs for these shapes: per (batch,
-// head, chunk of MC tokens) a (K, V) state and K decays for bfloat16, none
-// for float32; -1 where route() refuses (dtype, K, V).
+// head, chunk of MC tokens) a (K, V) state and K decays; -1 where route()
+// refuses (dtype, K, V).
 long long gla_scan_scratch_floats(int dtype, int B, int T, int H, int K,
                                   int V) {
   int smem = 0;
-  const Route r = route(dtype, K, V, &smem);
-  if (r == ROUTE_NONE) return -1;
-  if (r == ROUTE_FMA) return 0;
+  if (route(dtype, K, V, &smem) == ROUTE_NONE) return -1;
   return (long long)B * H * ((T + MC - 1) / MC) * ((long long)K * V + K);
 }
 

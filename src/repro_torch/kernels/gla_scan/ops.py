@@ -5,13 +5,14 @@
 u (H, K) or None) and returns (o (B, T, H, V) in v's dtype, final state
 (B, H, K, V) float32), scanning from a zero state. On CPU tensors it runs
 the plain version (``ref.gla_scan_reference``); on CUDA tensors it launches
-the kernels or raises. The C entry point picks them by dtype: bf16 q, k and
-v run three launches on tensor cores (chunk-local states, a prefix over
-chunks, chunk outputs; ``csrc/gla_scan.cu``) with a float32 scratch of
-chunk states that this wrapper allocates at the size the library reports,
-float32 q, k and v the first port's one-launch FMA kernel.
-``gla_scan.launches`` counts calls that launched (one per call, whichever
-kernels ran).
+the kernels or raises. Both dtypes run three launches on tensor cores
+(chunk-local states, a prefix over chunks, chunk outputs;
+``csrc/gla_scan.cu``) with a float32 scratch of chunk states that this
+wrapper allocates at the size the library reports; the C entry point picks
+the kernels by dtype: bf16 q, k and v take their products as bf16 pairs
+(route "mma"), float32 ones as TF32 pairs (3xTF32, route "mma.3xtf32").
+``gla_scan.launches`` counts calls that launched (one per call, three
+kernels).
 """
 from __future__ import annotations
 
@@ -53,8 +54,8 @@ def _lib() -> ctypes.CDLL:
 def kernel_route(dtype: torch.dtype, K: int, V: int) -> Tuple[Optional[str], int]:
     """(name, dynamic shared memory of its largest CTA in bytes) of the
     kernels the C entry point runs for q/k/v of ``dtype`` and widths K, V:
-    "mma" (bf16) or "fma" (float32); name None where it refuses them. Builds
-    the library (card machine only)."""
+    "mma" (bf16) or "mma.3xtf32" (float32); name None where it refuses them.
+    Builds the library (card machine only)."""
     smem = ctypes.c_int(0)
     name = _lib().gla_scan_route(DTYPE_CODES[dtype], K, V, ctypes.byref(smem))
     return (name.decode() if name else None), smem.value
@@ -63,16 +64,16 @@ def kernel_route(dtype: torch.dtype, K: int, V: int) -> Tuple[Optional[str], int
 @functools.lru_cache(maxsize=None)
 def chunk_tokens(dtype: torch.dtype) -> int:
     """Tokens per chunk tile of the kernels that q/k/v of ``dtype`` run, as
-    the library reports it (64 for bf16, 32 for float32). Builds the library
-    (card machine only)."""
+    the library reports it (64 for both dtypes). Builds the library (card
+    machine only)."""
     return _lib().gla_scan_chunk_tokens(DTYPE_CODES[dtype])
 
 
 def scratch_floats(dtype: torch.dtype, B: int, T: int, H: int, K: int,
                    V: int) -> int:
     """Floats of the scratch the kernels for q/k/v of ``dtype`` need, as the
-    library reports it: for bf16 a (K, V) state and K decays per (batch,
-    head, chunk), none for float32. Builds the library (card machine only)."""
+    library reports it: a (K, V) state and K decays per (batch, head,
+    chunk), for both dtypes. Builds the library (card machine only)."""
     n = _lib().gla_scan_scratch_floats(DTYPE_CODES[dtype], B, T, H, K, V)
     if n < 0:
         raise ValueError(f"no gla_scan kernel for {dtype} K={K} V={V}")
@@ -102,7 +103,7 @@ def _check(q, k, v, log_w, u, mode):
             raise ValueError(f"mode 'rwkv' needs u of shape {(H, K)} in "
                              "float32 or bfloat16")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        # the bf16 kernels copy rows with 16-byte cp.async
+        # the kernels copy rows with 16-byte cp.async
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: data_ptr must be a multiple of 16 "
                              f"bytes, got {x.data_ptr() % 16} bytes off")
@@ -137,12 +138,11 @@ def gla_scan(q, k, v, log_w, u: Optional[torch.Tensor] = None,
     uf = u.float() if u is not None else None
     o = torch.empty_like(v)
     state = torch.empty((B, H, K, V), dtype=torch.float32, device=dev)
-    n_scratch = scratch_floats(q.dtype, B, T, H, K, V)
-    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=dev)
-               if n_scratch else None)
+    scratch = torch.empty(scratch_floats(q.dtype, B, T, H, K, V),
+                          dtype=torch.float32, device=dev)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
             uf.data_ptr() if uf is not None else None, o.data_ptr(),
-            state.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+            state.data_ptr(), scratch.data_ptr(),
             B, T, H, K, V, int(mode == "rwkv"), DTYPE_CODES[q.dtype],
             torch._C._cuda_getCurrentRawStream(dev.index))
     lib = _lib()

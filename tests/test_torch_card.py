@@ -667,7 +667,7 @@ def test_gla_kernel_matches_plain_on_card(B, T, H, K, V, mode, dtype):
 
 # Decays per token: the sweep's strong range, |log w| up to 12, held at the
 # sweep's float32 tolerance; and an extreme one, |log w| up to 40, where
-# cumulative log decays reach ~1e3 within a 32-token chunk. A float32 ulp
+# cumulative log decays reach ~1e3 within a chunk. A float32 ulp
 # there is 6e-5, so exp of a difference of two of them carries ~1e-4
 # relative error in any chunked form (the Pallas kernel's too): 1e-3.
 # RWKV6's floor, -exp(10) = -22026 per token: every token there (clamp), and
@@ -710,11 +710,11 @@ def test_gla_kernel_strong_decay_stays_finite(mode, decay):
 @pytest.mark.parametrize("decay", list(DECAYS))
 def test_gla_f32_kernel_holds_the_exact_scan_at_every_decay_on_card(
         B, T, H, K, V, mode, decay):
-    """The float32 kernel against the token-by-token scan at the sweep
-    shapes, at every decay including RWKV6's floor (sub-chunk-local
+    """The float32 (3xTF32) kernels against the token-by-token scan at the
+    sweep shapes, at every decay including RWKV6's floor (sub-chunk-local
     cumulative sums, the read decay formed before the token's own)."""
     _cuda_or_skip()
-    assert gla_route(torch.float32, K, V)[0] == "fma"
+    assert gla_route(torch.float32, K, V)[0] == "mma.3xtf32"
     rng = np.random.default_rng(13)
     q, k, v = _inputs(rng, "float32", (B, T, H, K), (B, T, H, K), (B, T, H, V))
     draw, tol = DECAYS[decay]
@@ -817,31 +817,71 @@ def test_gla_mma_kernel_every_width_on_card(K, V, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [16, 32, 48, 64])
+@pytest.mark.parametrize("V", [16, 32, 48, 64])
+@pytest.mark.parametrize("mode", ["ssd", "rwkv"])
+def test_gla_tf32_kernel_every_width_on_card(K, V, mode):
+    """Every (K, V) the library instantiates for float32 runs the 3xTF32
+    kernels and holds the float32 tolerance (2e-4): T = 1 and 65 (one token;
+    a full chunk and one token), B = 2."""
+    _cuda_or_skip()
+    assert gla_route(torch.float32, K, V)[0] == "mma.3xtf32"
+    for T in (1, 65):
+        q, k, v, lw, u = _gla_inputs(14, "float32", 2, T, 2, K, V, mode)
+        o, s = gla_scan(q, k, v, lw, u=u, mode=mode)
+        torch.cuda.synchronize()
+        assert torch.isfinite(o).all() and torch.isfinite(s).all()
+        tr = lambda x: x.transpose(1, 2)
+        ro, rs = gla_scan_reference(tr(q), tr(k), tr(v), tr(lw), u=u, mode=mode)
+        np.testing.assert_allclose(_np(o), _np(tr(ro)), **_gla_tol("float32"))
+        np.testing.assert_allclose(_np(s), _np(rs), **_gla_tol("float32"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,H", [("rwkv", 32), ("ssd", 64)])
+def test_gla_tf32_kernel_matches_plain_at_the_served_shape_on_card(mode, H):
+    """The 3xTF32 kernels at RWKV6-1.6B's prefill shape (H = 32) and
+    Zamba2's widths (H = 64), T = 2048, K = V = 64, float32 throughout:
+    float32 tolerance, and a second call on the same inputs is bit-equal."""
+    _cuda_or_skip()
+    q, k, v, lw, u = _gla_inputs(12, "float32", 1, 2048, H, 64, 64, mode)
+    o, s = gla_scan(q, k, v, lw, u=u, mode=mode)
+    o2, s2 = gla_scan(q, k, v, lw, u=u, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(s, s2)
+    tr = lambda x: x.transpose(1, 2)
+    ro, rs = gla_scan_reference(tr(q), tr(k), tr(v), tr(lw), u=u, mode=mode)
+    np.testing.assert_allclose(_np(o), _np(tr(ro)), **_gla_tol("float32"))
+    np.testing.assert_allclose(_np(s), _np(rs), **_gla_tol("float32"))
+
+
+@pytest.mark.cuda
 def test_gla_scratch_is_the_designs_on_card():
     """The library's chunk tiles and scratch size are those of the design
-    that tests/test_torch_gla_design.py mirrors: 64-token chunks and, per
-    (batch, head, chunk), a (K, V) state and K decays for bf16; the float32
-    kernel's 32-token chunks and no scratch."""
+    that tests/test_torch_gla_design.py and tests/test_torch_gla_f32_design.py
+    mirror: 64-token chunks and, per (batch, head, chunk), a (K, V) state
+    and K decays, for both dtypes."""
     _cuda_or_skip()
     assert gla_ops.chunk_tokens(torch.bfloat16) == 64
-    assert gla_ops.chunk_tokens(torch.float32) == 32
+    assert gla_ops.chunk_tokens(torch.float32) == 64
     for B, T, H, K, V in [(2, 130, 3, 32, 48), (1, 2048, 32, 64, 64), (1, 1, 1, 16, 16)]:
         n = B * H * -(-T // 64) * (K * V + K)
         assert gla_ops.scratch_floats(torch.bfloat16, B, T, H, K, V) == n
-        assert gla_ops.scratch_floats(torch.float32, B, T, H, K, V) == 0
+        assert gla_ops.scratch_floats(torch.float32, B, T, H, K, V) == n
     with pytest.raises(ValueError, match="no gla_scan kernel"):
         gla_ops.scratch_floats(torch.bfloat16, 1, 8, 1, 80, 64)
 
 
 @pytest.mark.cuda
 def test_gla_routes_by_dtype_on_card():
-    """bf16 q/k/v run the tensor-core kernels at every K, V the wrapper takes;
-    float32 keeps the FMA kernel; the library refuses other widths."""
+    """bf16 q/k/v run the bf16-pair tensor-core kernels at every K, V the
+    wrapper takes, float32 the 3xTF32 ones; the library refuses other
+    widths."""
     _cuda_or_skip()
     for K in (16, 32, 48, 64):
         for V in (16, 32, 48, 64):
             assert gla_route(torch.bfloat16, K, V)[0] == "mma"
-            assert gla_route(torch.float32, K, V)[0] == "fma"
+            assert gla_route(torch.float32, K, V)[0] == "mma.3xtf32"
     assert gla_route(torch.bfloat16, 80, 64)[0] is None
 
 
