@@ -39,7 +39,8 @@ result:
    launch) is held bit for bit against its plain step loop (Table 2's
    trace, seeded random loads under four batteries, no battery, a batch
    of traces, T = 0, one window and one step, three windows, signed zeros
-   and a NaN in the surplus, a year at 60 s) and timed at Table 2's 1800
+   and a NaN in the surplus, a year at 60 s held against the loop on the
+   host, whose float32 operations give the card's bits) and timed at Table 2's 1800
    steps and the year's 525,600 beside its bound and the serial chain's,
    with cycles a step at the SM clock read while it runs;
    flash attention's backward kernels (and the forward's lse) against the
@@ -126,6 +127,25 @@ result:
    the kernels against the einsum path (B=1) per leaf within
    ``F32_GRAD_TOL`` and the loss within ``F32_LOSS_TOL``; it prints step ms,
    tokens/s and one profiled step's device busy share and attention share.
+18. the physics-invariant auditor and the remote sweep backend on the card.
+   18a: the ``fig1`` (16 requests), ``fleet`` and ``shift`` smoke sweeps in
+   event-loop mode with ``repro_torch.obs.audit.AuditProbe``, on the card
+   and on the CPU: records with the auditor bit-identical to those
+   without, both reports clean with equal runs and checks (``eq45-closure``
+   armed on shift); the day config of ``tests/test_audit.py`` on the card,
+   clean with ``clock-monotonic`` and ``eq45-closure`` armed; and
+   ``python -m repro_torch.sweep.cli fig1 --smoke --audit --torch-device
+   cuda`` exits 0 with ``audit: clean``. 18b: two workers
+   (``python -m repro_torch.sweep.worker``) spawned on the card over a fresh
+   cache and queue run the full ``carbon`` sweep (vectorized: 48 co-sims,
+   ``microgrid_scan`` in the workers) and the full ``perf`` sweep (device
+   mode: 1056 scenarios, 12 trace groups) with ``verify_groups=1``: records
+   bit-identical to the in-process card run's (whose ``microgrid_scan``
+   launches are counted), a second run all cache hits, no expired lease or
+   quarantine; it prints the workers' warm-up, each run's wall and shards.
+   18c: a worker killed after one group (exit 17) on the card; its shard is
+   reclaimed and re-run by a second card worker, and the records equal the
+   in-process card run's with one cache file per key.
 
 Every ``torch.profiler`` reading (phase 3's time by kernel, phases 7, 10,
 11, 13a-17d) comes from a whole trace: every kernel launch and copy the
@@ -144,6 +164,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -1334,7 +1355,7 @@ def microgrid_cases() -> dict:
     grids = microgrids()
     window = window_steps()
 
-    def case(label, inputs, cfg):
+    def case(label, inputs, cfg, plain_on="cuda"):
         k = constants(cfg)
         n0 = microgrid_scan.launches
         out = microgrid_scan(*inputs, k)
@@ -1343,16 +1364,17 @@ def microgrid_cases() -> dict:
         if launched != (1 if out.numel() else 0):
             fail(f"microgrid_scan {label}: {launched} launches")
         t = time.perf_counter()
-        ref = microgrid_scan_reference(*inputs, k)
+        ref = microgrid_scan_reference(*(x.to(plain_on) for x in inputs), k)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t
+        out = out.to(plain_on)
         if out.shape != ref.shape or not equal_nan(out, ref):
             diff = (out - ref).abs().nan_to_num(float("inf"))
             fail(f"microgrid_scan {label}: kernel differs from the plain loop "
                  f"(max |diff| {float(diff.max(initial=0.0)):.3e})")
         print(f"microgrid {label}: B={inputs[0].shape[0]} "
               f"T={inputs[0].shape[1]} equal=True launches={launched} "
-              f"nan_soc={bool(torch.isnan(out[0]).any())}")
+              f"plain_on={plain_on} nan_soc={bool(torch.isnan(out[0]).any())}")
         return k, plain_s
 
     t2 = table2_inputs()
@@ -1373,9 +1395,11 @@ def microgrid_cases() -> dict:
         case(f"signed zeros and NaN {name}", signed_zero_inputs(1800, 13),
              grids[name])
     year = microgrid_inputs(MICROGRID_YEAR, 11)
-    # the plain loop over a year runs once (minutes on the card): its time
-    # is that run's, host clock to a sync
-    _, year_plain_s = case("year", year, grids["table1b"])
+    # the plain loop over a year runs once, on the host (minutes on the
+    # card, where each step is a handful of tiny launches); its float32
+    # operations give the card's bits
+    # (tests/test_torch_card.py::test_microgrid_loop_on_card_matches_cpu)
+    _, year_plain_s = case("year", year, grids["table1b"], plain_on="cpu")
 
     rows = {}
     for key, inputs in (("microgrid", t2), ("microgrid_year", year)):
@@ -1383,11 +1407,14 @@ def microgrid_cases() -> dict:
         kernel = lambda: microgrid_scan(*inputs, k)
         row = {"max_abs_err": 0.0, "path": "cuda",
                **microgrid_times(kernel, T), **microgrid_bound(T)}
-        row["plain_ms"] = year_plain_s * 1e3 if key == "microgrid_year" else \
+        # the year's plain loop ran on the host: no device time of it
+        row["plain_ms"] = float("nan") if key == "microgrid_year" else \
             time_ms(lambda: microgrid_scan_reference(*inputs, k), 2, warmup=1)
+        host = (f" plain loop on the host {year_plain_s:.1f} s"
+                if key == "microgrid_year" else "")
         print(f"{key} B=1 T={T}: {fmt(row)} chain_ms={row['chain_ms']:.4f} "
               f"cycles_per_step={row['cycles_per_step']:.1f} at "
-              f"{row['sm_mhz']:.0f} MHz (max {row['max_sm_mhz']:.0f})")
+              f"{row['sm_mhz']:.0f} MHz (max {row['max_sm_mhz']:.0f}){host}")
         rows[key] = row
     return rows
 
@@ -2161,6 +2188,340 @@ def phase_sweeps() -> int:
     return launches["microgrid_scan"]
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the physics-invariant auditor and the remote sweep backend
+# ---------------------------------------------------------------------------
+
+# tests/test_audit.py's smoke sweeps and request counts
+AUDIT_SWEEPS = (("fig1", 16), ("fleet", 10), ("shift", 10))
+# the full sweeps that card workers compute, and the mode of each
+REMOTE_SWEEPS = (("carbon", "vectorized"), ("perf", "device"))
+
+
+def same_records(got: list, want: list, what: str):
+    """Fail unless the records carry the same keys and bit-identical
+    metrics (``remote.same_metrics``: NaN equals NaN)."""
+    from repro_torch.sweep.remote import same_metrics
+    if [r["key"] for r in got] != [r["key"] for r in want]:
+        fail(f"{what}: the records' keys differ")
+    for a, b in zip(got, want):
+        if not same_metrics(a["metrics"], b["metrics"]):
+            fail(f"{what}: metrics of {a['scenario']} differ: "
+                 f"{a['metrics']} against {b['metrics']}")
+
+
+def audit_day_config():
+    """tests/test_audit.py's day config: 1200 requests over 900 s on one
+    site (caiso-night), hybrid day mode with 300 s epochs."""
+    from repro_torch.configs.paper_models import LLAMA3_8B
+    from repro_torch.fleet.config import FleetConfig, SiteConfig
+    from repro_torch.sim.hybrid import DayConfig
+    from repro_torch.sim.requests import WorkloadConfig
+    from repro_torch.sim.scheduler import SchedulerConfig
+    n, span = 1200, 900.0
+    wl = WorkloadConfig(
+        n_requests=n, qps=n / span, min_len=192, max_len=192, seed=0,
+        envelope="sinusoidal", envelope_amplitude=0.3,
+        envelope_period_h=span / 3600.0, burst_gain=2.5,
+        burst_mean_s=span / 15.0, burst_idle_mean_s=span / 2.5)
+    return FleetConfig(
+        model=LLAMA3_8B,
+        sites=(SiteConfig(name="s0", ci_trace="caiso-night",
+                          scheduler=SchedulerConfig(batch_cap=64)),),
+        workload=wl, router="round_robin",
+        day=DayConfig(mode="hybrid", epoch_s=300.0, pilot_requests=128,
+                      warmup_requests=32, util_threshold=0.6))
+
+
+def phase_audit():
+    """18a: the auditor on the card, held against the same runs on the
+    CPU, the day simulation, and the CLI's ``--audit``."""
+    from repro_torch.fleet.day import run_fleet_day
+    from repro_torch.obs.audit import AuditProbe
+    from repro_torch.sweep.runner import SweepRunner
+    from repro_torch.sweep.scenarios import SWEEPS
+    for name, n_req in AUDIT_SWEEPS:
+        scenarios = SWEEPS[name].build(True, n_requests=n_req)
+        reports, wall = {}, {}
+        for dev in ("cuda", "cpu"):
+            off = SweepRunner(mode="event_loop", torch_device=dev).run(
+                scenarios)[0]
+            auditor = AuditProbe()
+            t = time.perf_counter()
+            on = SweepRunner(mode="event_loop", probe=auditor,
+                             torch_device=dev).run(scenarios)[0]
+            wall[dev] = time.perf_counter() - t
+            same_records(on, off, f"audit {name} on {dev}: the records "
+                         "with the auditor against those without")
+            reports[dev] = rep = auditor.report()
+            if not rep.ok:
+                fail(f"audit {name} on {dev}: {rep.summary()}")
+        card, cpu = reports["cuda"], reports["cpu"]
+        if (card.runs, card.checks) != (cpu.runs, cpu.checks) \
+                or card.runs != len(scenarios):
+            fail(f"audit {name}: card runs {card.runs} checks {card.checks}; "
+                 f"CPU runs {cpu.runs} checks {cpu.checks}")
+        if name == "shift" and not card.checks.get("eq45-closure"):
+            fail(f"audit shift: eq45-closure not armed: {card.checks}")
+        print(f"audit {name}: {len(scenarios)} scenarios, {card.runs} runs, "
+              f"card = CPU checks {card.checks}; wall with the auditor card "
+              f"{wall['cuda']:.4f} s, CPU {wall['cpu']:.4f} s; "
+              f"{card.summary()}")
+
+    cfg = audit_day_config()
+    auditor = AuditProbe()
+    off = run_fleet_day(cfg, torch_device="cuda").summary()
+    t = time.perf_counter()
+    on = run_fleet_day(cfg, probe=auditor, torch_device="cuda").summary()
+    wall = time.perf_counter() - t
+    from repro_torch.sweep.remote import same_metrics
+    if not same_metrics(on, off):
+        fail("audit day: the summary with the auditor differs from the one "
+             "without")
+    rep = auditor.report()
+    if not rep.ok or not rep.checks.get("clock-monotonic") \
+            or not rep.checks.get("eq45-closure"):
+        fail(f"audit day: {rep.summary()}; checks {rep.checks}")
+    print(f"audit day (1200 requests, hybrid): checks {rep.checks}; wall "
+          f"with the auditor {wall:.4f} s; {rep.summary()}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "REPRO_TORCH_SWEEP_CACHE": str(Path(tmp) / "cache")}
+        t = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.sweep.cli", "fig1",
+             "--smoke", "--audit", "--torch-device", "cuda"],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t
+    audit_lines = [ln.strip() for ln in out.stdout.splitlines()
+                   if ln.strip().startswith("audit:")]
+    if out.returncode != 0 or not audit_lines \
+            or not audit_lines[0].startswith("audit: clean"):
+        fail(f"sweep.cli fig1 --smoke --audit on the card: exit "
+             f"{out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    print(f"sweep.cli fig1 --smoke --audit --torch-device cuda: exit 0 in "
+          f"{wall:.2f} s; {audit_lines[0]}")
+
+
+def stop_workers(queue: Path, procs: list, logs: list):
+    """Stop workers through the queue's stop file; fail unless each exits
+    with 0 (its log's tail printed)."""
+    (queue / "stop").touch()
+    for proc, log in zip(procs, logs):
+        try:
+            code = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"worker {log.name} did not stop")
+        if code != 0:
+            fail(f"worker {log.name} exited with {code}:\n"
+                 f"{log.read_text()[-3000:]}")
+
+
+def worker_manifests(jobs) -> list:
+    return [json.loads(m.read_text()) for job in sorted(jobs)
+            for m in sorted((job / "done").glob("shard-*.json"))]
+
+
+def phase_remote(tmp: Path) -> int:
+    """18b: two card workers compute the full carbon and perf sweeps;
+    returns microgrid_scan's launches in the in-process carbon run."""
+    from repro_torch.sweep import ResultCache, SweepRunner
+    from repro_torch.sweep.remote import (RemoteOptions, spawn_worker,
+                                          wait_for_workers)
+    from repro_torch.sweep.scenarios import SWEEPS
+    queue = tmp / "q"
+    logs = [tmp / f"w{i}.log" for i in range(2)]
+    t = time.perf_counter()
+    procs = [spawn_worker(queue, f"w{i}", torch_device="cuda", log_path=log)
+             for i, log in enumerate(logs)]
+    launches = 0
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            try:
+                wait_for_workers(queue, 2, timeout_s=1.0)
+                break
+            except TimeoutError:
+                dead = [log for proc, log in zip(procs, logs)
+                        if proc.poll() is not None]
+                if dead or time.monotonic() > deadline:
+                    fail("card workers did not register: " + "\n".join(
+                        f"{log.name}: {log.read_text()[-3000:]}"
+                        for log in (dead or logs)))
+        warm_wall = time.perf_counter() - t
+        warm = [json.loads(a.read_text())["warmup_s"]
+                for a in sorted((queue / "workers").glob("*.alive"))]
+        print(f"remote: 2 card workers registered in {warm_wall:.2f} s "
+              f"(their own warm-up: {', '.join(f'{w:.2f} s' for w in warm)})")
+        opts = RemoteOptions(queue_dir=queue, spawn_workers=0, lease_s=60.0,
+                             verify_groups=1, timeout_s=240)
+        for name, mode in REMOTE_SWEEPS:
+            scenarios = SWEEPS[name].build(False)
+            jobs0 = set(queue.glob("job-*"))
+            t = time.perf_counter()
+            records, stats = SweepRunner(
+                cache=ResultCache(tmp / "cache", torch_device="cuda"),
+                backend="remote", remote=opts, mode=mode,
+                torch_device="cuda").run(scenarios)
+            wall = time.perf_counter() - t
+            manifests = worker_manifests(set(queue.glob("job-*")) - jobs0)
+            reset_counts()
+            t = time.perf_counter()
+            local = SweepRunner(mode=mode, torch_device="cuda").run(
+                scenarios)[0]
+            torch.cuda.synchronize()
+            local_wall = time.perf_counter() - t
+            counts = {k: fn.launches for k, fn in kernel_wrappers().items()}
+            same_records(records, local, f"remote {name} ({mode}) against "
+                         "the in-process card run")
+            t = time.perf_counter()
+            again, stats2 = SweepRunner(
+                cache=ResultCache(tmp / "cache", torch_device="cuda"),
+                backend="remote", remote=opts, mode=mode,
+                torch_device="cuda").run(scenarios)
+            again_wall = time.perf_counter() - t
+            same_records(again, local, f"remote {name} ({mode}) from the "
+                         "cache against the in-process card run")
+            in_workers = sum(m["microgrid_scan_launches"] for m in manifests)
+            expect_workers = min(2, stats.shards)
+            if (stats.executed != len(scenarios) or stats2.executed
+                    or stats2.cache_hits != len(scenarios)
+                    or stats.lease_expired or stats.quarantined
+                    or stats.remote_workers != expect_workers
+                    or len(manifests) != stats.shards
+                    or any(m["torch_device"] != "cuda" for m in manifests)):
+                fail(f"remote {name} ({mode}): {stats.summary()}; again "
+                     f"{stats2.summary()}; {len(manifests)} manifests")
+            others = {k: n for k, n in counts.items() if k != "microgrid_scan"}
+            if any(others.values()) or (name == "carbon" and not (
+                    counts["microgrid_scan"] and in_workers)):
+                fail(f"remote {name}: launches in process {counts}, "
+                     f"microgrid_scan in the workers {in_workers}")
+            if name == "carbon":
+                launches = counts["microgrid_scan"]
+            print(f"remote {name} {mode}: {len(scenarios)} scenarios, "
+                  f"{stats.trace_groups} trace groups in {stats.shards} "
+                  f"shards on {stats.remote_workers} card workers (the "
+                  f"shards allow {expect_workers}); wall remote "
+                  f"{wall:.4f} s (one group re-run in process to verify), "
+                  f"in process {local_wall:.4f} s, remote again "
+                  f"{again_wall:.4f} s ({stats2.cache_hits} cache hits); "
+                  f"expired {stats.lease_expired}, retried {stats.retried}, "
+                  f"quarantined {stats.quarantined}; microgrid_scan "
+                  f"launches in process {counts['microgrid_scan']}, in the "
+                  f"workers {in_workers}; records bit-identical")
+    finally:
+        stop_workers(queue, procs, logs)
+    return launches
+
+
+def tiny_grid():
+    """tests/test_remote.py's tiny grid: four trace groups (QPS) of three
+    PUE points, 10 requests each."""
+    from repro_torch.configs.paper_models import LLAMA3_8B
+    from repro_torch.sim import SchedulerConfig, SimConfig, WorkloadConfig
+    from repro_torch.sweep import GridSpec
+    base = SimConfig(model=LLAMA3_8B,
+                     workload=WorkloadConfig(n_requests=10, qps=4.0,
+                                             min_len=64, max_len=256, seed=0),
+                     scheduler=SchedulerConfig(batch_cap=8))
+    return GridSpec(base=base,
+                    axes={"workload.qps": [2.0, 3.0, 4.0, 5.0],
+                          "pue": [1.0, 1.1, 1.2]}).expand()
+
+
+def phase_remote_crash(tmp: Path):
+    """18c: a card worker killed after one group; its shard is reclaimed
+    and re-run by a second card worker."""
+    import threading
+
+    from repro_torch.sweep import ResultCache, SweepRunner
+    from repro_torch.sweep.remote import (ENV_CRASH_AFTER_GROUPS,
+                                          RemoteOptions, spawn_worker)
+    scenarios = tiny_grid()
+    cache = ResultCache(tmp / "crash-cache", torch_device="cuda")
+    queue = tmp / "crash-q"
+    opts = RemoteOptions(queue_dir=queue, spawn_workers=0, n_shards=2,
+                         lease_s=1.0, poll_s=0.05, timeout_s=180)
+    out = {}
+
+    def coordinate():
+        try:
+            out["res"] = SweepRunner(cache=cache, backend="remote",
+                                     remote=opts, torch_device="cuda"
+                                     ).run(scenarios)
+        except BaseException as exc:    # reported below, never swallowed
+            out["err"] = exc
+
+    t0 = time.perf_counter()
+    coordinator = threading.Thread(target=coordinate)
+    coordinator.start()
+    logs = [tmp / "crashy.log", tmp / "steady.log"]
+    crashy = spawn_worker(queue, "crashy", torch_device="cuda",
+                          env={ENV_CRASH_AFTER_GROUPS: "1"}, log_path=logs[0])
+    # the steady worker starts once the crashy one holds a claim, so its
+    # warm-up overlaps the crash and the lease
+    deadline = time.monotonic() + 300
+    while not list(queue.glob("job-*/running/*.crashy.pkl")) \
+            and crashy.poll() is None and time.monotonic() < deadline:
+        time.sleep(0.05)
+    steady = spawn_worker(queue, "steady", torch_device="cuda",
+                          log_path=logs[1])
+    try:
+        code = crashy.wait(timeout=300)
+        if code != 17:
+            fail(f"the crashy worker exited with {code}, not 17:\n"
+                 f"{logs[0].read_text()[-3000:]}")
+        coordinator.join(timeout=300)
+    finally:
+        stop_workers(queue, [steady], logs[1:])
+        coordinator.join(timeout=60)
+    if coordinator.is_alive() or "err" in out:
+        fail(f"remote crash run: {out.get('err')!r}")
+    records, stats = out["res"]
+    wall = time.perf_counter() - t0
+    local = SweepRunner(mode="vectorized", torch_device="cuda").run(
+        scenarios)[0]
+    same_records(records, local, "remote crash run against the in-process "
+                 "card run")
+    keys = sorted(cache.iter_keys())
+    files = sorted(p.name for p in cache.root.rglob("*") if p.is_file())
+    if keys != sorted({sc.key for sc in scenarios}) \
+            or files != sorted(f"{k}.json" for k in keys) \
+            or any(json.loads(cache.path_for(k).read_text())["key"] != k
+                   for k in keys):
+        fail(f"remote crash run: cache holds {len(files)} files for "
+             f"{len(keys)} keys")
+    if stats.lease_expired < 1 or stats.retried < 1 or stats.quarantined:
+        fail(f"remote crash run: {stats.summary()}")
+    print(f"remote crash: worker exited 17 after one group; {stats.shards} "
+          f"shards, {stats.lease_expired} expired lease(s), {stats.retried} "
+          f"retried, {stats.quarantined} quarantined, {len(keys)} cache "
+          f"files for {len(keys)} keys; records bit-identical; wall "
+          f"{wall:.2f} s")
+
+
+def phase_audit_remote() -> int:
+    """Phase 18; returns microgrid_scan's launches in 18b's in-process
+    carbon run."""
+    print("== phase 18: the physics-invariant auditor and the remote sweep "
+          "backend on the card (audits card against CPU; card workers' "
+          "records bit-identical to the in-process card run's)")
+    t0 = time.perf_counter()
+    phase_audit()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_remote_"))
+    try:
+        launches = phase_remote(tmp)
+        phase_remote_crash(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 18 wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def draw_weights(model):
     """``model.init(0)`` on the card. For Zamba2 each Mamba2 layer's
     out_proj is then scaled by MAMBA_OUT_SCALE: the reference's Mamba2
@@ -2601,7 +2962,7 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 18))),
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 19))),
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -2684,6 +3045,8 @@ def main():
     if 17 in phases:
         add_counts(served, phase_train())
         add_counts(served, phase_train_f32())
+    if 18 in phases:
+        microgrid_launches += phase_audit_remote()
     print(f"chip_smoke phases {sorted(phases)} passed in "
           f"{time.perf_counter() - t0:.1f} s")
     print(f"kernel launches over the main paths' phases (served models, "

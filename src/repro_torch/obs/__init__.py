@@ -2,8 +2,7 @@
 sweep profiler, and a first-divergence explainer (``python -m
 repro_torch.obs`` for the record/diff CLI).
 
-Counterpart of ``repro.obs``, without ``audit`` (the online invariant
-auditor), which a later step of the port brings.
+Counterpart of ``repro.obs``.
 
 Two clocks, one contract:
 
@@ -11,9 +10,11 @@ Two clocks, one contract:
   event loop and the fleet/day simulations; ``FlightRecorder`` logs queue
   depth, batch occupancy, KV usage, routing, autoscaling, epoch
   evaluations and per-bin Eq. 1-5 power/CI/carbon timelines (Eq. 1 on
-  the recorder's ``torch_device``). Probe-off runs are bitwise
-  identical to un-instrumented ones (neutrality, pinned by
-  tests/test_torch_obs.py).
+  the recorder's ``torch_device``); ``AuditProbe`` streams
+  physics-invariant checks (conservation, Eq. 2-5 closure) over the
+  same hooks. Probe-off runs are bitwise identical to un-instrumented
+  ones (neutrality, pinned by tests/test_torch_obs.py and
+  tests/test_torch_audit.py).
 * **wall-clock** — the ``SpanProfiler`` (module-global ``PROFILER``)
   over the sweep pipeline: cache lookups, trace grouping, event-loop
   runs, stacked passes, the device-mode grid program, worker fan-out.
@@ -27,6 +28,8 @@ Traces serialize to Perfetto-viewable Chrome trace-event JSON and tidy
 CSV (``repro_torch.obs.chrometrace``); divergence reports to markdown +
 JSON under ``results/torch/obs/divergence/``.
 """
+from repro_torch.obs.audit import (AuditError, AuditProbe, AuditReport,
+                                   AuditViolation)
 from repro_torch.obs.chrometrace import (chrome_trace_events,
                                          write_chrome_trace, write_csvs)
 from repro_torch.obs.diff import (DiffResult, DivergentCell, assert_golden,
@@ -42,6 +45,7 @@ from repro_torch.obs.spans import PROFILER, SpanProfiler
 __all__ = [
     "Probe", "NullProbe", "NULL_PROBE", "MultiProbe", "SiteIndexProbe",
     "FlightRecorder", "ColumnBuilder",
+    "AuditProbe", "AuditReport", "AuditViolation", "AuditError",
     "DiffResult", "DivergentCell", "diff_records", "diff_golden",
     "diff_stage_tables", "assert_golden", "write_report",
     "SpanProfiler", "PROFILER",

@@ -17,10 +17,17 @@ Examples:
     # fig4 across 4 worker processes, custom output dir
     PYTHONPATH=src python -m repro_torch.sweep.cli fig4 --workers 4 --out results/torch/sweep
 
+    # audit every executed scenario (exit 1 on any violation)
+    PYTHONPATH=src python -m repro_torch.sweep.cli --smoke fig1 --audit --torch-device cpu
+
+    # the carbon co-sims on two detached workers over a shared work
+    # queue (records bit-identical to the local run)
+    PYTHONPATH=src python -m repro_torch.sweep.cli carbon --backend remote --remote-workers 2
+
 Without ``--torch-device`` the tensor work (Eq. 1, the microgrid scan,
 the fleet and day rollups, the device-mode program) runs on the CUDA
-card, and the command raises where there is none. ``--backend remote``
-and ``--audit`` are not ported yet and raise ``NotImplementedError``.
+card, and the command raises where there is none; remote workers
+compute on the same device type.
 """
 from __future__ import annotations
 
@@ -35,7 +42,6 @@ from repro_torch.obs.log import get_logger
 from repro_torch.obs.spans import PROFILER
 from repro_torch.sweep.cache import ResultCache, default_cache_root
 from repro_torch.sweep.report import format_table, write_outputs
-from repro_torch.sweep.runner import REMOTE_STEP
 from repro_torch.sweep.scenarios import SWEEPS, run_sweep
 
 _log = get_logger("repro_torch.sweep")
@@ -69,8 +75,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", choices=("local", "remote"),
                    default="local",
                    help="local: execute in this process (pool); "
-                        "remote: the reference's shared-filesystem work "
-                        f"queue, not ported yet ({REMOTE_STEP})")
+                        "remote: publish trace-group shards to a "
+                        "shared-filesystem work queue for detached "
+                        "repro_torch.sweep.worker processes on the same "
+                        "torch device type (requires the cache; see "
+                        "repro_torch.sweep.remote)")
     p.add_argument("--remote-workers", type=int, default=2,
                    help="convenience worker processes the coordinator "
                         "spawns on this host (default 2; 0 = rely on "
@@ -83,7 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "staler than this is reclaimed and retried "
                         "(default 30)")
     p.add_argument("--remote-verify", type=int, default=0, metavar="N",
-                   help="re-run N trace groups serially in-process and "
+                   help="re-run N trace groups in this process and "
                         "assert the remote records are bit-identical")
     p.add_argument("--no-cache", action="store_true",
                    help="disable the on-disk result cache")
@@ -118,9 +127,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="flight-recorder timeline bin width in sim "
                         "seconds (default 60; observer-only)")
     p.add_argument("--audit", action="store_true",
-                   help="the reference's physics-invariant auditor "
-                        "(repro.obs.audit), not ported yet "
-                        f"({REMOTE_STEP})")
+                   help="attach the physics-invariant auditor "
+                        "(repro_torch.obs.audit) to every executed "
+                        "scenario: conservation, Eq. 2-5 closure, "
+                        "KV/clock/power invariants. Observer-only "
+                        "(results stay bitwise identical); violations "
+                        "write a report under results/torch/obs/"
+                        "divergence/ and exit 1. Forces serial "
+                        "execution; rejected in device mode. Stackable "
+                        "with --trace-out")
     return p
 
 
@@ -147,21 +162,40 @@ def main(argv=None) -> int:
               f"available: {', '.join(SWEEPS)}", file=sys.stderr)
         return 2
 
-    if args.audit:
-        raise NotImplementedError(
-            f"--audit (repro.obs.audit) is not ported yet: {REMOTE_STEP}")
     torch_device = str(resolve_device(args.torch_device))
     cache = (None if args.no_cache
              else ResultCache(args.cache_dir, torch_device=torch_device))
     if args.clear_cache and cache is not None:
         print(f"cleared {cache.clear()} cached scenario(s)")
 
-    probe = recorder = None
+    remote_opts = None
+    if args.backend == "remote":
+        if cache is None:
+            print("--backend remote requires the result cache "
+                  "(workers return records through it); drop --no-cache",
+                  file=sys.stderr)
+            return 2
+        from repro_torch.sweep.remote import RemoteOptions
+        remote_opts = RemoteOptions(
+            queue_dir=args.queue_dir,
+            spawn_workers=max(0, args.remote_workers),
+            lease_s=args.lease_s,
+            verify_groups=max(0, args.remote_verify))
+
+    probe = recorder = auditor = None
     if args.trace_out is not None:
         from repro_torch.obs.recorder import FlightRecorder
         recorder = FlightRecorder(resolution_s=args.obs_resolution,
                                   torch_device=torch_device)
         probe = recorder
+    if args.audit:
+        from repro_torch.obs.audit import AuditProbe
+        auditor = AuditProbe()
+        if recorder is not None:
+            from repro_torch.obs.probe import MultiProbe
+            probe = MultiProbe([recorder, auditor])
+        else:
+            probe = auditor
     if args.profile or probe is not None:
         PROFILER.enable(reset=True)
 
@@ -174,11 +208,9 @@ def main(argv=None) -> int:
             records, stats, derived = run_sweep(
                 name, smoke=args.smoke, n_requests=args.n_requests,
                 workers=args.workers, cache=cache, mode=args.mode,
-                probe=probe, backend=args.backend,
+                probe=probe, backend=args.backend, remote=remote_opts,
                 torch_device=torch_device,
                 progress=lambda msg: _log.info("%s", msg))
-        except NotImplementedError:        # an unported option, not a sweep
-            raise
         except Exception as exc:           # keep sweeping, report at exit
             failed.append(name)
             print(f"   FAILED: {type(exc).__name__}: {exc}",
@@ -188,6 +220,8 @@ def main(argv=None) -> int:
         if not args.quiet:
             print(format_table(records))
         print(f"   {stats.summary()}")
+        if auditor is not None:
+            print(f"   audit: {auditor.report().summary()}")
         print(f"   derived: {derived}")
         print(f"   wrote {paths['csv']} {paths['json']} "
               f"({time.perf_counter() - t0:.2f}s)")
@@ -205,6 +239,15 @@ def main(argv=None) -> int:
 
     if failed:
         print(f"failed sweeps: {', '.join(failed)}", file=sys.stderr)
+        return 1
+    if auditor is not None and not auditor.report().ok:
+        from repro_torch.obs.diff import DIVERGENCE_DIR
+        report = auditor.report()
+        DIVERGENCE_DIR.mkdir(parents=True, exist_ok=True)
+        path = DIVERGENCE_DIR / "audit.md"
+        path.write_text(report.to_markdown())
+        print(f"audit FAILED: {report.summary()}\n"
+              f"audit report: {path}", file=sys.stderr)
         return 1
     return 0
 

@@ -30,14 +30,22 @@ exactly the event-loop columns.
 loop; device mode is NOT — the roofline and the Eq. 2-4 arithmetic are
 elementwise float64 (identical IEEE results on either device), but
 (a) the trace-level reductions (``sum(P_i*dt_i)``, ``sum(dt_i)``,
-``sum(MFU_i*dt_i)``) reassociate — torch's reduction order vs numpy's
-pairwise summation, ~1e-14 relative — and (b) the Eq. 1 power curve is
+``sum(MFU_i*dt_i)``) reassociate — a pairwise halving tree over each
+zero-padded row (``_row_sums``) vs numpy's pairwise summation, ~1e-14
+relative — and (b) the Eq. 1 power curve is
 evaluated in float32 (mirroring ``core.power.power`` op for op) where
 the device's ``pow`` may differ from the host's by a few float32 ulps,
 ~1e-7 relative on the power factor. ``DEVICE_MODE_RTOL`` bounds both
 with margin; columns that never pass through the device program
 (latency percentiles, throughput, MFU/batch averages, stage counts)
 come from the host-side trace and stay bitwise.
+
+**Batch invariance**: a group's records do not depend on which other
+groups share its batch or on how far the batch pads it. Every operation
+of the program is elementwise except the row sums, and ``_row_sums``
+adds a row's padding only as exact zeros: so the remote backend's
+workers, each evaluating a subset of the grid, give the records of one
+in-process run over the whole grid bit for bit on the same device.
 """
 from __future__ import annotations
 
@@ -79,6 +87,20 @@ def _next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
 
 
+def _row_sums(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of a ``(G, S)`` tensor, ``S`` a power of two, by a fixed
+    pairwise halving tree: each level adds the upper half of every row
+    onto its lower half. A library reduction may split a row over
+    threads and blocks by the tensor's whole shape; here the order
+    depends on ``S`` alone, and the levels above a row's own stages add
+    its zero padding exactly, so its sum has the same bits at any ``G``
+    and any padded width (see the module docstring)."""
+    while x.shape[1] > 1:
+        half = x.shape[1] // 2
+        x = x[:, :half] + x[:, half:]
+    return x[:, 0]
+
+
 def _grid_program(comp, params, powerp, ndev, phi, pues, cis):
     """All groups at once: roofline -> Eq. 1 power -> Eq. 2-3
     reductions -> Eq. 4 terms over the scenario axis.
@@ -103,9 +125,9 @@ def _grid_program(comp, params, powerp, ndev, phi, pues, cis):
     pw = col(0) + col(4) * torch.pow(x, col(3))
     pw64 = torch.where(live, pw.to(torch.float64), 0.0)
 
-    e_sum = torch.sum(pw64 * dur_s, dim=1)               # W*s
-    m_sum = torch.sum(mfu * dur_s, dim=1)
-    dur = torch.sum(dur_s, dim=1)
+    e_sum = _row_sums(pw64 * dur_s)                      # W*s
+    m_sum = _row_sums(mfu * dur_s)
+    dur = _row_sums(dur_s)
     peak = torch.amax(pw64, dim=1)                       # 0 for empty groups
     gpu_h = dur / 3600.0 * ndev
     energy_wh = (e_sum / 3600.0 * ndev)[:, None] * pues   # (G, K)

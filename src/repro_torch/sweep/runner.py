@@ -29,9 +29,8 @@ Counterpart of ``repro.sweep.runner``. The event loop and the numpy
 roofline run on the host, as in the reference; every scenario's tensor
 work (Eq. 1, the microgrid scan, the fleet and day rollups, the device
 grid) runs on the runner's ``torch_device`` (``None``: the card, raising
-without one), which reaches each pool worker as a string. The
-``"remote"`` backend (``repro.sweep.remote``) is not ported yet and
-raises.
+without one), which reaches each pool worker as a string and each
+remote worker as the job's device type (``repro_torch.sweep.remote``).
 """
 from __future__ import annotations
 
@@ -54,11 +53,8 @@ from repro_torch.sweep.grid import SCHEMA_VERSION, Scenario
 
 EXECUTION_MODES = ("vectorized", "event_loop", "device")
 #: where cache-missed scenarios execute: in this process (pool) or on
-#: detached workers over a shared-filesystem work queue (the reference's
-#: sweep.remote; not ported yet, so "remote" raises)
+#: detached workers over a shared-filesystem work queue (sweep.remote)
 BACKENDS = ("local", "remote")
-#: the ROADMAP step that ports the remote backend and the auditor
-REMOTE_STEP = "ROADMAP.md queue 1, step 9"
 
 
 # --------------------------------------------------------------------------
@@ -302,6 +298,12 @@ class SweepStats:
     cache_miss: int = 0       # keys with no cached record
     peak_rss_mb: float = 0.0  # process tree high-water RSS (0 off-POSIX)
     backend: str = "local"
+    # remote backend (sweep.remote): shard-queue observables
+    shards: int = 0
+    remote_workers: int = 0   # distinct workers seen in manifests
+    lease_expired: int = 0
+    retried: int = 0
+    quarantined: int = 0
 
     def summary(self) -> str:
         groups = (f", {self.trace_groups} trace group(s)"
@@ -315,10 +317,15 @@ class SweepStats:
                if self.cache_attached else "")
         rss = (f", peak RSS {self.peak_rss_mb:.0f} MB"
                if self.peak_rss_mb else "")
+        rem = (f", remote: shards={self.shards} "
+               f"workers={self.remote_workers} "
+               f"expired={self.lease_expired} retried={self.retried} "
+               f"quarantined={self.quarantined}"
+               if self.backend == "remote" and self.executed else "")
         return (f"{self.total} scenarios: {self.executed} executed, "
                 f"{self.cache_hits} cache hits, "
                 f"{self.elapsed_s:.2f}s wall, {self.workers} worker(s)"
-                f"{groups}{shared}{eff}{rss}")
+                f"{groups}{shared}{eff}{rss}{rem}")
 
 
 def _peak_rss_mb() -> float:
@@ -358,19 +365,25 @@ class SweepRunner:
 
     ``probe`` attaches a ``repro_torch.obs.Probe`` to every *executed*
     scenario (cache hits never re-simulate, so they record nothing) —
-    stack several with ``repro_torch.obs.MultiProbe``. A probe forces serial
+    stack several with ``repro_torch.obs.MultiProbe`` (e.g. a
+    ``FlightRecorder`` plus an ``AuditProbe``). A probe forces serial
     in-process execution — probes are process-local state — and is
     rejected in device mode, whose batched program has no
     event-per-stage structure to observe.
 
-    ``backend="remote"`` (the reference's shared-filesystem work queue,
-    ``repro.sweep.remote``) is not ported yet and raises
-    ``NotImplementedError``.
+    ``backend="remote"`` ships cache-missed trace groups to detached
+    ``repro_torch.sweep.worker`` processes through a shared-filesystem
+    work queue (``repro_torch.sweep.remote``): the workers compute on
+    the runner's device type, write records straight into the shared
+    cache and the coordinator reads them back, so a cache is mandatory
+    and the records are bit-identical to local execution in the same
+    mode on the same device type. ``remote`` takes a ``RemoteOptions``;
+    probes are process-local and therefore rejected.
     """
 
     def __init__(self, cache: Optional[ResultCache] = None,
                  workers: int = 1, mode: str = "vectorized",
-                 probe=None, backend: str = "local",
+                 probe=None, backend: str = "local", remote=None,
                  torch_device: DeviceLike = None):
         if mode not in EXECUTION_MODES:
             raise ValueError(f"unknown mode {mode!r}; have "
@@ -379,9 +392,18 @@ class SweepRunner:
             raise ValueError(f"unknown backend {backend!r}; have "
                              f"{BACKENDS}")
         if backend == "remote":
-            raise NotImplementedError(
-                "the remote sweep backend (repro.sweep.remote and "
-                f"repro.sweep.worker) is not ported yet: {REMOTE_STEP}")
+            if cache is None:
+                raise ValueError(
+                    "backend='remote' requires a ResultCache — the "
+                    "shared cache is how workers return records")
+            if probe is not None:
+                raise ValueError(
+                    "probe recording is not supported on the remote "
+                    "backend (probes are process-local state)")
+            if mode == "event_loop":
+                raise ValueError(
+                    "the remote backend ships whole trace groups; use "
+                    "mode='vectorized' (exact) or 'device'")
         dev = resolve_device(torch_device)
         if cache is not None and cache.device_type != dev.type:
             raise ValueError(
@@ -397,6 +419,7 @@ class SweepRunner:
         self.mode = mode
         self.probe = probe
         self.backend = backend
+        self.remote = remote
         self.torch_device = str(dev)
 
     @staticmethod
@@ -447,7 +470,9 @@ class SweepRunner:
 
         if misses:
             todo = [scenarios[i] for i in misses]
-            if self.mode == "vectorized":
+            if self.backend == "remote":
+                fresh = self._run_remote(todo, note, stats)
+            elif self.mode == "vectorized":
                 fresh, stats.trace_groups = self._run_vectorized(todo, note)
             elif self.mode == "device":
                 fresh = self._run_device(todo, note, stats)
@@ -458,7 +483,10 @@ class SweepRunner:
                     record["meta"]["cache_hit"] = False
                     records[i] = record
                     stats.executed += 1
-                    if self.cache is not None:
+                    # remote workers already persisted their records
+                    # into the shared cache — re-putting them here
+                    # would only re-serialize identical bytes
+                    if self.cache is not None and self.backend != "remote":
                         self.cache.put(record["key"], record)
                     for j in dup_of[scenarios[i].key]:
                         records[j] = self._rebind(record, scenarios[j])
@@ -543,6 +571,22 @@ class SweepRunner:
                 fresh[j] = rec
         return fresh, len(groups)
 
+    def _run_remote(self, todo: List[Scenario], note,
+                    stats: SweepStats) -> List[dict]:
+        from repro_torch.sweep.remote import RemoteCoordinator
+        coord = RemoteCoordinator(self.cache, opts=self.remote,
+                                  mode=self.mode, note=note,
+                                  torch_device=self.torch_device)
+        with PROFILER.span("remote.execute"):
+            fresh, rstats = coord.execute(todo)
+        stats.trace_groups = rstats.trace_groups
+        stats.shards = rstats.shards
+        stats.remote_workers = rstats.workers
+        stats.lease_expired = rstats.lease_expired
+        stats.retried = rstats.retried
+        stats.quarantined = rstats.quarantined
+        return fresh
+
     def _run_device(self, todo: List[Scenario], note,
                     stats: SweepStats) -> List[dict]:
         from repro_torch.sweep.device import execute_device_grid
@@ -574,10 +618,10 @@ def run_scenarios(scenarios: Sequence[Scenario], workers: int = 1,
                   cache: Optional[ResultCache] = None,
                   progress: Optional[Callable[[str], None]] = None,
                   mode: str = "vectorized", probe=None,
-                  backend: str = "local",
+                  backend: str = "local", remote=None,
                   torch_device: DeviceLike = None
                   ) -> Tuple[List[dict], SweepStats]:
     """One-call convenience wrapper around ``SweepRunner``."""
     return SweepRunner(cache=cache, workers=workers, mode=mode,
-                       probe=probe, backend=backend,
+                       probe=probe, backend=backend, remote=remote,
                        torch_device=torch_device).run(scenarios, progress)

@@ -743,7 +743,8 @@ SWEEPS: Dict[str, SweepDef] = {
 def run_sweep(name: str, smoke: bool = False,
               n_requests: Optional[int] = None, workers: int = 1,
               cache=None, progress=None, mode: str = "vectorized",
-              probe=None, backend: str = "local", torch_device=None):
+              probe=None, backend: str = "local", remote=None,
+              torch_device=None):
     """Expand + execute one named sweep.
 
     Returns ``(records, stats, derived)``. ``cache`` follows
@@ -752,8 +753,9 @@ def run_sweep(name: str, smoke: bool = False,
     bit-identical); ``probe`` attaches a ``repro_torch.obs.Probe`` to
     executed scenarios (forces serial execution, see ``SweepRunner``);
     ``torch_device`` runs the scenarios' tensor work (``None``: the card,
-    raising without one); ``backend="remote"`` is not ported yet and
-    raises.
+    raising without one); ``backend="remote"`` fans trace groups out to
+    detached workers over a shared-filesystem queue
+    (``repro_torch.sweep.remote``, options in ``remote``).
     """
     from repro_torch.sweep.runner import SweepRunner
     if name not in SWEEPS:
@@ -762,6 +764,6 @@ def run_sweep(name: str, smoke: bool = False,
     scenarios = sweep.build(smoke, n_requests=n_requests)
     records, stats = SweepRunner(cache=cache, workers=workers,
                                  mode=mode, probe=probe, backend=backend,
-                                 torch_device=torch_device
+                                 remote=remote, torch_device=torch_device
                                  ).run(scenarios, progress)
     return records, stats, sweep.derive(records)

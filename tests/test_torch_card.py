@@ -1180,3 +1180,37 @@ def test_smoke_sweep_device_mode_on_card_matches_cpu():
         assert c.contract in ("host-bitwise", "DEVICE_MODE_RTOL"), c.format()
         assert c.phase in ("power", "energy", "carbon") \
             or c.column in ("duration_s", "gpu_hours"), c.format()
+
+
+@pytest.mark.cuda
+def test_remote_card_worker_matches_in_process_card_run(tmp_path):
+    """One worker spawned on the card computes a 2x2 grid (two trace groups
+    of two PUE points) in vectorized and in device mode: its records equal
+    the in-process card run's bit for bit, and one group re-run in process
+    (``verify_groups``) agrees."""
+    _cuda_or_skip()
+    from repro_torch.configs.paper_models import LLAMA3_8B
+    from repro_torch.sim import SchedulerConfig, SimConfig, WorkloadConfig
+    from repro_torch.sweep import GridSpec, ResultCache, SweepRunner
+    from repro_torch.sweep.remote import RemoteOptions
+    base = SimConfig(model=LLAMA3_8B,
+                     workload=WorkloadConfig(n_requests=10, qps=4.0,
+                                             min_len=64, max_len=256, seed=0),
+                     scheduler=SchedulerConfig(batch_cap=8))
+    scenarios = GridSpec(base=base, axes={"workload.qps": [2.0, 3.0],
+                                          "pue": [1.0, 1.1]}).expand()
+    for mode in ("vectorized", "device"):
+        opts = RemoteOptions(queue_dir=tmp_path / f"q-{mode}",
+                             spawn_workers=1, lease_s=60.0, verify_groups=1,
+                             timeout_s=300)
+        records, stats = SweepRunner(
+            cache=ResultCache(tmp_path / f"cache-{mode}", torch_device="cuda"),
+            backend="remote", remote=opts, mode=mode,
+            torch_device="cuda").run(scenarios)
+        local, _ = SweepRunner(mode=mode, torch_device="cuda").run(scenarios)
+        assert stats.executed == 4 and stats.remote_workers == 1
+        assert stats.lease_expired == stats.quarantined == 0
+        assert [r["metrics"] for r in records] == \
+            [r["metrics"] for r in local], mode
+        assert (tmp_path / f"cache-{mode}" / "cuda").is_dir()
+        assert not (tmp_path / f"cache-{mode}" / "cpu").exists()

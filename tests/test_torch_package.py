@@ -56,11 +56,12 @@ def test_source_imports_neither_jax_nor_reference(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.launch.serve import main
     from repro_torch.models import build_model
     from repro_torch.serve.engine import ServingEngine
+    from repro_torch.sweep import worker
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = build_model(reduced_config(get_config("llama3-8b")))
     params = model.init(0, device="cpu")
@@ -70,6 +71,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         main(["--arch", "llama3-8b", "--requests", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init(0)
+    # the remote sweep worker: before it registers or claims anything
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.main([str(tmp_path / "q"), "--once"])
+    assert not (tmp_path / "q").exists()
 
 
 @pytest.mark.parametrize("name", ["h100", "a100", "a40", "tpu-v5e"])
@@ -141,6 +146,8 @@ def test_module_list_covers_the_sweep_engine_and_obs():
               "repro_torch.obs.__main__", "repro_torch.obs.recorder",
               "repro_torch.sweep", "repro_torch.sweep.cli",
               "repro_torch.sweep.device", "repro_torch.sweep.runner",
+              "repro_torch.sweep.remote", "repro_torch.sweep.worker",
+              "repro_torch.obs.audit",
               "repro_torch.fleet.day", "repro_torch.kernels.microgrid_scan.ops",
               "repro_torch.models.moe", "repro_torch.models.mamba",
               "repro_torch.models.zamba"):

@@ -11,12 +11,13 @@
   the reference's event loop (the reference's own device mode does not
   run on the installed jax), sharing traces by divergence replay where
   the reference does.
-- The cache (per torch device type), the CLI and the entry points that
-  are not ported yet.
+- The cache (per torch device type), the CLI, and the runner's and the
+  CLI's remote backend and auditor options.
 """
 import functools
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -138,13 +139,35 @@ def test_cache_keeps_card_and_cpu_records_apart(tmp_path, monkeypatch):
                              torch_device="cuda")
 
 
-def test_remote_backend_and_audit_are_not_ported():
-    with pytest.raises(NotImplementedError, match="step 9"):
+def test_remote_backend_and_audit_are_not_ported(tmp_path, capsys):
+    """``SweepRunner(backend="remote")`` holds the reference's checks (a
+    cache, no probe, no event-loop mode), and the CLI's ``--backend
+    remote`` (one spawned CPU worker, one group verified in process) and
+    ``--audit`` both run to a clean exit."""
+    with pytest.raises(ValueError, match="requires a ResultCache"):
         p_runner.SweepRunner(backend="remote", torch_device=CPU)
-    for flag in (["--backend", "remote"], ["--audit"]):
-        with pytest.raises(NotImplementedError, match="step 9"):
-            cli.main(["--smoke", "fig1", "--torch-device", CPU, "--no-cache",
-                      "--quiet", *flag])
+    cache = ResultCache(tmp_path / "cache", torch_device=CPU)
+    with pytest.raises(ValueError, match="trace groups"):
+        p_runner.SweepRunner(cache=cache, backend="remote", mode="event_loop",
+                             torch_device=CPU)
+    from repro_torch.obs.probe import NULL_PROBE
+    with pytest.raises(ValueError, match="probe"):
+        p_runner.SweepRunner(cache=cache, backend="remote", probe=NULL_PROBE,
+                             torch_device=CPU)
+    base = ["--smoke", "fig1", "--torch-device", CPU, "--quiet",
+            "--out", str(tmp_path / "out")]
+    assert cli.main([*base, "--no-cache", "--backend", "remote"]) == 2
+    assert cli.main([*base, "--cache-dir", str(tmp_path / "cache"),
+                     "--backend", "remote", "--remote-workers", "1",
+                     "--queue-dir", str(tmp_path / "q"),
+                     "--remote-verify", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "3 scenarios: 3 executed" in out
+    assert re.search(r"remote: shards=3 workers=1 expired=0 retried=0 "
+                     r"quarantined=0", out), out
+    assert len(list((tmp_path / "cache" / CPU).rglob("*.json"))) == 3
+    assert cli.main([*base, "--no-cache", "--audit"]) == 0
+    assert "audit: clean" in capsys.readouterr().out
 
 
 def _cli(tmp_path, *args):
