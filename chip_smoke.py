@@ -146,6 +146,23 @@ result:
    18c: a worker killed after one group (exit 17) on the card; its shard is
    reclaimed and re-run by a second card worker, and the records equal the
    in-process card run's with one cache file per key.
+19. the distributed layer on the card. 19a: smollm-360m at its published
+   widths (phase 17's batch) trained 6 steps through
+   ``repro_torch.launch.train.main`` with ``--mesh 1x1`` twice: with no
+   process group (plain tensors), then inside a one-rank NCCL group that
+   the phase initialises (``FileStore``, ``device_id=cuda:0``), so the
+   ``DTensor`` path runs, the flash kernels on each rank's shard. Losses
+   per step within 1e-5 relative and final masters per leaf within 1e-5
+   relative Frobenius of the plain run's (whether they are bitwise equal
+   is printed), flash forward and backward once per layer and step in both
+   runs, peak memory under 80 GB; each run's median step ms over steps
+   2-6. Then ``python -m torch.distributed.run --standalone
+   --nproc-per-node 1 -m repro_torch.launch.train --mesh 1x1 --steps 2``
+   at the same widths must exit 0. 19b: ``distributed.compression.
+   compress_tree`` over one step's full-width gradients (float32, the
+   49152 x 960 embedding included), two rounds of error feedback, on the
+   card and on the CPU: q, scales and residuals bit for bit; the ms of
+   each.
 
 Every ``torch.profiler`` reading (phase 3's time by kernel, phases 7, 10,
 11, 13a-17d) comes from a whole trace: every kernel launch and copy the
@@ -288,6 +305,8 @@ FLASH_F32_SHAPES = {
 FLASH_SMALL = (1, 2048, 32, 8)
 # phase 17d: smollm-360m's widths trained in float32 at phase 17's batch
 F32_TRAIN_STEPS = 6
+MESH_STEPS = 6              # phase 19a
+MESH_TOL = 1e-5             # phase 19a: losses and masters per leaf, relative
 F32_GRAD_TOL = 1e-4         # per leaf, relative Frobenius: the CPU parity tests'
 F32_LOSS_TOL = 1e-5         # relative
 MICROGRID_REPLACES = "src/repro/core/microgrid.py:45 (simulate, lax.scan)"
@@ -1700,13 +1719,13 @@ class Patched:
 
 def chunked(model, chunk: int) -> Patched:
     """``model`` whose plain chunked scan (``gla_chunked``, in RWKV6's and
-    Mamba2's layers) uses ``chunk`` tokens per chunk instead of its
-    default: a second plain path that differs from the first only in
-    rounding."""
+    Mamba2's layers, from zero through ``gla_chunked_sharded``) uses
+    ``chunk`` tokens per chunk instead of its default: a second plain path
+    that differs from the first only in rounding."""
     import functools
-    from repro_torch.models import linear_attention, mamba, rwkv
-    scan = lambda _: functools.partial(linear_attention.gla_chunked, chunk=chunk)
-    return Patched(model, {(rwkv, "gla_chunked"): scan,
+    from repro_torch.models import linear_attention, mamba
+    scan = lambda orig: functools.partial(orig, chunk=chunk)
+    return Patched(model, {(linear_attention, "gla_chunked"): scan,
                            (mamba, "gla_chunked"): scan})
 
 
@@ -2938,6 +2957,141 @@ def phase_train_f32() -> dict:
     return counts
 
 
+def rel_frobenius(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / max(float(torch.linalg.vector_norm(b.double())), 1e-30))
+
+
+def phase_train_mesh() -> dict:
+    """Phase 19a: the launcher's DTensor path (a one-rank NCCL group) against
+    its plain path, then the launcher under torchrun. Returns both runs'
+    launches."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.n_layers
+    print(f"== phase 19a: full-width {TRAIN_ARCH} through "
+          f"repro_torch.launch.train.main --mesh 1x1, {MESH_STEPS} steps of "
+          f"SyntheticLM seq {TRAIN_SEQ} batch {TRAIN_BATCH} seed 0, float32 "
+          f"masters, bf16 compute: plain tensors, then DTensors in a one-rank "
+          f"NCCL group; nvidia-smi name, power.limit: "
+          f"{nvidia_smi('name,power.limit')}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    argv = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ), "--batch",
+            str(TRAIN_BATCH), "--steps", str(MESH_STEPS), "--mesh", "1x1"]
+    runs, counts = {}, {}
+    try:
+        for path in ("plain", "dtensor"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            if path == "dtensor":
+                dist.init_process_group(
+                    "nccl", store=dist.FileStore(str(tmp / "store"), 1),
+                    rank=0, world_size=1, device_id=torch.device("cuda", 0))
+            try:
+                reset_counts()
+                out = train.main(argv + ["--ckpt-dir", str(tmp / path)],
+                                 device="cuda")
+                torch.cuda.synchronize()
+                print(f"{path}: ", end="")
+                add_counts(counts, check_train_counts(L, MESH_STEPS))
+                masters = {k: (v.full_tensor() if hasattr(v, "full_tensor")
+                               else v) for k, v in out["params"].items()}
+            finally:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            step_ms = float(np.median(out["step_times"][1:])) * 1e3
+            runs[path] = (out["losses"], masters)
+            print(f"{path}: losses " + ", ".join(f"{x:.6f}" for x in out["losses"])
+                  + f"; step {step_ms:.2f} ms (median of steps 2-{MESH_STEPS}, "
+                  f"each to its float(loss)); max_memory_allocated {peak:.2f} GB")
+            if not peak < 80:
+                fail(f"phase 19a {path}: peak device memory {peak:.2f} GB")
+            del out
+        (pl, pm), (ml, mm) = runs["plain"], runs["dtensor"]
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(ml, pl))
+        gaps = {k: rel_frobenius(mm[k], pm[k]) for k in pm}
+        worst = max(gaps, key=gaps.get)
+        bitwise = ml == pl and all(torch.equal(mm[k], pm[k]) for k in pm)
+        print(f"DTensor vs plain: losses within {loss_gap:.3e} relative, masters "
+              f"worst leaf {gaps[worst]:.3e} ({worst}; tol {MESH_TOL:.0e}); "
+              f"bitwise equal: {bitwise}")
+        if len(ml) != MESH_STEPS or not loss_gap <= MESH_TOL \
+                or not gaps[worst] <= MESH_TOL:
+            fail("phase 19a: the DTensor step is not the plain step")
+        del runs, pm, mm
+        gc.collect()
+        torch.cuda.empty_cache()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+               "--arch", TRAIN_ARCH, "--mesh", "1x1", "--steps", "2", "--seq",
+               str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--ckpt-dir",
+               str(tmp / "torchrun")]
+        t = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        print(" ".join(cmd[1:]) + f": exit {r.returncode} in "
+              f"{time.perf_counter() - t:.1f} s; "
+              + " | ".join(r.stdout.strip().splitlines()[-2:]))
+        if r.returncode != 0:
+            fail(f"phase 19a: torchrun exited {r.returncode}: {r.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_compress():
+    """Phase 19b: gradient compression of one full-width step's gradients,
+    card against CPU, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compression import compress_tree
+    from repro_torch.models import build_model
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.trainer import (batch_to, make_value_and_grad,
+                                           param_dict)
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    params = param_dict(model.init(0, device="cuda", dtype=torch.float32))
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH, seed=0))
+    _, _, grads = make_value_and_grad(model)(params, batch_to(ds.batch(0), "cuda"))
+    del params
+    n = sum(g.numel() for g in grads.values())
+    print(f"== phase 19b: compress_tree over one step's {TRAIN_ARCH} gradients "
+          f"({len(grads)} leaves, {n} float32 values, embed "
+          f"{tuple(grads['embed'].shape)}), two rounds of error feedback, card "
+          f"against CPU")
+    host = {k: g.cpu() for k, g in grads.items()}
+    out = {}
+    for where, tree in (("card", grads), ("cpu", host)):
+        resid, rounds = None, []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            q, resid = compress_tree(tree, resid)
+            torch.cuda.synchronize()
+            rounds.append((time.perf_counter() - t) * 1e3)
+        out[where] = (q, resid)
+        print(f"{where}: " + ", ".join(f"{ms:.2f}" for ms in rounds)
+              + " ms a round")
+    (qc, rc), (qh, rh) = out["card"], out["cpu"]
+    bad = [k for k in host if not (torch.equal(qc[k][0].cpu(), qh[k][0])
+                                   and torch.equal(qc[k][1].cpu(), qh[k][1])
+                                   and torch.equal(rc[k].cpu(), rh[k]))]
+    print(f"q, scales and residuals bitwise equal card vs CPU in "
+          f"{len(host) - len(bad)} of {len(host)} leaves")
+    if bad:
+        fail(f"phase 19b: compression differs card vs CPU in {bad[:5]}")
+    del grads, host, out, qc, rc, qh, rh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def serve_and_check(name: str, phase: int, kernel_names: tuple, **cut):
     """Phases 13-15: the model at full width served by the engine (its
     launches counted), its consistency checks and where its time goes."""
@@ -2962,7 +3116,7 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 19))),
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 20))),
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -3047,6 +3201,11 @@ def main():
         add_counts(served, phase_train_f32())
     if 18 in phases:
         microgrid_launches += phase_audit_remote()
+    if 19 in phases:
+        t19 = time.perf_counter()
+        add_counts(served, phase_train_mesh())
+        phase_compress()
+        print(f"phase 19 wall {time.perf_counter() - t19:.1f} s")
     print(f"chip_smoke phases {sorted(phases)} passed in "
           f"{time.perf_counter() - t0:.1f} s")
     print(f"kernel launches over the main paths' phases (served models, "

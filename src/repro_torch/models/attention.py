@@ -26,12 +26,14 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import AttentionConfig
+from repro_torch.distributed.axes import constrain, contract_whole, on_local
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
-from repro_torch.models.layers import (apply_rope, as_param, rope_angles,
-                                       truncated_normal_init)
+from repro_torch.models.layers import (apply_rope, as_param, project_heads,
+                                       rope_angles, truncated_normal_init)
 
 NEG_INF = -1e30
 
@@ -64,21 +66,21 @@ def attn_params(d_model: int, cfg: AttentionConfig, generator, device,
     return AttnParams(**p)
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matrix product."""
-    d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
-
-
 def _project_qkv(x, p: AttnParams, cfg: AttentionConfig):
-    q, k, v = _project(x, p.wq), _project(x, p.wk), _project(x, p.wv)
+    q, k, v = (project_heads(x, w) for w in (p.wq, p.wk, p.wv))
     if cfg.qkv_bias:
         q = q + p.bq.to(x.dtype)
         k = k + p.bk.to(x.dtype)
         v = v + p.bv.to(x.dtype)
     if cfg.kv_repeat > 1:
-        k = torch.repeat_interleave(k, cfg.kv_repeat, dim=2)
-        v = torch.repeat_interleave(v, cfg.kv_repeat, dim=2)
+        rep = lambda t: torch.repeat_interleave(t, cfg.kv_repeat, dim=2)
+        k, v = on_local(rep, k), on_local(rep, v)
+    # "seq_inner" is never sharded: under sequence parallelism (variant
+    # "sp") the residual stream is seq-sharded but attention internals
+    # operate on the gathered sequence (Megatron-SP AG/RS placement)
+    q = constrain(q, ("batch", "seq_inner", "heads", "head_dim"))
+    k = constrain(k, ("batch", "seq_inner", "kv_heads", "head_dim"))
+    v = constrain(v, ("batch", "seq_inner", "kv_heads", "head_dim"))
     return q, k, v
 
 
@@ -89,13 +91,20 @@ def positional_angles(cfg: AttentionConfig, positions: torch.Tensor
     rotary embeddings."""
     if cfg.rope == "none":
         return None
-    return rope_angles(positions, cfg.head_dim, cfg.rope_pct, cfg.rope_theta,
-                       mrope=cfg.rope == "mrope")
+    # row by row: M-RoPE's (B, S, 3) streams are a batch-sharded DTensor
+    # under a mesh
+    return on_local(lambda pos: rope_angles(pos, cfg.head_dim, cfg.rope_pct,
+                                            cfg.rope_theta,
+                                            mrope=cfg.rope == "mrope"),
+                    positions)
 
 
 def _apply_positional(q, k, rope: Optional[torch.Tensor]):
+    # a rotation pairs channels of one head at their global offsets: batch
+    # and heads keep their shards, head_dim and seq are whole
     if rope is not None:
-        q, k = apply_rope(q, rope), apply_rope(k, rope)
+        q = on_local(apply_rope, q, rope, keep=(0, 2))
+        k = on_local(apply_rope, k, rope, keep=(0, 2))
     return q, k
 
 
@@ -182,6 +191,25 @@ def cache_insert_decode(cache_k, cache_v, k_new, v_new, lengths, window: int):
     return cache_k, cache_v
 
 
+def _kernel_dims(q, k, v) -> Tuple[int, ...]:
+    """The dimensions of q, k, v (B, S, H|KV, D) that may stay sharded when
+    attention runs on each rank's shard (``on_local``): the batch, and the
+    heads when q and k/v are split alike over the same mesh dimensions
+    (whole q heads and their kv heads on each rank). head_dim and seq are
+    gathered: a kernel never sees a piece of a head or of the sequence."""
+    if not isinstance(q, DTensor):
+        return (0,)
+    split = [i for i, p in enumerate(q.placements)
+             if isinstance(p, Shard) and p.dim == 2]
+    ways = math.prod(q.device_mesh.shape[i] for i in split)
+    alike = all(
+        [i for i, p in enumerate(t.placements)
+         if isinstance(p, Shard) and p.dim == 2] == split for t in (k, v))
+    if split and alike and q.shape[2] % ways == 0 and k.shape[2] % ways == 0:
+        return (0, 2)
+    return (0,)
+
+
 # ---------------------------------------------------------------------------
 # Full attention block
 # ---------------------------------------------------------------------------
@@ -218,14 +246,18 @@ def attention_block(x, p: AttnParams, cfg: AttentionConfig, *,
         new_cache = (ck, cv)
     else:
         if impl == "kernel" and mode == "train" and torch.is_grad_enabled():
-            out = FlashAttention.apply(q, k, v, cfg.causal, cfg.sliding_window)
+            run = lambda q, k, v: FlashAttention.apply(q, k, v, cfg.causal,
+                                                       cfg.sliding_window)
         elif impl == "kernel":
-            out = flash_attention(q, k, v, causal=cfg.causal,
-                                  window=cfg.sliding_window)
+            run = lambda q, k, v: flash_attention(q, k, v, causal=cfg.causal,
+                                                  window=cfg.sliding_window)
         else:
-            out = attention_einsum(q, k, v, cfg)
+            run = lambda q, k, v: attention_einsum(q, k, v, cfg)
+        out = on_local(run, q, k, v, keep=_kernel_dims(q, k, v))
         new_cache = (k, v)
 
+    out = constrain(out, ("batch", "seq_inner", "heads", "head_dim"))
     H, Dh, D = p.wo.shape
-    proj = out.reshape(*out.shape[:-2], H * Dh) @ p.wo.to(x.dtype).reshape(H * Dh, D)
+    proj = contract_whole(lambda o, w: o.reshape(*o.shape[:-2], H * Dh)
+                          @ w.reshape(H * Dh, D), out, p.wo, dims=(0, 1))
     return proj, new_cache

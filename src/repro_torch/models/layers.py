@@ -20,6 +20,8 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.axes import contract_whole, on_local, whole_along
+
 
 def as_param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
@@ -45,6 +47,14 @@ def embed_init(vocab: int, d: int, generator, device, dtype=torch.float32):
     return truncated_normal_init((vocab, d), 1.0, generator, device, dtype)
 
 
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("...d,dhk->...hk") as one matrix product: x (..., D) @ w
+    (D, H, K), in x's dtype. Under a mesh a split K is gathered first: the
+    flattened (H, K) can stay split along H only."""
+    w = whole_along(w.to(x.dtype), (2,))
+    return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -64,15 +74,21 @@ def norm_params(d: int, kind: str, device) -> NormParams:
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """x * rsqrt(mean(x^2) + eps) * scale, computed in float32."""
-    return F.rms_norm(x.float(), (x.shape[-1],), scale.float(), eps).to(x.dtype)
+    """x * rsqrt(mean(x^2) + eps) * scale, computed in float32; under a mesh
+    on each rank's rows (however its batch and sequence are split)."""
+    return on_local(lambda x, s: F.rms_norm(x.float(), (x.shape[-1],),
+                                            s.float(), eps).to(x.dtype),
+                    x, scale, keep=(0, 1), whole=(1,))
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
-    """(x - mean) * rsqrt(var + eps) * scale + bias, computed in float32."""
-    return F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(),
-                        eps).to(x.dtype)
+    """(x - mean) * rsqrt(var + eps) * scale + bias, computed in float32;
+    under a mesh on each rank's rows."""
+    return on_local(lambda x, s, b: F.layer_norm(x.float(), (x.shape[-1],),
+                                                 s.float(), b.float(),
+                                                 eps).to(x.dtype),
+                    x, scale, bias, keep=(0, 1), whole=(1, 2))
 
 
 def apply_norm(x: torch.Tensor, p: NormParams, kind: str, eps: float):
@@ -189,7 +205,7 @@ def apply_mlp(x: torch.Tensor, p: MLPParams, act: str, gated: bool) -> torch.Ten
         h = activation(x @ p.gate.to(x.dtype), act) * up
     else:
         h = activation(up, act)
-    return h @ p.down.to(x.dtype)
+    return contract_whole(torch.matmul, h, p.down)
 
 
 # ---------------------------------------------------------------------------

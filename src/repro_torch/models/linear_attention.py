@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.axes import on_local
+
 
 def gla_step(q, k, v, log_w, state, u: Optional[torch.Tensor] = None,
              mode: str = "ssd"):
@@ -125,3 +127,17 @@ def gla_reference(q, k, v, log_w, u: Optional[torch.Tensor] = None,
                             u=u, mode=mode)
         outs.append(o)
     return torch.stack(outs, dim=1), state
+
+
+def gla_chunked_sharded(q, k, v, log_w, u: Optional[torch.Tensor] = None,
+                        mode: str = "rwkv"):
+    """``gla_chunked`` from a zero state; under a mesh (``DTensor``
+    inputs) on each rank's (batch, head) shards, since the scan treats every
+    (row, head) on its own. Returns (o, final_state) as ``gla_chunked``."""
+    def scan(q, k, v, log_w, *u):
+        o, state = gla_chunked(q, k, v, log_w, u=u[0][0, 0] if u else None,
+                               mode=mode)
+        return o, state.transpose(1, 2)   # heads at dim 2, as the inputs'
+    args = (q, k, v, log_w) + (() if u is None else (u[None, None],))
+    o, state = on_local(scan, *args, keep=(0, 2))
+    return o, state.transpose(1, 2)

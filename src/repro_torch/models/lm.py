@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.axes import constrain, on_local
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import transformer as tf
@@ -32,13 +33,17 @@ from repro_torch.models import zamba as zamba_mod
 from repro_torch.models.layers import REMAT_POLICIES
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean CE over valid positions; logits promoted to float32."""
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    return logz - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE over valid positions; logits promoted to float32 (under a
+    mesh each token's whole row of logits on its batch shard)."""
+    nll = on_local(_nll, logits, labels)
     if valid is None:
         return nll.mean()
     v = valid.float()
@@ -82,21 +87,22 @@ class Model:
     # ---------------- embeddings and positions ----------------
     def _embed(self, params, batch: Dict) -> torch.Tensor:
         if "embeds" in batch:  # modality stub (vlm / audio)
-            return batch["embeds"].to(tf.compute_dtype(self.cfg))
+            return constrain(batch["embeds"].to(tf.compute_dtype(self.cfg)),
+                             ("batch", "seq", "embed"))
         return tf.embed_tokens(params, self.cfg, batch["tokens"])
 
     def _positions(self, batch: Dict, B: int, S: int, device,
                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(1, S) text positions, or (B, 1) at decode (``lengths``); under
         M-RoPE ``positions3`` if given, else the text positions on all
-        three streams."""
+        three streams ((1, S, 3) or (B, 1, 3); rows broadcast)."""
         a = self.cfg.attention
         if a is not None and a.rope == "mrope":
             if "positions3" in batch:
                 return batch["positions3"]
             pos = (lengths[:, None] if lengths is not None
-                   else torch.arange(S, device=device)[None].expand(B, S))
-            return pos[..., None].expand(B, pos.shape[1], 3)
+                   else torch.arange(S, device=device)[None])
+            return pos[..., None].expand(*pos.shape, 3)
         if lengths is not None:
             return lengths[:, None]
         return torch.arange(S, device=device)[None, :]

@@ -31,11 +31,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.axes import constrain, contract_whole, on_local
 # the package, not its function: the kernel's plain version imports
 # models.linear_attention, so a name bound here at import would be circular
 from repro_torch.kernels import gla_scan as gla_kernel
-from repro_torch.models.layers import as_param, truncated_normal_init
-from repro_torch.models.linear_attention import gla_chunked, gla_step
+from repro_torch.models.layers import (as_param, project_heads,
+                                       truncated_normal_init)
+from repro_torch.models.linear_attention import (gla_chunked,
+                                                 gla_chunked_sharded, gla_step)
 
 IMPLS = ("kernel", "einsum")
 
@@ -98,9 +101,11 @@ def _causal_conv(x, w, b, conv_state: Optional[torch.Tensor]):
     return F.silu(y), new_state
 
 
-def _heads(x, w):
-    """x (B,T,D) @ w (D,H,P) -> (B,T,H,P)."""
-    return (x @ w.to(x.dtype).flatten(1)).unflatten(-1, w.shape[1:])
+def _gated_norm(o, z, scale):
+    """RMSNorm of o * silu(z) over the full inner dim (H*P), in float32."""
+    g = o.float() * F.silu(z.float())
+    var = torch.mean(torch.square(g), dim=(-2, -1), keepdim=True)
+    return g * torch.rsqrt(var + 1e-5) * scale
 
 
 def mamba_block(x, p: MambaParams, cfg: ModelConfig, *, conv_state=None,
@@ -116,9 +121,11 @@ def mamba_block(x, p: MambaParams, cfg: ModelConfig, *, conv_state=None,
     H = s.n_heads(cfg.d_model)
     G, N = s.n_groups, s.d_state
     B_, T, _ = x.shape
+    # whole sequences: the conv and the scan run along them
+    x = constrain(x, ("batch", "seq_inner", "embed"))
 
-    z = _heads(x, p.in_z)
-    xs = _heads(x, p.in_x)
+    z = project_heads(x, p.in_z)
+    xs = constrain(project_heads(x, p.in_x), ("batch", "seq", "heads", "head_dim"))
     Bmat = x @ p.in_B.to(x.dtype)
     Cmat = x @ p.in_C.to(x.dtype)
     dt = x @ p.in_dt.to(x.dtype)                                     # (B,T,H)
@@ -150,16 +157,17 @@ def mamba_block(x, p: MambaParams, cfg: ModelConfig, *, conv_state=None,
         o, ssm_state = gla_kernel.gla_scan(
             Cm.contiguous(), Bm.contiguous(), xs.contiguous(),
             log_w_full.contiguous(), mode="ssd")
+    elif ssm_state is None:
+        o, ssm_state = gla_chunked_sharded(Cm, Bm, xs, log_w_full, mode="ssd")
     else:
         o, ssm_state = gla_chunked(Cm, Bm, xs, log_w_full, mode="ssd",
                                    initial_state=ssm_state)
     o = o + xs * p.D_skip.to(xs.dtype)[None, None, :, None]
 
     # gated RMSNorm over the full inner dim (H*P), head-major layout
-    g = o.float() * F.silu(z.float())
-    var = torch.mean(torch.square(g), dim=(-2, -1), keepdim=True)
-    g = g * torch.rsqrt(var + 1e-5) * p.norm_scale
-    out = g.to(x.dtype).flatten(2) @ p.out_proj.to(x.dtype).flatten(0, 1)
+    g = on_local(_gated_norm, o, z, p.norm_scale, keep=(0, 1), whole=(2,))
+    out = contract_whole(lambda g, w: g.flatten(2) @ w.flatten(0, 1),
+                         g.to(x.dtype), p.out_proj, dims=(0, 1))
     return out, (new_cx, new_cbc), ssm_state
 
 

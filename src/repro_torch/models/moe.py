@@ -25,6 +25,7 @@ slots per row: the reference's static-shape semantics, kept.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Tuple
 
 import torch
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed.axes import constrain, contract_whole, on_local
 from repro_torch.models.layers import (activation, as_param, dense_init,
                                        truncated_normal_init)
 
@@ -75,7 +77,8 @@ def capacity_for(tokens_per_row: int, cfg: MoEConfig,
 
 def route(x: torch.Tensor, p: MoEParams, cfg: MoEConfig):
     """Router probabilities (B, S, E) float32 and the renormalised top-k
-    gates and experts (B, S, K), ties to the lower expert."""
+    gates and experts (B, S, K), ties to the lower expert. Reads only
+    ``p.router``."""
     logits = (x @ p.router.to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -105,19 +108,12 @@ def dispatch(idx: torch.Tensor, E: int, C: int):
     return order, keep, dest, start, size
 
 
-def apply_moe(x: torch.Tensor, p: MoEParams, cfg: MoEConfig, act: str = "silu",
-              capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
+def _dispatch_rows(x: torch.Tensor, idx: torch.Tensor, E: int, C: int):
+    """Each row's capacity buffer (B, E, C, D) of the tokens its experts
+    ``idx`` (B, S, K) keep, and where each (token, k) assignment's output
+    lies in it: ``slot`` (B, S*K) and ``kept`` (B, S*K)."""
     B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.top_k
-    C = capacity_for(S, cfg, capacity_factor)
-    probs, gates, idx = route(x, p, cfg)
-
-    # aux load-balancing loss (Switch-style), over all tokens
-    me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
-    aux = cfg.aux_loss_coef * E * torch.sum(me * ce)
-
+    K = idx.shape[-1]
     order, keep, dest, start, size = dispatch(idx, E, C)
     # slot (e, c) holds the assignment at sorted place start[e] + c when
     # c < size[e], else zeros: a gather, one source per slot
@@ -127,20 +123,50 @@ def apply_moe(x: torch.Tensor, p: MoEParams, cfg: MoEConfig, act: str = "silu",
     filled = (c_idx < size[:, :, None]).reshape(B, E * C, 1)
     buf = torch.gather(x, 1, token[..., None].expand(B, E * C, D))
     buf = torch.where(filled, buf, 0).reshape(B, E, C, D)
-
-    up = torch.einsum("becd,edf->becf", buf, p.up.to(x.dtype))
-    gt = torch.einsum("becd,edf->becf", buf, p.gate.to(x.dtype))
-    h = activation(gt, act) * up
-    out_buf = torch.einsum("becf,efd->becd", h, p.down.to(x.dtype))
-
     # combine: assignment s*K + k sits at sorted place inv[s*K + k]
     inv = torch.empty_like(order).scatter_(
         1, order, torch.arange(S * K, device=x.device).expand(B, S * K))
-    slot = torch.gather(dest, 1, inv)                              # (B, S*K)
-    kept = torch.gather(keep, 1, inv)
-    flat_out = out_buf.reshape(B, E * C, D)
-    picked = torch.gather(flat_out, 1,
+    return buf, torch.gather(dest, 1, inv), torch.gather(keep, 1, inv)
+
+
+def _combine_rows(out_buf: torch.Tensor, slot: torch.Tensor,
+                  kept: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) float32: each token's kept expert outputs, gate-weighted,
+    summed over its K choices."""
+    B, E, C, D = out_buf.shape
+    S, K = gates.shape[1], gates.shape[2]
+    picked = torch.gather(out_buf.reshape(B, E * C, D), 1,
                           slot.clamp(max=E * C - 1)[..., None].expand(B, S * K, D))
     picked = torch.where(kept[..., None], picked.float(), 0.0)
-    out = (picked.reshape(B, S, K, D) * gates[..., None]).sum(dim=2)
+    return (picked.reshape(B, S, K, D) * gates[..., None]).sum(dim=2)
+
+
+def apply_moe(x: torch.Tensor, p: MoEParams, cfg: MoEConfig, act: str = "silu",
+              capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar).
+
+    Routing, dispatch and combine treat each batch row on its own: under a
+    mesh they run on each rank's rows (``on_local``); the expert products
+    run on the dispatch buffer sharded over experts (EP) or over d_expert."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = capacity_for(S, cfg, capacity_factor)
+    probs, gates, idx = on_local(
+        lambda x, w: route(x, SimpleNamespace(router=w), cfg), x, p.router,
+        whole=(1,))
+
+    # aux load-balancing loss (Switch-style), over all tokens
+    me = probs.mean(dim=(0, 1))
+    ce = on_local(lambda i: F.one_hot(i[..., 0], E).float(), idx).mean(dim=(0, 1))
+    aux = cfg.aux_loss_coef * E * torch.sum(me * ce)
+
+    buf, slot, kept = on_local(lambda x, i: _dispatch_rows(x, i, E, C), x, idx)
+    buf = constrain(buf, ("batch", "expert", None, None))
+    up = torch.einsum("becd,edf->becf", buf, p.up.to(x.dtype))
+    gt = torch.einsum("becd,edf->becf", buf, p.gate.to(x.dtype))
+    h = activation(gt, act) * up
+    out_buf = contract_whole(lambda h, w: torch.einsum("becf,efd->becd", h, w),
+                             h, p.down, dims=(1,))
+    out_buf = constrain(out_buf, ("batch", "expert", None, None))
+    out = on_local(_combine_rows, out_buf, slot, kept, gates)
     return out.to(x.dtype), aux

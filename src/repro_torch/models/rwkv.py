@@ -32,14 +32,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.axes import (add_to_stream, constrain,
+                                          contract_whole)
 # the package, not its function: the kernel's plain version imports
 # models.linear_attention, so a name bound here at import would be circular
 from repro_torch.kernels import gla_scan as gla_kernel
 from repro_torch.models.layers import (NormParams, activation, as_param,
                                        dense_init, embed_init, layernorm,
-                                       norm_params, rematerialized,
+                                       norm_params, project_heads,
+                                       rematerialized,
                                        truncated_normal_init)
-from repro_torch.models.linear_attention import gla_chunked, gla_step
+from repro_torch.models.linear_attention import gla_chunked_sharded, gla_step
 
 MIX_NAMES = ("w", "k", "v", "r", "g")
 GROUP_NORM_EPS = 64e-5   # RWKV's GroupNorm(H), not the LayerNorm default
@@ -134,13 +137,6 @@ def _token_shift(x, shift_state: Optional[torch.Tensor]):
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
-def _heads(x, w):
-    """x (B,T,D) @ w (D,H,hd) -> (B,T,H,hd)."""
-    B, T, _ = x.shape
-    return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).view(
-        B, T, w.shape[1], w.shape[2])
-
-
 def rwkv_time_mix(x, p: RWKVBlockParams, cfg: ModelConfig, *,
                   shift_state=None, wkv_state=None, mode: str = "prefill",
                   impl: str = "kernel"):
@@ -148,6 +144,7 @@ def rwkv_time_mix(x, p: RWKVBlockParams, cfg: ModelConfig, *,
     shift (B,D) float32, new wkv state (B,H,K,K) float32). Prefill and
     train start from zero states; decode reads ``shift_state`` and
     ``wkv_state``."""
+    x = constrain(x, ("batch", "seq_inner", "embed"))   # the shift runs along seq
     dt = x.dtype
     xf = x.float()
     xx = _token_shift(xf, shift_state) - xf
@@ -158,10 +155,10 @@ def rwkv_time_mix(x, p: RWKVBlockParams, cfg: ModelConfig, *,
                        p.mix_lora_b)
     streams = {name: xf + xx * (p.maa[i] + mix[:, :, i])
                for i, name in enumerate(MIX_NAMES)}
-    rr = _heads(streams["r"].to(dt), p.wr)
-    kk = _heads(streams["k"].to(dt), p.wk)
-    vv = _heads(streams["v"].to(dt), p.wv)
-    g = F.silu(_heads(streams["g"].to(dt), p.wg))
+    rr = project_heads(streams["r"].to(dt), p.wr)
+    kk = project_heads(streams["k"].to(dt), p.wk)
+    vv = project_heads(streams["v"].to(dt), p.wv)
+    g = F.silu(project_heads(streams["g"].to(dt), p.wg))
 
     # data-dependent decay: log w = -exp(w0 + lora(wt)) in (-inf, 0), float32
     dlora = torch.einsum("btr,rhk->bthk", torch.tanh(streams["w"] @ p.decay_lora_a),
@@ -175,22 +172,25 @@ def rwkv_time_mix(x, p: RWKVBlockParams, cfg: ModelConfig, *,
     elif impl == "kernel" and mode != "train":   # prefill scans from zero
         o, new_state = gla_kernel.gla_scan(rr, kk, vv, log_w, u=p.u, mode="rwkv")
     else:
-        o, new_state = gla_chunked(rr, kk, vv, log_w, u=p.u, mode="rwkv")
+        o, new_state = gla_chunked_sharded(rr, kk, vv, log_w, u=p.u, mode="rwkv")
     o = _group_norm_heads(o, p.ln_x_scale, p.ln_x_bias)
     y = (o.to(dt) * g).flatten(2)
-    out = y @ p.wo.to(dt).reshape(-1, p.wo.shape[-1])
+    out = contract_whole(lambda y, w: y @ w.reshape(-1, w.shape[-1]), y, p.wo,
+                         dims=(0, 1))
     return out, xf[:, -1], new_state
 
 
 def rwkv_channel_mix(x, p: RWKVBlockParams, cfg: ModelConfig, *,
                      shift_state=None):
+    x = constrain(x, ("batch", "seq_inner", "embed"))   # the shift runs along seq
     dt = x.dtype
     xf = x.float()
     xx = _token_shift(xf, shift_state) - xf
     xk = (xf + xx * p.cm_mu_k).to(dt)
     xr = (xf + xx * p.cm_mu_r).to(dt)
     k = activation(xk @ p.cm_key.to(dt), cfg.mlp.activation)
-    out = torch.sigmoid(xr @ p.cm_recept.to(dt)) * (k @ p.cm_value.to(dt))
+    out = torch.sigmoid(xr @ p.cm_recept.to(dt)) * contract_whole(
+        torch.matmul, k, p.cm_value)
     return out, xf[:, -1]
 
 
@@ -212,10 +212,10 @@ def init_rwkv_cache(cfg: ModelConfig, batch: int, device) -> Dict:
 def _train_layer(h, lp: RWKVLayerParams, cfg: ModelConfig):
     out, _, _ = rwkv_time_mix(layernorm(h, lp.ln1.scale, lp.ln1.bias),
                               lp.block, cfg, mode="train")
-    h = h + out
+    h = add_to_stream(h, out)
     out, _ = rwkv_channel_mix(layernorm(h, lp.ln2.scale, lp.ln2.bias),
                               lp.block, cfg)
-    return h + out
+    return constrain(add_to_stream(h, out), ("batch", "seq", "embed"))
 
 
 def rwkv_forward(params: RWKVParams, cfg: ModelConfig, x, *,
@@ -247,12 +247,12 @@ def rwkv_forward(params: RWKVParams, cfg: ModelConfig, x, *,
             hn, lp.block, cfg, mode=mode, impl=impl,
             shift_state=cache["tm_shift"][i] if decode else None,
             wkv_state=cache["wkv"][i] if decode else None)
-        h = h + out
+        h = add_to_stream(h, out)
         hn = layernorm(h, lp.ln2.scale, lp.ln2.bias)
         out, cm = rwkv_channel_mix(
             hn, lp.block, cfg,
             shift_state=cache["cm_shift"][i] if decode else None)
-        h = h + out
+        h = constrain(add_to_stream(h, out), ("batch", "seq", "embed"))
         if decode:
             cache["tm_shift"][i] = tm
             cache["cm_shift"][i] = cm
@@ -278,4 +278,5 @@ def write_states(cache: Dict, rows, states: Dict, prefill_len: int) -> None:
 def rwkv_logits(params: RWKVParams, h: torch.Tensor) -> torch.Tensor:
     """Final LayerNorm and the untied LM head."""
     h = layernorm(h, params.final_norm.scale, params.final_norm.bias)
+    h = constrain(h, ("batch", "seq_inner", "embed"))   # as tf.lm_logits
     return h @ params.lm_head.to(h.dtype).T

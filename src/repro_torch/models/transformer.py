@@ -9,8 +9,8 @@ LayerNorm, an encoder without decode) families take frame or patch
 embeddings in place of tokens (``embed_stub``) and otherwise share the
 dense stack. RWKV6 and Zamba2 have their own stacks
 (``repro_torch.models.rwkv``, ``repro_torch.models.zamba``). The
-reference's sharding constraints (``distributed.axes.constrain``) have no
-counterpart on one card. Training (``mode="train"``) returns the MoE aux
+reference's sharding constraints (``distributed.axes.constrain``) sit where
+the reference's do: no-ops outside an axis env. Training (``mode="train"``) returns the MoE aux
 loss and can rematerialise each layer (``remat``), as the reference's
 ``jax.checkpoint`` of its scan body.
 """
@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.axes import add_to_stream, constrain, on_local
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, as_param,
                                        embed_init, mlp_params, norm_params,
@@ -102,18 +103,22 @@ def init_transformer(cfg: ModelConfig, generator: Optional[torch.Generator],
 def _layer_apply(x, lp: LayerParams, cfg: ModelConfig, *, rope, mode,
                  cache_kv, lengths, impl):
     h = apply_norm(x, lp.attn_norm, cfg.norm, cfg.norm_eps)
+    h = constrain(h, ("batch", "seq_inner", "embed"))
     a_out, new_kv = attn.attention_block(
         h, lp.attn, cfg.attention, rope=rope, mode=mode,
         cache=cache_kv, lengths=lengths, impl=impl)
-    x = x + a_out
+    x = add_to_stream(x, a_out)
+    x = constrain(x, ("batch", "seq", "embed"))
     h = apply_norm(x, lp.mlp_norm, cfg.norm, cfg.norm_eps)
+    h = constrain(h, ("batch", "seq_inner", "embed"))
     if cfg.family == "moe":
         # the aux loss trains the router; serving ignores it
         m_out, aux = apply_moe(h, lp.moe, cfg.moe,
                                act=cfg.mlp.activation if cfg.mlp else "silu")
     else:
         m_out, aux = apply_mlp(h, lp.mlp, cfg.mlp.activation, cfg.mlp.gated), None
-    return x + m_out, new_kv, aux
+    x = constrain(add_to_stream(x, m_out), ("batch", "seq", "embed"))
+    return x, new_kv, aux
 
 
 def _train_layer(x, lp: LayerParams, cfg: ModelConfig, rope, impl):
@@ -199,11 +204,18 @@ def fill_cache_from_prefill(cfg: ModelConfig, computed_k, computed_v,
 
 def embed_tokens(params: TransformerParams, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params.embed[tokens].to(compute_dtype(cfg))
+    # a gather by row: under a mesh on each rank's rows of tokens, the table
+    # whole (a DTensor has no rule for the gather's backward, index_put)
+    e = on_local(lambda t, table: table[t], tokens, params.embed, whole=(1,))
+    e = constrain(e, ("batch", "seq", "embed"))
+    return e.to(compute_dtype(cfg))
 
 
 def lm_logits(params: TransformerParams, cfg: ModelConfig,
               h: torch.Tensor) -> torch.Tensor:
     h = apply_norm(h, params.final_norm, cfg.norm, cfg.norm_eps)
+    # whole sequences for the vocabulary product: a flattened (batch, seq)
+    # cannot stay split along both (sequence parallelism)
+    h = constrain(h, ("batch", "seq_inner", "embed"))
     head = params.embed if cfg.tie_embeddings else params.lm_head
-    return h @ head.to(h.dtype).T
+    return constrain(h @ head.to(h.dtype).T, ("batch", "seq", "vocab"))

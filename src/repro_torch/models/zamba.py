@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.axes import add_to_stream, constrain
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, as_param,
                                        embed_init, mlp_params, norm_params,
@@ -99,17 +100,21 @@ def init_zamba_cache(cfg: ModelConfig, batch: int, max_len: int, device,
 
 def _shared_apply(x, sp: SharedBlockParams, cfg: ModelConfig, *, rope, mode,
                   cache_kv, lengths, impl):
-    h = apply_norm(x, sp.attn_norm, cfg.norm, cfg.norm_eps)
+    h = constrain(apply_norm(x, sp.attn_norm, cfg.norm, cfg.norm_eps),
+                  ("batch", "seq_inner", "embed"))
     a_out, new_kv = attn.attention_block(
         h, sp.attn, cfg.attention, rope=rope, mode=mode, cache=cache_kv,
         lengths=lengths, impl=impl)
-    x = x + a_out
-    h = apply_norm(x, sp.mlp_norm, cfg.norm, cfg.norm_eps)
-    return x + apply_mlp(h, sp.mlp, cfg.mlp.activation, cfg.mlp.gated), new_kv
+    x = add_to_stream(x, a_out)
+    h = constrain(apply_norm(x, sp.mlp_norm, cfg.norm, cfg.norm_eps),
+                  ("batch", "seq_inner", "embed"))
+    return add_to_stream(x, apply_mlp(h, sp.mlp, cfg.mlp.activation,
+                                      cfg.mlp.gated)), new_kv
 
 
 def _train_mamba(h, lp: MambaParams, cfg: ModelConfig):
-    return mamba_block(h, lp, cfg, mode="train")[0]
+    return constrain(mamba_block(h, lp, cfg, mode="train")[0],
+                     ("batch", "seq", "embed"))
 
 
 def zamba_forward(params: ZambaParams, cfg: ModelConfig, x, *, positions,
@@ -164,6 +169,7 @@ def zamba_forward(params: ZambaParams, cfg: ModelConfig, x, *, positions,
                        "ssm_state": cache["ssm"][i]} if decode else {})
             h, (cx, cbc), ssm = mamba_block(h, params.layers[i], cfg, mode=mode,
                                             impl=attn_impl, **states)
+            h = constrain(h, ("batch", "seq", "embed"))
             for key, t in zip(STATES, (cx, cbc, ssm)):
                 if decode:
                     cache[key][i] = t

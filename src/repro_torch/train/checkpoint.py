@@ -16,6 +16,10 @@ parameters in ``named_parameters()`` order, then ``mu``, ``nu`` and ``step``.
 numpy has no bfloat16: a bf16 leaf is stored as its raw 16-bit pattern and
 the manifest names its dtype.
 
+A tree of ``DTensor``s (training on a mesh) is saved as its whole tensors,
+the layout of one device, and restored into the placements of the tree it
+is restored into.
+
 Fault tolerance: ``latest_step`` only considers committed checkpoints, so
 a crash mid-write is invisible on restart. ``CheckpointManager.save_async``
 snapshots device tensors to the host, then writes on a worker thread,
@@ -32,6 +36,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def _flatten(tree) -> Tuple[List[Any], str]:
@@ -59,7 +65,11 @@ def _unflatten(tree_like, leaves):
 
 
 def _host(leaf):
-    """A host copy of a leaf: tensors leave the device (a snapshot)."""
+    """A host copy of a leaf: tensors leave the device (a snapshot). A
+    ``DTensor`` is gathered whole first (a collective: every rank snapshots
+    the same leaves in the same order)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return np.asarray(leaf)
@@ -116,6 +126,10 @@ def _restore_leaf(arr: np.ndarray, dtype: str, ref):
         t = torch.from_numpy(arr).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
+    if isinstance(ref, DTensor):   # the whole leaf, placed as ref is
+        return distribute_tensor(t.to(device=ref.device, dtype=ref.dtype),
+                                 ref.device_mesh, ref.placements,
+                                 src_data_rank=None)
     if isinstance(ref, torch.Tensor):
         return t.to(device=ref.device, dtype=ref.dtype)
     if isinstance(ref, np.ndarray):
@@ -150,7 +164,11 @@ def restore_checkpoint(path: str, tree_like, step: Optional[int] = None):
 class CheckpointManager:
     """Async checkpointing with retention. ``timings`` holds (step, seconds
     of the synchronous snapshot to the host, seconds of the write on the
-    thread) for every save."""
+    thread) for every save.
+
+    In a process group every rank snapshots (``DTensor`` leaves are gathered
+    whole) and rank 0 alone writes, so the files are those of one device;
+    ``wait`` returns on every rank once rank 0's write has landed."""
 
     def __init__(self, path: str, keep: int = 3):
         self.path = Path(path)
@@ -158,11 +176,14 @@ class CheckpointManager:
         self.timings: List[Tuple[int, float, float]] = []
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self.writer = not dist.is_initialized() or dist.get_rank() == 0
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if dist.is_initialized():
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("asynchronous checkpoint write failed") from err
@@ -174,6 +195,8 @@ class CheckpointManager:
         leaves, _ = _flatten(tree)
         host = _unflatten(tree, iter([_host(leaf) for leaf in leaves]))
         snapshot_s = time.perf_counter() - t0
+        if not self.writer:
+            return
 
         def work():
             try:

@@ -6,7 +6,8 @@ matrices only. Parameters, gradients and moments are dicts keyed by the
 parameter module's ``named_parameters()`` names; ``adamw_update`` returns
 new tensors and leaves its inputs as they were, as the reference's pure
 function does. Everything stays on the parameters' device: no value is read
-back to the host.
+back to the host. ``DTensor`` parameters (a mesh) keep their placements;
+their moments and updates take the same.
 
 Weight decay follows the rank of the reference's leaf, not the port's
 tensor. The reference stacks its layers (and Zamba2's shared blocks) on a
@@ -21,6 +22,8 @@ import math
 from typing import Dict, Tuple
 
 import torch
+
+from repro_torch.distributed.axes import to_plain
 
 Tree = Dict[str, torch.Tensor]
 
@@ -51,7 +54,9 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def adamw_init(params: Tree) -> Dict:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """Zero float32 moments laid out as the parameters (a ``DTensor``'s
+    moments are ``DTensor``s of its placements) and a step counter."""
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     device = next(iter(params.values())).device
     return {"mu": {k: zeros(p) for k, p in params.items()},
             "nu": {k: zeros(p) for k, p in params.items()},
@@ -59,8 +64,10 @@ def adamw_init(params: Tree) -> Dict:
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
+    """The norm of all leaves together; a ``DTensor`` leaf's sum of squares
+    is summed over its shards (``to_plain``), so every rank clips alike."""
     return torch.sqrt(torch.sum(torch.stack(
-        [torch.sum(torch.square(x.float())) for x in tree.values()])))
+        [to_plain(torch.sum(torch.square(x.float()))) for x in tree.values()])))
 
 
 def reference_ndim(name: str, p: torch.Tensor) -> int:

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from repro_torch.distributed.axes import for_compute, like, to_plain
 from repro_torch.models.lm import Model
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
@@ -69,13 +70,18 @@ def make_value_and_grad(model: Model):
     def value_and_grad(params: Tree, batch):
         wrt = {name: p.detach().requires_grad_() for name, p in params.items()}
         with torch.enable_grad():
+            # DTensor masters: their shards over the batch axes are gathered
+            # for the forward (FSDP); the gradients come back to the
+            # masters' placements through the gathers' backward
+            used = {k: for_compute(v) for k, v in wrt.items()}
             loss, metrics, grads = functional_call(
-                objective, {f"tree.{k}": v for k, v in wrt.items()},
+                objective, {f"tree.{k}": v for k, v in used.items()},
                 (batch, list(wrt.values())), strict=True)
         # a parameter the loss does not read (HuBERT's embedding) gets 0
-        grads = {name: torch.zeros_like(p) if g is None else g
+        grads = {name: torch.zeros_like(p) if g is None else like(g, p)
                  for (name, p), g in zip(params.items(), grads)}
-        return loss, metrics, grads
+        return (to_plain(loss), {k: to_plain(v) for k, v in metrics.items()},
+                grads)
 
     return value_and_grad
 

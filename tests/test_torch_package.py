@@ -77,6 +77,17 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     assert not (tmp_path / "q").exists()
 
 
+def test_train_launcher_raises_without_a_card(monkeypatch, tmp_path):
+    """--mesh 1x1 with no process group is the plain path on the card."""
+    from repro_torch.launch.train import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--reduced", "--mesh", "1x1", "--steps", "1", "--ckpt-dir",
+              str(tmp_path)])
+    assert not any(tmp_path.iterdir())
+
+
 @pytest.mark.parametrize("name", ["h100", "a100", "a40", "tpu-v5e"])
 def test_power_matches_reference(name):
     mfu = np.concatenate([np.linspace(-0.1, 1.2, 997), [0.0, 0.45, 1e-7]])
@@ -139,8 +150,9 @@ def test_simulated_path_raises_without_a_card(monkeypatch, name):
 
 def test_module_list_covers_the_sweep_engine_and_obs():
     """The no-JAX checks above walk every module of the port, the sweep
-    engine, ``obs``, the day simulation, the microgrid kernel and the model
-    families (MoE, Mamba2, Zamba2) included."""
+    engine, ``obs``, the day simulation, the microgrid kernel, the model
+    families (MoE, Mamba2, Zamba2), the distributed layer and the mesh
+    launcher included."""
     mods = _modules()
     for m in ("repro_torch.obs", "repro_torch.obs.diff",
               "repro_torch.obs.__main__", "repro_torch.obs.recorder",
@@ -150,7 +162,12 @@ def test_module_list_covers_the_sweep_engine_and_obs():
               "repro_torch.obs.audit",
               "repro_torch.fleet.day", "repro_torch.kernels.microgrid_scan.ops",
               "repro_torch.models.moe", "repro_torch.models.mamba",
-              "repro_torch.models.zamba"):
+              "repro_torch.models.zamba",
+              "repro_torch.distributed", "repro_torch.distributed.axes",
+              "repro_torch.distributed.sharding",
+              "repro_torch.distributed.compression",
+              "repro_torch.distributed.pipeline",
+              "repro_torch.distributed.elastic", "repro_torch.launch.mesh"):
         assert m in mods
 
 

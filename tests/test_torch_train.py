@@ -572,7 +572,9 @@ def test_launcher_accepts_variants_at_one_device(variant, tmp_path):
 
 
 def test_launcher_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="queue 1 step 12"):
+    """--mesh 2x4 needs an 8-rank process group; without one (a world of
+    one) the launcher names both sizes."""
+    with pytest.raises(RuntimeError, match="needs 8 ranks; this world has 1"):
         train_launcher.main(["--reduced", "--mesh", "2x4"], device="cpu")
 
 
