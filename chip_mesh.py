@@ -19,6 +19,12 @@ products gather their operands), so the gates are loose, 1e-2 on losses
 and on every leaf: they catch a wrong program, not rounding. It needs as
 many cards as the largest mesh has ranks and exits non-zero without them
 or past a gate.
+
+Before the meshes it runs device mode's split of the group axis over the
+cards (``repro_torch.sweep.device.local_devices``): the fig4 smoke grid on
+every card at once (4 blocks on 4 cards) against one card's run bit for
+bit, and against the event loop within ``DEVICE_MODE_RTOL``.
+``--meshes ''`` runs the split alone.
 """
 from __future__ import annotations
 
@@ -106,6 +112,36 @@ def run_mesh(mesh: str, steps: int, tmp: Path) -> dict:
     return torch.load(result)
 
 
+def device_split():
+    """Device mode over every card against one card; returns the split."""
+    from repro_torch.core.power import DEVICE_MODE_RTOL
+    from repro_torch.sweep import device as sweep_device
+    from repro_torch.sweep.runner import SweepRunner
+    from repro_torch.sweep.scenarios import SWEEPS
+    scs = SWEEPS["fig4"].build(True)
+    t = time.perf_counter()
+    recs, stats = sweep_device.execute_device_grid(scs, torch_device="cuda")
+    split_s = time.perf_counter() - t
+    found = sweep_device.local_devices
+    sweep_device.local_devices = lambda dev: [torch.device("cuda", 0)]
+    try:
+        one, one_stats = sweep_device.execute_device_grid(scs, torch_device="cuda")
+    finally:
+        sweep_device.local_devices = found
+    metrics = lambda rs: {r["key"]: r["metrics"] for r in rs}
+    same = metrics(recs) == metrics(one)
+    ev = SweepRunner(mode="event_loop", torch_device="cuda").run(scs)[0]
+    err = sweep_device.records_max_rel_err(recs, ev)
+    print(f"device mode, fig4 smoke ({len(scs)} scenarios, "
+          f"{stats.trace_groups} groups): devices {stats.devices} in "
+          f"{split_s:.2f} s vs {one_stats.devices}: records bit for bit "
+          f"{same}; vs the event loop {err:.3e} (DEVICE_MODE_RTOL "
+          f"{DEVICE_MODE_RTOL:.0e})")
+    if not same or not err <= DEVICE_MODE_RTOL:
+        sys.exit("chip_mesh: device mode's split differs from one card")
+    return stats.devices
+
+
 def report(name: str, s: dict):
     step_ms = float(np.median(s["step_times"][1:])) * 1e3
     print(f"{name}: losses " + ", ".join(f"{x:.6f}" for x in s["losses"])
@@ -118,8 +154,8 @@ def main():
     ap.add_argument("--meshes", default="2x2,4x1,1x4")
     ap.add_argument("--steps", type=int, default=6)
     args = ap.parse_args()
-    meshes = args.meshes.split(",")
-    need = max(int(a) * int(b) for a, b in (s.split("x") for s in meshes))
+    meshes = [m for m in args.meshes.split(",") if m]
+    need = max([2] + [int(a) * int(b) for a, b in (s.split("x") for s in meshes)])
     if not torch.cuda.is_available() or torch.cuda.device_count() < need:
         sys.exit(f"chip_mesh: needs {need} CUDA cards, found "
                  f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
@@ -128,6 +164,12 @@ def main():
                          text=True).stdout.strip().splitlines()
     print(f"{torch.cuda.device_count()} cards: " + "; ".join(smi)
           + f"; torch {torch.__version__}")
+    d = device_split()
+    want = 1 << (min(torch.cuda.device_count(), 4).bit_length() - 1)
+    if d != want:
+        sys.exit(f"chip_mesh: device mode split over {d} cards, not {want}")
+    if not meshes:
+        return
     with tempfile.TemporaryDirectory(prefix="chip_mesh_") as tmp:
         tmp = Path(tmp)
         runs = {mesh: run_mesh(mesh, args.steps, tmp) for mesh in meshes}

@@ -306,6 +306,13 @@ FLASH_SMALL = (1, 2048, 32, 8)
 # phase 17d: smollm-360m's widths trained in float32 at phase 17's batch
 F32_TRAIN_STEPS = 6
 MESH_STEPS = 6              # phase 19a
+# phase 20a: production cells, each traced in a process of its own
+DRYRUN_CELLS = (("smollm-360m", "train_4k"), ("stablelm-1.6b", "decode_32k"),
+                ("rwkv6-1.6b", "prefill_32k"))
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_STEPS = 6            # phase 20b: steps of the real step, timed 2-6
+RAGGED_LENS = (256, 777, 1500, 2048)   # phase 20c, right-padded to 2048
+RAGGED_KV_TOL = 2e-2        # phase 20c: cache K/V at valid positions
 MESH_TOL = 1e-5             # phase 19a: losses and masters per leaf, relative
 F32_GRAD_TOL = 1e-4         # per leaf, relative Frobenius: the CPU parity tests'
 F32_LOSS_TOL = 1e-5         # relative
@@ -2058,12 +2065,19 @@ def phase_simulated():
         close(cosim["cuda"].metrics[k], v, DEVICE_MODE_RTOL, f"Table 2 {k}")
     steps = len(cosim["cuda"].load.times)
     from repro_torch.kernels.microgrid_scan import microgrid_scan
-    n0 = microgrid_scan.launches
-    ops, busy_ms, wall_ms = device_ops(lambda: table2_cosim(res, "cuda"),
-                                       "microgrid_scan", 1)
-    if microgrid_scan.launches - n0 != 1:
-        fail(f"Table 2 co-sim: {microgrid_scan.launches - n0} microgrid_scan "
-             "launches, expected 1")
+    # ``profiled`` calls the co-sim again for each trace the profiler did not
+    # keep whole, so the launches are counted per call: one each.
+    per_call = []
+
+    def cosim_once():
+        n0 = microgrid_scan.launches
+        table2_cosim(res, "cuda")
+        per_call.append(microgrid_scan.launches - n0)
+
+    ops, busy_ms, wall_ms = device_ops(cosim_once, "microgrid_scan", 1)
+    if not per_call or any(n != 1 for n in per_call):
+        fail(f"Table 2 co-sim: {per_call} microgrid_scan launches per call, "
+             "expected 1 each")
     m = cosim["cuda"].metrics
     print("Table 2 co-sim (30 h at 60 s, 600 W solar, 100 Wh battery): "
           + " ".join(f"{k}={float(m[k])!r}" for k in (
@@ -3092,6 +3106,231 @@ def phase_compress():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the dry-run and roofline stack, ragged prefill, device-mode split
+# ---------------------------------------------------------------------------
+
+def phase_dryrun_cells():
+    """20a: three production cells traced on a fake 16x16 world, each in its
+    own ``python -m repro_torch.launch.dryrun`` process (all three at once),
+    each record priced at the H100's rates."""
+    from repro_torch.analysis.roofline import analyze_cell
+    from repro_torch.analysis.program import COLLECTIVES
+    print(f"== phase 20a: dry-run cells {', '.join(map(' '.join, DRYRUN_CELLS))} "
+          f"on a fake 16x16 world (256 ranks, rank 0's local work), fake CUDA "
+          f"tensors; roofline at H100_SXM's rates")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [(arch, shape, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--quiet"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env))
+        for arch, shape in DRYRUN_CELLS]
+    for arch, shape, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"phase 20a: {arch} {shape} did not finish in "
+                 f"{DRYRUN_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            fail(f"phase 20a: {arch} {shape} exited {proc.returncode}: "
+                 f"{err[-2000:]}")
+        rec = json.loads(out)
+        cell = analyze_cell(rec)
+        coll = rec["collectives"]
+        print(f"{arch} {shape}: trace_s {rec['trace_s']}, {rec['ops']} ops; "
+              f"dot_flops {rec['loop_aware']['dot_flops']:.4e} per device, "
+              f"MODEL {cell['model_flops_per_dev']:.4e} (MODEL/program "
+              f"{cell['useful_ratio']:.3f}); hbm_bytes "
+              f"{rec['loop_aware']['hbm_bytes']:.4e}; collectives "
+              + ", ".join(f"{k} {coll[k]:.4e}" for k in COLLECTIVES)
+              + f" B ({coll['count']} ops, link {coll['link_bytes']:.4e} B); "
+              f"t_compute {cell['t_compute_s'] * 1e3:.3f} ms, t_memory "
+              f"{cell['t_memory_s'] * 1e3:.3f} ms, t_collective "
+              f"{cell['t_collective_s'] * 1e3:.3f} ms ({cell['dominant']}); "
+              f"argument {rec['memory']['argument_bytes'] / 1e9:.3f} GB, temp "
+              f"{rec['memory']['temp_bytes'] / 1e9:.3f} GB, fits_hbm "
+              f"{cell['fits_hbm']}")
+        if not rec["loop_aware"]["dot_flops"] > 0:
+            fail(f"phase 20a: {arch} {shape} counted no dot FLOPs")
+
+
+def phase_dryrun_vs_card() -> dict:
+    """20b: smollm-360m at phase 17's shape on a 1x1 mesh, counted
+    abstractly (attention ``auto``), then the same step (remat, the same
+    grad accumulation) run for real through the flash kernels. Returns the
+    real steps' launches."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import fake_world, trace_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.specs import auto_grad_accum
+    from repro_torch.models import build_model
+    from repro_torch.sim.execmodel import ExecModelConfig, calibrate_from_dryrun
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import make_train_step, param_dict
+    cfg = get_config(TRAIN_ARCH)
+    B, S, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layers
+    shape = ShapeConfig("phase17", S, B, "train")
+    if dist.is_initialized():
+        fail("phase 20b: a process group is still up")
+    with fake_world(1):
+        mesh = make_test_mesh((1, 1), device_type="cuda")
+        ga = auto_grad_accum(cfg, shape, mesh, batch_axes=("data",))
+        rec = trace_cell(cfg, shape, mesh, device="cuda")
+    flops = rec["loop_aware"]["dot_flops"]
+    print(f"== phase 20b: {TRAIN_ARCH} train B={B} S={S} on a 1x1 mesh: "
+          f"counted {flops:.4e} dot FLOPs, {rec['loop_aware']['hbm_bytes']:.4e} "
+          f"bytes, temp {rec['memory']['temp_bytes'] / 1e9:.3f} GB, argument "
+          f"{rec['memory']['argument_bytes'] / 1e9:.3f} GB (trace_s "
+          f"{rec['trace_s']}); grad_accum {ga}, remat; then the step on the "
+          f"card through the flash kernels, {DRYRUN_STEPS} steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg, attn_impl="kernel", remat=True)
+    params = param_dict(model.init(0, device="cuda", dtype=torch.float32))
+    state = adamw_init(params)
+    step = make_train_step(model, AdamWConfig(), grad_accum=ga)
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                global_batch=B, seed=0))
+    reset_counts()
+    times = []
+    for i in range(DRYRUN_STEPS):
+        batch = ds.batch(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        float(metrics["loss"])
+        times.append(time.perf_counter() - t)
+    counts = check_train_counts(L, DRYRUN_STEPS, remat=True)
+    step_s = float(np.median(times[1:]))
+    # analysis.roofline's floors at one device (its cells name SHAPES)
+    mf = 3.0 * cfg.flops_per_token_total(S // 2) * B * S
+    ib = cfg.param_count() * (4 * 3 + 8 * 2) + B * S * cfg.d_model * 2 * L * 2
+    t_ideal = max(mf / PEAK_BF16_FLOPS, ib / HBM_BYTES_PER_S)
+    eff = calibrate_from_dryrun(ExecModelConfig(), flops, mf).eff_max
+    print(f"measured step {step_s * 1e3:.2f} ms (median of steps 2-"
+          f"{DRYRUN_STEPS}, each to its float(loss)); counted dot FLOPs / "
+          f"measured s / {PEAK_BF16_FLOPS:.3e} = "
+          f"{flops / step_s / PEAK_BF16_FLOPS:.4f}; t_ideal "
+          f"{t_ideal * 1e3:.2f} ms, t_ideal / measured {t_ideal / step_s:.4f}; "
+          f"MODEL {mf:.4e} FLOPs, MODEL/program {mf / flops:.3f}; "
+          f"calibrate_from_dryrun eff_max {eff:.4f} (default "
+          f"{ExecModelConfig().eff_max})")
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_ragged_prefill() -> dict:
+    """20c: Llama-3-8B at full width, four prompts right-padded to the
+    longest through the flash kernel against each prompt's own prefill, and
+    the same batch through ``auto``; a non-causal padded batch refuses the
+    kernel. Returns the ragged prefill's launches."""
+    import dataclasses
+    from repro_torch.models import build_model
+    model, params = full_width(ARCH)
+    cfg = model.cfg
+    S = max(RAGGED_LENS)
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in RAGGED_LENS]
+    tokens = torch.zeros((len(prompts), S), dtype=torch.long, device="cuda")
+    for r, p in enumerate(prompts):
+        tokens[r, :len(p)] = torch.as_tensor(p)
+    lengths = torch.tensor(RAGGED_LENS, device="cuda")
+    batch = {"tokens": tokens, "lengths": lengths}
+    print(f"== phase 20c: full-width {cfg.name}, prompts of "
+          f"{list(RAGGED_LENS)} tokens right-padded to {S}, one prefill "
+          f"through the flash kernel against each prompt's own")
+    reset_counts()
+    logits, cache = model.prefill(params, batch, S)
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    print(f"launches {counts}")
+    if counts["flash_attention"] != cfg.n_layers or \
+            sum(counts.values()) != cfg.n_layers:
+        fail(f"phase 20c: the ragged prefill launched {counts}, not flash "
+             f"{cfg.n_layers} times")
+    if not torch.equal(cache["lengths"].cpu(), lengths.int().cpu()):
+        fail(f"phase 20c: cache lengths {cache['lengths'].tolist()}")
+    worst_l = worst_kv = 0.0
+    for r, p in enumerate(prompts):
+        own, own_cache = model.prefill(
+            params, {"tokens": torch.as_tensor(p, device="cuda")[None]}, S)
+        n = len(p)
+        worst_l = max(worst_l, float((logits[r] - own[0]).abs().max()
+                                     / own.abs().max()))
+        for key in ("k", "v"):
+            a, b = cache[key][:, r, :n].float(), own_cache[key][:, 0, :n].float()
+            worst_kv = max(worst_kv, float((a - b).abs().max() / b.abs().max()))
+        del own, own_cache
+    print(f"each row against its own prefill: logits within {worst_l:.3e} "
+          f"(tol {ROW_TOL:.0e}), cache K/V at valid positions within "
+          f"{worst_kv:.3e} (tol {RAGGED_KV_TOL:.0e}) of their largest")
+    if not worst_l <= ROW_TOL or not worst_kv <= RAGGED_KV_TOL:
+        fail("phase 20c: a padded row differs from its own prefill")
+    auto = build_model(cfg, attn_impl="auto")
+    reset_counts()
+    auto_logits, _ = auto.prefill(params, batch, S)
+    torch.cuda.synchronize()
+    launched = sum(fn.launches for fn in kernel_wrappers().values())
+    gap = float((auto_logits - logits).abs().max() / logits.abs().max())
+    print(f"auto (chunked plain attention, {launched} kernel launches) vs "
+          f"kernel: logits within {gap:.3e} of their largest (tol 5e-2)")
+    if launched or not gap <= 5e-2:
+        fail("phase 20c: auto launched a kernel or left the kernel path")
+    bidir = build_model(cfg.replace(attention=dataclasses.replace(
+        cfg.attention, causal=False)))
+    try:
+        bidir.prefill(params, batch, S)
+    except ValueError as e:
+        print(f"non-causal padded batch on the kernel path: ValueError ({e})")
+    else:
+        fail("phase 20c: a non-causal padded batch ran on the flash kernel")
+    del model, params, cache, logits, auto_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_device_split():
+    """20d: the fig4 smoke grid in device mode on the card: the split the
+    card gives (its device count), four blocks on the one card, against one
+    block bit for bit and against the event loop within DEVICE_MODE_RTOL."""
+    from repro_torch.core.power import DEVICE_MODE_RTOL
+    from repro_torch.sweep import device as sweep_device
+    from repro_torch.sweep.runner import SweepRunner
+    from repro_torch.sweep.scenarios import SWEEPS
+    scs = SWEEPS["fig4"].build(True)
+    print(f"== phase 20d: fig4 smoke ({len(scs)} scenarios) in device mode "
+          f"on the card, the group axis split over local devices")
+    recs, stats = sweep_device.execute_device_grid(scs, torch_device="cuda")
+    print(f"devices {stats.devices} (torch.cuda.device_count() "
+          f"{torch.cuda.device_count()}), {stats.trace_groups} trace groups")
+    found = sweep_device.local_devices
+    runs = {}
+    try:
+        for d in (1, 4):
+            sweep_device.local_devices = \
+                lambda dev, d=d: [torch.device("cuda", 0)] * d
+            runs[d] = sweep_device.execute_device_grid(scs, torch_device="cuda")
+    finally:
+        sweep_device.local_devices = found
+    metrics = lambda rs: {r["key"]: r["metrics"] for r in rs}
+    same = metrics(runs[4][0]) == metrics(runs[1][0]) == metrics(recs)
+    ev = SweepRunner(mode="event_loop", torch_device="cuda").run(scs)[0]
+    err = sweep_device.records_max_rel_err(recs, ev)
+    print(f"d = {runs[4][1].devices} blocks on cuda:0 vs d = "
+          f"{runs[1][1].devices}: records bit for bit {same}; vs the event "
+          f"loop {err:.3e} (DEVICE_MODE_RTOL {DEVICE_MODE_RTOL:.0e})")
+    if not same or runs[4][1].devices != 4 or not err <= DEVICE_MODE_RTOL:
+        fail("phase 20d: the split grid differs")
+
+
 def serve_and_check(name: str, phase: int, kernel_names: tuple, **cut):
     """Phases 13-15: the model at full width served by the engine (its
     launches counted), its consistency checks and where its time goes."""
@@ -3116,7 +3355,7 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 20))),
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 21))),
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -3206,6 +3445,13 @@ def main():
         add_counts(served, phase_train_mesh())
         phase_compress()
         print(f"phase 19 wall {time.perf_counter() - t19:.1f} s")
+    if 20 in phases:
+        t20 = time.perf_counter()
+        phase_dryrun_cells()
+        add_counts(served, phase_dryrun_vs_card())
+        add_counts(served, phase_ragged_prefill())
+        phase_device_split()
+        print(f"phase 20 wall {time.perf_counter() - t20:.1f} s")
     print(f"chip_smoke phases {sorted(phases)} passed in "
           f"{time.perf_counter() - t0:.1f} s")
     print(f"kernel launches over the main paths' phases (served models, "

@@ -19,13 +19,16 @@ sharding rule) on each rank's shard.
 from __future__ import annotations
 
 import contextlib
-import threading
+import types
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-_state = threading.local()
+# process-wide, not per thread: autograd runs a CUDA backward (and remat's
+# recomputation in it) on a device thread of its own, which must see the
+# same mapping as the forward
+_state = types.SimpleNamespace(env=None)
 
 AxisName = Union[str, Tuple[str, ...], None]
 
@@ -55,7 +58,7 @@ def mesh_shape(mesh) -> Dict[str, int]:
 
 
 def _current() -> Optional[dict]:
-    return getattr(_state, "env", None)
+    return _state.env
 
 
 @contextlib.contextmanager

@@ -25,22 +25,28 @@ from repro_torch.distributed.axes import on_local
 
 def gla_step(q, k, v, log_w, state, u: Optional[torch.Tensor] = None,
              mode: str = "ssd"):
-    """Single-token decode step.
+    """Single-token decode step; under a mesh (``DTensor`` inputs) on each
+    rank's (batch, head) shards.
 
     q/k/log_w: (B, H, K); v: (B, H, V); state: (B, H, K, V) float32;
     u: (H, K) bonus (rwkv) or None. Returns (o (B,H,V), new_state)."""
-    w = torch.exp(log_w.float())
-    kv = k.float()[..., :, None] * v.float()[..., None, :]
-    if mode == "rwkv":
-        if u is None:
-            raise ValueError("mode 'rwkv' needs the bonus u")
-        eff = state + u.float()[None, :, :, None] * kv
-        o = torch.einsum("bhk,bhkv->bhv", q.float(), eff)
-        new_state = w[..., None] * state + kv
-    else:
-        new_state = w[..., None] * state + kv
-        o = torch.einsum("bhk,bhkv->bhv", q.float(), new_state)
-    return o.to(v.dtype), new_state
+    if mode == "rwkv" and u is None:
+        raise ValueError("mode 'rwkv' needs the bonus u")
+
+    def step(q, k, v, log_w, state, *u):
+        w = torch.exp(log_w.float())
+        kv = k.float()[..., :, None] * v.float()[..., None, :]
+        if mode == "rwkv":
+            eff = state + u[0][0].float()[None, :, :, None] * kv
+            o = torch.einsum("bhk,bhkv->bhv", q.float(), eff)
+            new_state = w[..., None] * state + kv
+        else:
+            new_state = w[..., None] * state + kv
+            o = torch.einsum("bhk,bhkv->bhv", q.float(), new_state)
+        return o.to(v.dtype), new_state
+
+    args = (q, k, v, log_w, state) + (() if u is None else (u[None],))
+    return on_local(step, *args, keep=(0, 1))
 
 
 def gla_chunked(q, k, v, log_w, u: Optional[torch.Tensor] = None,
@@ -77,37 +83,41 @@ def gla_chunked(q, k, v, log_w, u: Optional[torch.Tensor] = None,
     # (-exp(10) per token) such sums reach ~1e6 within a chunk, where a
     # float32 ulp is 0.06, so a difference of two of them is off by whole
     # percents; a sum of same-signed terms keeps its relative accuracy.
-    after = (t_idx[:, None] > t_idx[None, :])[None, None, :, :, None]
-    outs = []
+    # Everything but the state's recurrence is computed for all chunks at
+    # once (leading axis n); only the state runs chunk after chunk.
+    after = (t_idx[:, None] > t_idx[None, :])[:, :, None]
+    L = torch.cumsum(lwc, dim=3)              # cumulative log decay incl. t
+    Lc = L[..., -1:, :]                       # total chunk decay
+    # rwkv: decay applied to the state BEFORE reading at t, the exclusive
+    # prefix as a shifted cumsum
+    L_read = (torch.nn.functional.pad(L[..., :-1, :], (0, 0, 1, 0))
+              if mode == "rwkv" else L)
+    # intra-chunk: D[t, j] = sum of log w over j < i <= t, a cumsum along t
+    # of the decays past j; rwkv reads D[t - 1, j]. Masked pairs are -inf
+    # before exp.
+    span = torch.cumsum(torch.where(after, lwc[..., :, None, :], 0.0), dim=3)
+    if mode == "rwkv":
+        span = torch.nn.functional.pad(span[..., :-1, :, :], (0, 0, 0, 0, 1, 0))
+    diff = span.masked_fill(~mask[:, :, None], float("-inf"))
+    att = torch.einsum("nbhck,nbhjk,nbhcjk->nbhcj", qc, kc, torch.exp(diff))
+    o_intra = torch.einsum("nbhcj,nbhjv->nbhcv", att, vc)
+    if mode == "rwkv":
+        bonus = torch.einsum("nbhck,nbhck->nbhc", qc * u.float()[None, :, None, :],
+                             kc)
+        o_intra = o_intra + bonus[..., None] * vc
+    # S_new = Diag(exp(Lc)) S + sum_j (k_j exp(sum of log w past j)) v_j,
+    # the exclusive suffix sum again a sum, not Lc - L_j
+    suffix = torch.flip(torch.cumsum(torch.flip(lwc, [3]), dim=3), [3])
+    suffix = torch.nn.functional.pad(suffix[..., 1:, :], (0, 0, 0, 1))
+    s_upd = torch.einsum("nbhck,nbhcv->nbhkv", kc * torch.exp(suffix), vc)
+    decay = torch.exp(Lc).transpose(3, 4)     # (n, B, H, K, 1)
+    before = []                               # the state each chunk reads
     for i in range(n):
-        qb, kb, vb, lwb = qc[i], kc[i], vc[i], lwc[i]       # (B, H, c, ·)
-        L = torch.cumsum(lwb, dim=2)          # cumulative log decay incl. t
-        Lc = L[:, :, -1:, :]                  # total chunk decay
-        # rwkv: decay applied to the state BEFORE reading at t, the
-        # exclusive prefix as a shifted cumsum
-        L_read = (torch.nn.functional.pad(L[:, :, :-1], (0, 0, 1, 0))
-                  if mode == "rwkv" else L)
-        o_inter = torch.einsum("bhck,bhkv->bhcv", qb * torch.exp(L_read), state)
-        # intra-chunk: D[t, j] = sum of log w over j < i <= t, a cumsum along
-        # t of the decays past j; rwkv reads D[t - 1, j]. Masked pairs are
-        # -inf before exp.
-        span = torch.cumsum(torch.where(after, lwb[:, :, :, None, :], 0.0), dim=2)
-        if mode == "rwkv":
-            span = torch.nn.functional.pad(span[:, :, :-1], (0, 0, 0, 0, 1, 0))
-        diff = span.masked_fill(~mask[None, None, :, :, None], float("-inf"))
-        att = torch.einsum("bhck,bhjk,bhcjk->bhcj", qb, kb, torch.exp(diff))
-        o_intra = torch.einsum("bhcj,bhjv->bhcv", att, vb)
-        if mode == "rwkv":
-            bonus = torch.einsum("bhck,bhck->bhc", qb * u.float()[None, :, None, :], kb)
-            o_intra = o_intra + bonus[..., None] * vb
-        # S_new = Diag(exp(Lc)) S + sum_j (k_j exp(sum of log w past j)) v_j,
-        # the exclusive suffix sum again a sum, not Lc - L_j
-        suffix = torch.flip(torch.cumsum(torch.flip(lwb, [2]), dim=2), [2])
-        suffix = torch.nn.functional.pad(suffix[:, :, 1:], (0, 0, 0, 1))
-        s_upd = torch.einsum("bhck,bhcv->bhkv", kb * torch.exp(suffix), vb)
-        state = torch.exp(Lc).transpose(2, 3) * state + s_upd
-        outs.append(o_inter + o_intra)
-    o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, T + pad, H, V)
+        before.append(state)
+        state = decay[i] * state + s_upd[i]
+    o_inter = torch.einsum("nbhck,nbhkv->nbhcv", qc * torch.exp(L_read),
+                           torch.stack(before))
+    o = (o_inter + o_intra).permute(1, 0, 3, 2, 4).reshape(B, T + pad, H, V)
     return o[:, :T].to(v.dtype), state
 
 

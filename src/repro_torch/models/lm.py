@@ -2,13 +2,16 @@
 dense, MoE, VLM and audio transformers, RWKV6 (ssm) and Zamba2 (hybrid).
 
 Counterpart of ``repro.models.lm``. ``build_model(cfg)`` returns a ``Model``
-whose step functions the serving engine and the trainer drive. ``attn_impl``
-defaults to ``"kernel"``, the hand-written CUDA kernels (flash and decode
-attention, the ``gla_scan`` prefill scan of RWKV6 and Zamba2's Mamba2
-layers; in training flash attention's forward and backward kernels, and the
-plain ``gla_chunked`` scan, as the reference); ``"einsum"`` is the plain
-path. ``remat`` rematerialises each layer in training under
-``remat_policy`` (``"minimal"`` or ``"dots"``).
+whose step functions the serving engine, the trainer and the dry-run drive.
+``attn_impl`` defaults to ``"kernel"``, the hand-written CUDA kernels (flash
+and decode attention, the ``gla_scan`` prefill scan of RWKV6 and Zamba2's
+Mamba2 layers; in training flash attention's forward and backward kernels,
+and the plain ``gla_chunked`` scan, as the reference); ``"einsum"`` is the
+plain path; ``"auto"`` the reference's default (``models.attention``:
+materialized scores for short sequences, the chunked online softmax for
+long ones, plain scans), which launches no kernel. ``remat``
+rematerialises each layer in training under ``remat_policy``
+(``"minimal"`` or ``"dots"``).
 
 A batch holds ``tokens`` (B, S) or, for the stub frontends (VLM patches,
 audio frames), ``embeds`` (B, S, D); under M-RoPE optionally ``positions3``
@@ -143,48 +146,63 @@ class Model:
         recurrent states are written into that row of the shared cache in
         place and ``cache`` is returned; otherwise a fresh cache of
         ``max_len`` is built, as the reference does (None for an
-        encoder-only model). Prompts in a batch share one length (the
-        reference's padded ``lengths`` batches are not ported)."""
+        encoder-only model). A fresh cache may take a right-padded ragged
+        batch: ``lengths`` (B,) in ``batch`` masks the padded keys
+        (``kv_valid``), sets the cache's lengths and picks each row's last
+        valid position's logits. RWKV6 and Mamba2 run their states over the
+        padding, as the reference's do."""
         c = self.cfg
         x = self._embed(params, batch)
         B, S, _ = x.shape
-        if cache is not None and B != 1:
+        lengths = batch.get("lengths")
+        if cache is not None and (B != 1 or lengths is not None):
             raise ValueError("in-place cache insertion takes one prompt")
+        kv_valid = (None if lengths is None else
+                    torch.arange(S, device=x.device)[None, :] < lengths[:, None])
+        filled = S if lengths is None else lengths
         rows = slice(None) if cache is None else slice(slot, slot + 1)
+
+        def last(h):   # each row's last valid position, (B, 1, D)
+            if lengths is None:
+                return h[:, -1:]
+            return h[torch.arange(B, device=h.device),
+                     torch.clamp(lengths.long() - 1, min=0)][:, None]
+
         if c.family == "ssm":
             h, states = rwkv_mod.rwkv_forward(params, c, x, mode="prefill",
                                               impl=self.attn_impl)
             if cache is None:
-                cache = rwkv_mod.init_rwkv_cache(c, B, x.device)
-            rwkv_mod.write_states(cache, rows, states, S)
-            return rwkv_mod.rwkv_logits(params, h[:, -1]), cache
+                cache = rwkv_mod.cache_from_states(states, filled)
+            else:
+                rwkv_mod.write_states(cache, rows, states, S)
+            return rwkv_mod.rwkv_logits(params, last(h))[:, 0], cache
         positions = self._positions(batch, B, S, x.device)
         if c.family == "hybrid":
             h, pre = zamba_mod.zamba_forward(
                 params, c, x, positions=positions, mode="prefill",
-                attn_impl=self.attn_impl)
+                kv_valid=kv_valid, attn_impl=self.attn_impl)
             if cache is None:
                 cache = zamba_mod.fill_zamba_cache_from_prefill(
-                    c, pre, S, max_len, B)
+                    c, pre, filled, max_len, B)
             else:
                 zamba_mod.write_prefill_to_zamba_cache(cache, rows, pre, S)
-            return tf.lm_logits(params, c, h[:, -1]), cache
+            return tf.lm_logits(params, c, last(h))[:, 0], cache
         if c.is_encoder_only:
             h, _ = tf.transformer_forward(params, c, x, positions=positions,
-                                          mode="train",
+                                          mode="train", kv_valid=kv_valid,
                                           attn_impl=self.attn_impl)
-            return tf.lm_logits(params, c, h[:, -1]), None
+            return tf.lm_logits(params, c, last(h))[:, 0], None
         h, pre = tf.transformer_forward(
             params, c, x, positions=positions, mode="prefill",
-            attn_impl=self.attn_impl)
+            kv_valid=kv_valid, attn_impl=self.attn_impl)
         if cache is None:
             cache = tf.fill_cache_from_prefill(
-                c, pre["computed_k"], pre["computed_v"], S, max_len)
+                c, pre["computed_k"], pre["computed_v"], filled, max_len)
         else:
             tf.write_prefill_to_cache(cache, rows, pre["computed_k"],
                                       pre["computed_v"], S)
         # last position logits only (serving does not need all logits)
-        return tf.lm_logits(params, c, h[:, -1]), cache
+        return tf.lm_logits(params, c, last(h))[:, 0], cache
 
     # ---------------- serving: one decode step ----------------
     @torch.no_grad()

@@ -40,7 +40,7 @@ from repro_torch.models.layers import (as_param, project_heads,
 from repro_torch.models.linear_attention import (gla_chunked,
                                                  gla_chunked_sharded, gla_step)
 
-IMPLS = ("kernel", "einsum")
+IMPLS = ("kernel", "einsum", "auto")
 
 
 class MambaParams(nn.Module):

@@ -33,7 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.distributed.axes import constrain, contract_whole, on_local
+from repro_torch.distributed.axes import (constrain, contract_whole, on_local,
+                                          split_over)
 from repro_torch.models.layers import (activation, as_param, dense_init,
                                        truncated_normal_init)
 
@@ -165,8 +166,12 @@ def apply_moe(x: torch.Tensor, p: MoEParams, cfg: MoEConfig, act: str = "silu",
     up = torch.einsum("becd,edf->becf", buf, p.up.to(x.dtype))
     gt = torch.einsum("becd,edf->becf", buf, p.gate.to(x.dtype))
     h = activation(gt, act) * up
-    out_buf = contract_whole(lambda h, w: torch.einsum("becf,efd->becd", h, w),
-                             h, p.down, dims=(1,))
+    # experts split along d_expert (no expert parallelism): h is gathered
+    # along it, and a DTensor einsum's view of the strided gather fails
+    # where a broadcast matmul's reshape copies
+    product = ((lambda h, w: h @ w[None]) if split_over(p.down, (1,)) else
+               (lambda h, w: torch.einsum("becf,efd->becd", h, w)))
+    out_buf = contract_whole(product, h, p.down, dims=(1,))
     out_buf = constrain(out_buf, ("batch", "expert", None, None))
     out = on_local(_combine_rows, out_buf, slot, kept, gates)
     return out.to(x.dtype), aux

@@ -46,7 +46,7 @@ from repro_torch.models.linear_attention import gla_chunked_sharded, gla_step
 
 MIX_NAMES = ("w", "k", "v", "r", "g")
 GROUP_NORM_EPS = 64e-5   # RWKV's GroupNorm(H), not the LayerNorm default
-IMPLS = ("kernel", "einsum")
+IMPLS = ("kernel", "einsum", "auto")
 
 
 class RWKVBlockParams(nn.Module):
@@ -264,6 +264,17 @@ def rwkv_forward(params: RWKVParams, cfg: ModelConfig, x, *,
     if decode:
         return h, cache
     return h, {k: torch.stack(v) for k, v in new.items()}
+
+
+def cache_from_states(states: Dict, prefill_len) -> Dict:
+    """A fresh decode cache of prefill states (float32, as
+    ``init_rwkv_cache``'s), each row's length ``prefill_len`` (an int or
+    (B,))."""
+    cache = {k: states[k].float() for k in ("tm_shift", "cm_shift", "wkv")}
+    lengths = torch.zeros(cache["wkv"].shape[1], dtype=torch.int32,
+                          device=cache["wkv"].device)
+    lengths[:] = prefill_len
+    return {**cache, "lengths": lengths}
 
 
 def write_states(cache: Dict, rows, states: Dict, prefill_len: int) -> None:

@@ -101,12 +101,12 @@ def init_transformer(cfg: ModelConfig, generator: Optional[torch.Generator],
 
 
 def _layer_apply(x, lp: LayerParams, cfg: ModelConfig, *, rope, mode,
-                 cache_kv, lengths, impl):
+                 cache_kv, lengths, impl, kv_valid=None):
     h = apply_norm(x, lp.attn_norm, cfg.norm, cfg.norm_eps)
     h = constrain(h, ("batch", "seq_inner", "embed"))
     a_out, new_kv = attn.attention_block(
         h, lp.attn, cfg.attention, rope=rope, mode=mode,
-        cache=cache_kv, lengths=lengths, impl=impl)
+        cache=cache_kv, lengths=lengths, kv_valid=kv_valid, impl=impl)
     x = add_to_stream(x, a_out)
     x = constrain(x, ("batch", "seq", "embed"))
     h = apply_norm(x, lp.mlp_norm, cfg.norm, cfg.norm_eps)
@@ -121,19 +121,23 @@ def _layer_apply(x, lp: LayerParams, cfg: ModelConfig, *, rope, mode,
     return x, new_kv, aux
 
 
-def _train_layer(x, lp: LayerParams, cfg: ModelConfig, rope, impl):
+def _train_layer(x, lp: LayerParams, cfg: ModelConfig, rope, impl,
+                 kv_valid=None):
     x, _, aux = _layer_apply(x, lp, cfg, rope=rope, mode="train",
-                             cache_kv=None, lengths=None, impl=impl)
+                             cache_kv=None, lengths=None, impl=impl,
+                             kv_valid=kv_valid)
     return x, aux
 
 
 def transformer_forward(params: TransformerParams, cfg: ModelConfig, x, *,
                         positions, mode: str = "prefill",
                         cache: Optional[Dict] = None,
+                        kv_valid: Optional[torch.Tensor] = None,
                         attn_impl: str = "kernel", remat: bool = False,
                         remat_policy: str = "minimal"):
     """x: (B, S, D) embeddings; positions (B|1, S), or (B, S, 3) under
-    M-RoPE. Returns (hidden (B,S,D), new_cache).
+    M-RoPE; kv_valid (B, S) the valid keys of a right-padded batch. Returns
+    (hidden (B,S,D), new_cache).
 
     decode: ``cache`` k/v are updated in place and returned with
     ``lengths + 1``. prefill: returns the computed K/V stacked as
@@ -149,7 +153,7 @@ def transformer_forward(params: TransformerParams, cfg: ModelConfig, x, *,
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in params.layers:
             layer = functools.partial(_train_layer, lp=lp, cfg=cfg, rope=rope,
-                                      impl=attn_impl)
+                                      impl=attn_impl, kv_valid=kv_valid)
             if remat:
                 layer = rematerialized(layer, remat_policy)
             x, aux = layer(x)
@@ -161,7 +165,7 @@ def transformer_forward(params: TransformerParams, cfg: ModelConfig, x, *,
         cache_kv = (cache["k"][i], cache["v"][i]) if mode == "decode" else None
         x, (nk, nv), _ = _layer_apply(
             x, lp, cfg, rope=rope, mode=mode, cache_kv=cache_kv,
-            lengths=lengths, impl=attn_impl)
+            lengths=lengths, impl=attn_impl, kv_valid=kv_valid)
         if mode == "prefill":
             computed_k.append(nk)
             computed_v.append(nv)
@@ -192,14 +196,23 @@ def write_prefill_to_cache(cache: Dict, rows, computed_k, computed_v,
 
 
 def fill_cache_from_prefill(cfg: ModelConfig, computed_k, computed_v,
-                            prefill_len: int, max_len: int) -> Dict:
-    """Build a decode cache from prefill-computed K/V (ring-aware for SWA)."""
+                            prefill_len, max_len: int,
+                            dtype: Optional[torch.dtype] = None) -> Dict:
+    """Build a decode cache from prefill-computed K/V (ring-aware for SWA),
+    in ``dtype`` (default: the K/V's). Under a mesh each rank fills the
+    ring of its batch and head shards."""
     L, B, S, KV, D = computed_k.shape
-    cache = attn.init_kv_cache(L, B, cfg.attention, max_len,
-                               computed_k.device, computed_k.dtype)
-    write_prefill_to_cache(cache, slice(None), computed_k, computed_v,
-                           prefill_len)
-    return cache
+
+    def ring(ck, cv):
+        cache = attn.init_kv_cache(L, ck.shape[1], cfg.attention, max_len,
+                                   ck.device, dtype or ck.dtype)
+        write_prefill_to_cache(cache, slice(None), ck, cv, S)
+        return cache["k"], cache["v"]
+
+    k, v = on_local(ring, computed_k, computed_v, keep=(1, 3, 4))
+    lengths = torch.zeros(B, dtype=torch.int32, device=computed_k.device)
+    lengths[:] = prefill_len
+    return {"k": k, "v": v, "lengths": lengths}
 
 
 def embed_tokens(params: TransformerParams, cfg: ModelConfig,

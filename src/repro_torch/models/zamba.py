@@ -29,7 +29,8 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, as_param,
                                        rematerialized)
 from repro_torch.models.mamba import (MambaParams, mamba_block,
                                       mamba_block_params, mamba_state_shapes)
-from repro_torch.models.transformer import write_prefill_to_cache
+from repro_torch.models.transformer import (fill_cache_from_prefill,
+                                            write_prefill_to_cache)
 
 STATES = ("conv_x", "conv_bc", "ssm")
 
@@ -99,12 +100,12 @@ def init_zamba_cache(cfg: ModelConfig, batch: int, max_len: int, device,
 
 
 def _shared_apply(x, sp: SharedBlockParams, cfg: ModelConfig, *, rope, mode,
-                  cache_kv, lengths, impl):
+                  cache_kv, lengths, impl, kv_valid=None):
     h = constrain(apply_norm(x, sp.attn_norm, cfg.norm, cfg.norm_eps),
                   ("batch", "seq_inner", "embed"))
     a_out, new_kv = attn.attention_block(
         h, sp.attn, cfg.attention, rope=rope, mode=mode, cache=cache_kv,
-        lengths=lengths, impl=impl)
+        lengths=lengths, kv_valid=kv_valid, impl=impl)
     x = add_to_stream(x, a_out)
     h = constrain(apply_norm(x, sp.mlp_norm, cfg.norm, cfg.norm_eps),
                   ("batch", "seq_inner", "embed"))
@@ -119,9 +120,12 @@ def _train_mamba(h, lp: MambaParams, cfg: ModelConfig):
 
 def zamba_forward(params: ZambaParams, cfg: ModelConfig, x, *, positions,
                   mode: str = "prefill", cache: Optional[Dict] = None,
+                  kv_valid: Optional[torch.Tensor] = None,
                   attn_impl: str = "kernel", remat: bool = False,
                   remat_policy: str = "minimal"):
-    """x: (B,S,D). Returns (hidden, states).
+    """x: (B,S,D); kv_valid (B,S) the valid keys of a right-padded batch
+    (the shared attention masks them; the Mamba2 layers scan over the
+    padding, as the reference's). Returns (hidden, states).
 
     prefill: scans from zero states and returns ``{"computed_k",
     "computed_v"}`` (n_app, B, S, KV, D) and the new ``conv_x``,
@@ -142,7 +146,7 @@ def zamba_forward(params: ZambaParams, cfg: ModelConfig, x, *, positions,
         for g in range(n_shared_applications(cfg)):
             h, _ = _shared_apply(h, params.shared[g % copies], cfg, rope=rope,
                                  mode=mode, cache_kv=None, lengths=None,
-                                 impl=attn_impl)
+                                 impl=attn_impl, kv_valid=kv_valid)
             for i in range(g * every, min((g + 1) * every, cfg.n_layers)):
                 layer = functools.partial(_train_mamba, lp=params.layers[i],
                                           cfg=cfg)
@@ -160,7 +164,7 @@ def zamba_forward(params: ZambaParams, cfg: ModelConfig, x, *, positions,
         cache_kv = (cache["k"][g], cache["v"][g]) if decode else None
         h, (nk, nv) = _shared_apply(h, sp, cfg, rope=rope, mode=mode,
                                     cache_kv=cache_kv, lengths=lengths,
-                                    impl=attn_impl)
+                                    impl=attn_impl, kv_valid=kv_valid)
         if not decode:
             computed_k.append(nk)
             computed_v.append(nv)
@@ -194,13 +198,12 @@ def write_prefill_to_zamba_cache(cache: Dict, rows, pre: Dict,
         cache[key][:, rows] = pre[key].to(cache[key].dtype)
 
 
-def fill_zamba_cache_from_prefill(cfg: ModelConfig, pre: Dict, prefill_len: int,
+def fill_zamba_cache_from_prefill(cfg: ModelConfig, pre: Dict, prefill_len,
                                   max_len: int, batch: int,
                                   dtype=torch.bfloat16) -> Dict:
     """A decode cache from prefill outputs: K/V in ``dtype`` in the ring,
-    the states as the prefill computed them."""
-    cache = init_zamba_cache(cfg, batch, max_len, pre["ssm"].device, dtype)
-    for key in STATES:
-        cache[key] = cache[key].to(pre[key].dtype)
-    write_prefill_to_zamba_cache(cache, slice(None), pre, prefill_len)
-    return cache
+    the states as the prefill computed them; each row's length
+    ``prefill_len`` (an int or (B,))."""
+    cache = fill_cache_from_prefill(cfg, pre["computed_k"], pre["computed_v"],
+                                    prefill_len, max_len, dtype)
+    return {**cache, **{key: pre[key] for key in STATES}}

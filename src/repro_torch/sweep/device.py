@@ -14,9 +14,12 @@ Counterpart of ``repro.sweep.device``, whose ``_group_kernel`` is one
 ``jit(vmap)`` program; here the group axis is written out as the
 leading dimension of every tensor, and PyTorch runs the program
 eagerly: there is no compile, no compilation cache and no compile
-span. The reference's ``pmap`` split of the group axis over several
-local devices is not ported yet (one device: ``DeviceStats.devices``
-is 1).
+span. As the reference's ``pmap``, the padded group axis splits over
+the local devices (``local_devices``: every CUDA device of the machine
+when the program runs on the card, the one device otherwise): block
+``i`` of ``G/d`` groups runs on device ``i``, ``d`` the largest power
+of two no larger than the devices and ``G``. By the batch invariance
+below, the records do not depend on ``d``.
 
 Trace acquisition composes with ``repro_torch.sweep.divergence``:
 groups whose configs differ only in device/TP/PP and provably cannot
@@ -79,6 +82,14 @@ class DeviceStats:
     event_loops: int = 0     # groups driven through the event loop
     replayed: int = 0        # groups served by divergence replay
     devices: int = 1         # accelerators the program ran on
+
+
+def local_devices(dev: torch.device) -> List[torch.device]:
+    """The devices the group axis may split over: every local CUDA device
+    when the program runs on the card, else ``dev`` alone."""
+    if dev.type != "cuda":
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def _next_pow2(n: int) -> int:
@@ -235,13 +246,26 @@ def execute_device_grid(scenarios: Sequence[Scenario],
             pues[gi, k] = scenarios[i].pue
             cis[gi, k] = scenarios[i].grid_ci
 
-    # ---- the single program for the whole grid ----
+    # ---- the single program for the whole grid, split over devices ----
+    # gp is a power of two, and so is d: every block holds gp/d groups
+    devs = local_devices(dev)
+    d = 1
+    while d * 2 <= min(len(devs), gp):
+        d *= 2
+    rows = gp // d
     with PROFILER.span("device.execute"):
-        args = [torch.as_tensor(a, device=dev)
-                for a in (comp, params, powerp, ndev, phi, pues, cis)]
+        # every block is issued before any is read back
+        blocks = []
+        for i, block_dev in enumerate(devs[:d]):
+            cut = slice(i * rows, (i + 1) * rows)
+            blocks.append(_grid_program(
+                torch.as_tensor(comp[:, cut], device=block_dev),
+                *(torch.as_tensor(a[cut], device=block_dev)
+                  for a in (params, powerp, ndev, phi, pues, cis))))
         e_sum, m_sum, dur, peak, op_g, emb_g = (
-            o.cpu().numpy() for o in _grid_program(*args))
-    stats.devices = 1
+            np.concatenate([b[j].cpu().numpy() for b in blocks])
+            for j in range(6))
+    stats.devices = d
 
     # ---- record assembly through the shared single-site path ----
     for gi, (g, res) in enumerate(zip(single, results)):

@@ -98,7 +98,8 @@ def accumulated(value_and_grad, params: Tree, batch: Dict, grad_accum: int):
     if rows % grad_accum:
         raise ValueError(f"batch of {rows} rows does not split into "
                          f"{grad_accum} microbatches")
-    grads = {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    # laid out as the parameters (a DTensor's gradients are DTensors)
+    grads = {name: torch.zeros_like(p, dtype=torch.float32)
              for name, p in params.items()}
     losses = []
     for m in range(grad_accum):

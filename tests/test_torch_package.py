@@ -75,6 +75,14 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         worker.main([str(tmp_path / "q"), "--once"])
     assert not (tmp_path / "q").exists()
+    # the dry-run: before it joins a process group or writes a record
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(dryrun, "RESULTS", tmp_path / "dryrun")
+    for argv in (["--arch", "stablelm-1.6b", "--shape", "decode_32k"],
+                 ["--all"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dryrun.main(argv)
+    assert not (tmp_path / "dryrun").exists()
 
 
 def test_train_launcher_raises_without_a_card(monkeypatch, tmp_path):
@@ -151,8 +159,8 @@ def test_simulated_path_raises_without_a_card(monkeypatch, name):
 def test_module_list_covers_the_sweep_engine_and_obs():
     """The no-JAX checks above walk every module of the port, the sweep
     engine, ``obs``, the day simulation, the microgrid kernel, the model
-    families (MoE, Mamba2, Zamba2), the distributed layer and the mesh
-    launcher included."""
+    families (MoE, Mamba2, Zamba2), the distributed layer, the launchers and
+    the dry-run stack included."""
     mods = _modules()
     for m in ("repro_torch.obs", "repro_torch.obs.diff",
               "repro_torch.obs.__main__", "repro_torch.obs.recorder",
@@ -167,8 +175,25 @@ def test_module_list_covers_the_sweep_engine_and_obs():
               "repro_torch.distributed.sharding",
               "repro_torch.distributed.compression",
               "repro_torch.distributed.pipeline",
-              "repro_torch.distributed.elastic", "repro_torch.launch.mesh"):
+              "repro_torch.distributed.elastic", "repro_torch.launch.mesh",
+              "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+              "repro_torch.analysis.program", "repro_torch.analysis.roofline"):
         assert m in mods
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Only the TPU shim and the three Pallas kernels (CUDA sources in the
+    port) lack a module of the same path; the HLO parser's counterpart is
+    ``analysis/program.py``, which prices a traced torch program."""
+    ref = ROOT / "src" / "repro"
+    missing = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.py")
+                     if not (PKG / p.relative_to(ref)).exists())
+    assert missing == ["analysis/hlo.py", "kernels/compat.py",
+                       "kernels/decode_attention/kernel.py",
+                       "kernels/flash_attention/kernel.py",
+                       "kernels/gla_scan/kernel.py"]
+    from repro_torch.analysis import program
+    assert "repro.analysis.hlo" in program.__doc__
 
 
 def _sweep_entry_points():
