@@ -2,7 +2,7 @@
 """Time kernels of several checkouts on one card, at the served shapes,
 with ``chip_smoke.py``'s clocks.
 
-    python3 chip_ab.py [--only flash,flash_bwd,flash_small,flash_small_f32,flash_f32,train_f32,decode,gla,microgrid] <parent checkout>/src src src <parent checkout>/src
+    python3 chip_ab.py [--only flash,flash_bwd,flash_small,flash_small_f32,flash_f32,train_f32,decode,decode_f32,gla,microgrid] <parent checkout>/src src src <parent checkout>/src
 
 Each argument is a directory that holds a ``repro_torch`` package. Each runs
 in a process of its own: its kernels are built, held against their plain
@@ -29,7 +29,9 @@ Llama's widths and the small row, beside SDPA's float32 calls and both
 bounds), phase 17d's float32 training steps (``--only train_f32``:
 ``chip_smoke.phase_train_f32``, its gates held), ``decode_attention`` at
 Llama-3-8B's decode shapes (``chip_smoke.max_err``, ``seq_err`` and
-``decode_times``, SDPA both ways), and ``gla_scan`` at RWKV6-1.6B's prefill shapes (rwkv, H=32, T 128,
+``decode_times``, SDPA both ways), the float32-q decode at that shape
+with a float32 and a bf16 cache (``--only decode_f32``:
+``chip_smoke.decode_case``, device ms by kernel), and ``gla_scan`` at RWKV6-1.6B's prefill shapes (rwkv, H=32, T 128,
 1000 and 2048) and Zamba2's widths (ssd, H=64, T=2048), bf16 q/k/v,
 float32 log_w and u, and the float32 route at RWKV6's T=2048 and 128 and
 Zamba2's widths with float32 q/k/v (``chip_smoke.GLA_TOL`` and
@@ -44,7 +46,7 @@ timed first, then held bit for bit against the plain step loop (Table 2's
 on the card, the year's on the CPU, whose loop gives the card's bits:
 ``tests/test_torch_card.py::test_microgrid_loop_on_card_matches_cpu``),
 so a scratch variant that computes less still prints its times before it
-fails. ``--only`` picks some of the nine (default: all). Listing
+fails. ``--only`` picks some of the ten (default: all). Listing
 the trees as parent, change, change, parent shows the card's drift within
 the call. One JSON line per (tree, shape); a kernel that disagrees with
 its plain version exits non-zero.
@@ -69,7 +71,7 @@ GLA_SHAPES = (("rwkv", 32, 128, "bfloat16"), ("rwkv", 32, 1000, "bfloat16"),
 
 
 KERNELS = ("flash", "flash_bwd", "flash_small", "flash_small_f32", "flash_f32",
-           "train_f32", "decode", "gla", "microgrid")
+           "train_f32", "decode", "decode_f32", "gla", "microgrid")
 
 
 def one(src: Path, only):
@@ -167,6 +169,27 @@ def decode(cs, src: Path):
                    max_abs_err=cs.max_err(out, ref, bf16),
                    seq_err=cs.seq_err(out, ref))
         row.update(cs.decode_times(kernel, q, kc, vc, lengths, window))
+        print(json.dumps(row), flush=True)
+
+
+def decode_f32(cs, src: Path):
+    """The float32-q decode at Llama-3-8B's decode shape (B=8 W=4096 H=32/8
+    D=128, lengths 1..4096), with a float32 and with a bf16 cache:
+    ``chip_smoke.decode_case`` (held to the plain version, eager and graph
+    ms, SDPA, the bound, bytes/s) and the device ms of each kernel a call
+    launches (two for a split-K kernel and its combine pass)."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import kernel_route
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, W, H, KV, D, f32 = 8, 4096, 32, 8, 128, torch.float32
+    lengths = torch.linspace(1, W, B).round().int()
+    for cache in (f32, torch.bfloat16):
+        path = kernel_route(f32, cache, D)[0]
+        row = dict(src=str(src), kernel="decode_attention float32 q", B=B, W=W,
+                   H=H, KV=KV, D=D, cache=str(cache)[6:], lengths=lengths.tolist())
+        row.update(cs.decode_case(B, W, H, KV, D, f32, lengths, None, gen,
+                                  timed=True, cache_dtype=cache,
+                                  by_kernel=1 if path == "bulk.fma" else 2))
         print(json.dumps(row), flush=True)
 
 

@@ -19,7 +19,7 @@ result:
    and, for attention, ``scaled_dot_product_attention`` (a yardstick the
    port never calls; no PyTorch call computes the GLA scan); every flash
    and decode case names the path that ran it (flash: ``wgmma`` or
-   ``wgmma.3xtf32``; decode: ``mma.sync`` or ``fma``; a float32
+   ``wgmma.3xtf32``; decode: ``mma.sync`` or ``bulk.fma``; a float32
    flash case is held against the plain version evaluated in float64) and
    every gla_scan case its route (``mma`` for bf16, ``mma.3xtf32`` for
    float32); the flash wgmma, decode mma.sync and gla_scan mma paths' own
@@ -59,8 +59,11 @@ result:
    larger of its tensor-core operations and its exp2 (one a visible pair,
    split between the special-function units and a cubic on the FMA
    pipes), both printed, with the special-function units' time alone and
-   SDPA's backward timed from a CUDA graph too; and, for the next
-   redesign's ranking, the float32 decode at Llama-3-8B's decode shape;
+   SDPA's backward timed from a CUDA graph too; and the float32-q decode
+   (``bulk.fma``): its case grid with float32 and bf16 caches, two launches
+   bit-identical, a sequence alone bit-identical to it in a batch of 8, and
+   Llama-3-8B's decode shape with each cache timed beside SDPA, its bound,
+   a plain stream of as many bytes and its device time;
 4. Llama-3-8B at full width served through the launcher
    (``repro_torch.launch.serve.main``);
 5. the main path: Llama-3-8B at full width served by ``ServingEngine`` with
@@ -225,7 +228,7 @@ MIXTRAL_LAYERS = 4
 MIXTRAL_PROMPT = 6000       # past the 4096-token window: the ring wraps
 VLM_ARCH = "qwen2-vl-2b"
 AUDIO_ARCH = "hubert-xlarge"
-ATTN_KERNELS = ("flash_fwd", "decode_mma", "decode_split", "decode_combine")
+ATTN_KERNELS = ("flash_fwd", "decode_mma", "decode_f32")
 # Zamba2's Mamba2 out_proj scale in phase 13's random weights (draw_weights)
 MAMBA_OUT_SCALE = 2.0
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:99"
@@ -252,6 +255,17 @@ DECODE_LENGTHS = ((1, None), (15, None), (17, None), (63, None), (65, None),
 DECODE_OTHER_D = (16, 32, 48, 80, 96, 112)
 DECODE_OTHER_LENGTHS = ((1, None), (17, None), (129, None), (1024, None),
                         (1324, 1024))
+# the float32-q path's (bulk.fma) cases, as in tests/test_torch_card.py
+# (the head groups and dims of tests/test_torch_decode_f32_design.py):
+# float32 and bf16 caches, G = H / KV of 1, 2, 3, 4 and 8 at KV = 2, head
+# dims 16, 64, 80 and 128, W = 1024 (8
+# splits of 128 slots, 4 tiles each), B = 8 with the first sequence at
+# each length (1 and 33 on both sides of a tile, 128 and 129 of a split, W,
+# past W in a ring of W, past a window of 500 inside W), q x1 and x8
+DECODE_F32_G = (1, 2, 3, 4, 8)
+DECODE_F32_D = (16, 64, 80, 128)
+DECODE_F32_LENGTHS = ((1, None), (33, None), (128, None), (129, None),
+                      (1024, None), (1324, 1024), (900, 500))
 # the gla_scan bf16 (mma) path's cases, as in tests/test_torch_card.py
 GLA_MMA_T = (1, 15, 16, 63, 64, 65, 1000, 2048)
 GLA_MMA_KV = ((16, 16), (64, 64), (32, 64))
@@ -706,13 +720,18 @@ def flash_bwd_case(B, S, H, KV, D, dtype, causal, window, gen, timed=False,
 
 
 def decode_case(B, W, H, KV, D, dtype, lengths, window, gen, timed=False,
-                amp=1):
-    """``amp`` scales q: at 8 the scores reach about +-40."""
+                amp=1, cache_dtype=None, by_kernel=0):
+    """``amp`` scales q: at 8 the scores reach about +-40. ``cache_dtype``:
+    the caches' dtype (default ``dtype``; a float32 q may read a bf16
+    cache). ``by_kernel``: the kernels a call launches, to time each from a
+    profiler trace (0: not traced)."""
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_reference)
     from repro_torch.kernels.decode_attention.ops import kernel_route
+    cache_dtype = cache_dtype or dtype
     q = randn((B, 1, H, D), dtype, gen) * amp
-    kc, vc = randn((B, W, KV, D), dtype, gen), randn((B, W, KV, D), dtype, gen)
+    kc = randn((B, W, KV, D), cache_dtype, gen)
+    vc = randn((B, W, KV, D), cache_dtype, gen)
     lengths = lengths.to(device="cuda", dtype=torch.int32)
     plain = lambda: decode_attention_reference(
         q.reshape(B, KV, H // KV, D), kc.transpose(1, 2), vc.transpose(1, 2),
@@ -723,31 +742,43 @@ def decode_case(B, W, H, KV, D, dtype, lengths, window, gen, timed=False,
     ref = plain()
     row = {"max_abs_err": max_err(out, ref, dtype),
            "seq_err": seq_err(out, ref),
-           "path": kernel_route(dtype, dtype, D)[0]}
+           "path": kernel_route(dtype, cache_dtype, D)[0]}
     if timed:
         row.update(decode_times(kernel, q, kc, vc, lengths, window))
         row["plain_ms"] = time_ms(plain, 10)
+    if by_kernel:
+        row["by_kernel"] = device_ms_by_kernel(kernel, by_kernel)
     return row
 
 
 def decode_times(kernel, q, kc, vc, lengths, window) -> dict:
     """``kernel()``'s time eager (CUDA events over 50 calls) and from a CUDA
-    graph, SDPA's both ways on the same inputs, and the bound of the bytes
-    and operations of this call's valid slots. Model layout: q (B, 1, H, D),
-    caches (B, W, KV, D)."""
+    graph, SDPA's both ways on the same inputs (a bf16 cache under a float32
+    q upcast before the timing: SDPA takes one dtype), the bound of the
+    bytes and operations of this call's valid slots, the bytes/s the kernel
+    reached from the graph, and, as a yardstick of what streaming those
+    bytes takes, PyTorch's sum over as many contiguous bytes from a graph
+    (``stream_graph_ms``). Model layout: q (B, 1, H, D), caches (B, W, KV,
+    D)."""
     B, _, H, D = q.shape
     W, KV = kc.shape[1], kc.shape[2]
     n_valid = torch.clamp(lengths, max=min(W, window or W)).long()
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
+    qt, kt, vt = (x.transpose(1, 2).to(q.dtype).contiguous() for x in (q, kc, vc))
     mask = (torch.arange(W, device="cuda")[None, :] < n_valid[:, None])[:, None, None]
     library = lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
     slots = float(n_valid.sum())
     flops = 4.0 * D * H * slots
-    nbytes = (2 * KV * D * slots + 2 * B * H * D) * q.element_size() + 4 * B
+    nbytes = (2 * KV * D * slots * kc.element_size() + 2 * B * H * D * q.element_size()
+              + 4 * B)
     row = dict(ms=time_ms(kernel, 50), library_ms=time_ms(library, 50),
                graph_ms=graph_ms(kernel), library_graph_ms=graph_ms(library))
     row["bound_ms"], row["bound_by"] = bound(flops, nbytes, q.dtype)
+    row["graph_bytes_per_s"] = nbytes / (row["graph_ms"] * 1e-3)
+    # a yardstick of streaming as many bytes: one contiguous float32 sum
+    stream = torch.ones(int(nbytes) // 4, device="cuda")
+    row["stream_graph_ms"] = graph_ms(lambda: stream.sum())
+    del stream
     return row
 
 
@@ -956,6 +987,9 @@ def fmt(row: dict) -> str:
         if "library_graph_ms" in row:
             parts.append(f"library_graph_ms={row['library_graph_ms']:.4f}")
         parts.append(f"graph_of_bound={row['bound_ms'] / row['graph_ms']:.3f}")
+        if "graph_bytes_per_s" in row:
+            parts.append(f"graph_TB_s={row['graph_bytes_per_s'] / 1e12:.3f} "
+                         f"stream_graph_ms={row['stream_graph_ms']:.4f}")
     if "fwd_lse_ms" in row:
         parts.append(f"fwd_ms={row['fwd_ms']:.4f} fwd_lse_ms={row['fwd_lse_ms']:.4f}")
     if "exps" in row:
@@ -1080,7 +1114,7 @@ def phase_kernels() -> dict:
     rows.update(phase_flash_backward(gen))
     rows.update(flash_f32_rows(gen))
     rows.update(flash_small_rows(gen))
-    rows.update(unranked_rows(gen))
+    rows.update(decode_f32_rows(gen))
 
     print("-- gla_scan: the tests/test_kernels.py sweep (float32 tol 2e-4, "
           "bfloat16 tol 5e-2; log_w in the input dtype, strong decay)")
@@ -1251,18 +1285,77 @@ def flash_small_rows(gen) -> dict:
     return rows
 
 
-def unranked_rows(gen) -> dict:
-    """Kernels timed here for their first rows in PERF.md: the float32 decode
-    (split and combine) at Llama-3-8B's decode shape."""
-    print("-- rows for the next redesign's ranking: float32 decode at B=8 "
-          "W=4096 H=32 KV=8 D=128")
+def decode_f32_rows(gen) -> dict:
+    """The float32-q decode (route bulk.fma) on the card: the case grid
+    (``DECODE_F32_*``) against the plain version at the float32 tolerance
+    and each sequence's scale, two launches bit-identical and a sequence
+    alone bit-identical to it in a batch of 8 (float32 and bf16 caches), and
+    Llama-3-8B's decode shape with a float32 and with a bf16 cache, timed
+    eager and from a graph beside SDPA, the bound and a plain stream of as
+    many bytes, with the device time by kernel."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention.ops import kernel_route
+    f32, bf16 = torch.float32, torch.bfloat16
+    print("-- decode, the float32-q path's cases (bulk.fma; tests/"
+          f"test_torch_card.py: float32 and bf16 caches, W={DECODE_W}, KV=2, "
+          f"B=8, G {'/'.join(map(str, DECODE_F32_G))}, D "
+          f"{'/'.join(map(str, DECODE_F32_D))}, q x1 and x8, the first "
+          "sequence at each length, the others at random), max error per "
+          f"(cache, G, D); tol 2e-5, seq_err held at {SEQ_TOL}")
+    for cache in (f32, bf16):
+        for G in DECODE_F32_G:
+            for D in DECODE_F32_D:
+                worst, worst_seq, paths, n = 0.0, 0.0, set(), 0
+                for length, window in DECODE_F32_LENGTHS:
+                    for amp in (1, 8):
+                        lengths = torch.randint(1, DECODE_W + 1, (8,),
+                                                generator=gen, device="cuda")
+                        lengths[0] = length
+                        row = decode_case(8, DECODE_W, 2 * G, 2, D, f32, lengths,
+                                          window, gen, amp=amp, cache_dtype=cache)
+                        worst = max(worst, row["max_abs_err"])
+                        worst_seq = max(worst_seq, row["seq_err"])
+                        paths.add(row["path"])
+                        n += 1
+                if paths != {"bulk.fma"}:
+                    fail(f"float32 decode ran {paths}, not bulk.fma")
+                print(f"decode float32 cases cache={str(cache)[6:]} G={G} D={D}: "
+                      f"{n} cases, path=bulk.fma max_err={worst:.3e} "
+                      f"seq_err={worst_seq:.3e}")
+    B, W, H, KV, D = 8, 4096, 32, 8, 128
+    ragged = torch.linspace(1, W, B).round().int()
     rows = {}
-    ragged = torch.linspace(1, 4096, 8).round().int()
-    row = decode_case(8, 4096, 32, 8, 128, torch.float32, ragged, None, gen,
-                      timed=True)
-    print(f"decode float32 B=8 W=4096 H=32 KV=8 D=128 lengths="
-          f"{ragged.tolist()}: {fmt(row)}")
-    rows["decode_f32"] = row
+    for cache in (f32, bf16):
+        name = str(cache)[6:]
+        q = randn((B, 1, H, D), f32, gen)
+        kc, vc = randn((B, W, KV, D), cache, gen), randn((B, W, KV, D), cache, gen)
+        lengths = torch.tensor([513, 1, 1, 1, 2000, 1, 1, 4096], dtype=torch.int32,
+                               device="cuda")
+        a = decode_attention(q, kc, vc, lengths)
+        b = decode_attention(q, kc, vc, lengths)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            fail(f"float32 decode ({name} cache): two launches differ")
+        for i in range(B):
+            one = decode_attention(q[i:i + 1].contiguous(), kc[i:i + 1].contiguous(),
+                                   vc[i:i + 1].contiguous(),
+                                   lengths[i:i + 1].contiguous())
+            torch.cuda.synchronize()
+            if not torch.equal(one, a[i:i + 1]):
+                fail(f"float32 decode ({name} cache): sequence {i} alone "
+                     "differs from it in the batch of 8")
+        print(f"decode float32 {name} cache B=8 W=4096 H=32 KV=8 D=128 lengths="
+              f"{lengths.tolist()}: two launches bit-identical, each sequence "
+              "alone bit-identical to the batch of 8")
+        label = (f"decode float32 q, {name} cache (Llama-3-8B's decode shape) "
+                 f"B=8 W=4096 H=32 KV=8 D=128 lengths={ragged.tolist()}")
+        row = decode_case(B, W, H, KV, D, f32, ragged, None, gen, timed=True,
+                          cache_dtype=cache, by_kernel=1)
+        print(f"{label}: {fmt(row)}")
+        rows["decode_f32" if cache == f32 else "decode_f32_bf16_cache"] = row
+        row = decode_case(B, W, H, KV, D, f32, ragged, None, gen, amp=8,
+                          cache_dtype=cache)
+        print(f"{label} q x8: {fmt(row)}")
     return rows
 
 
@@ -3346,11 +3439,12 @@ def add_counts(total: dict, counts: dict):
         total[k] = total.get(k, 0) + v
 
 
-def kernel_entry(name, source, replaces, launches, row) -> dict:
+KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
+def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=launches,
-                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms")})
+                launches=launches, **{k: row[k] for k in KEYS}, **extra)
 
 
 def main():
@@ -3381,8 +3475,7 @@ def main():
             phase_consistency(model, params, 6)
         if 7 in phases:
             phase_profile(model, params, 7, "attention kernels",
-                          ("flash_fwd", "decode_mma", "decode_split",
-                           "decode_combine"))
+                          ATTN_KERNELS)
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3457,15 +3550,28 @@ def main():
     print(f"kernel launches over the main paths' phases (served models, "
           f"training): {served}")
     kernels = []
-    for name, source, replaces, row in (
-            ("flash_attention", FLASH_SOURCE, FLASH_REPLACES, "flash_S2048"),
+    # decode_attention's entry is its served bf16 kernel; the float32-q
+    # kernel, on no served path, rides along with its own numbers
+    decode_extra = {}
+    if rows:
+        decode_extra = dict(kernels=["decode_mma_kernel", "decode_f32_kernel"],
+                            float32_q={
+                                f"{cache}_cache": dict(kernel="decode_f32_kernel",
+                                                       route="bulk.fma",
+                                                       graph_ms=rows[key]["graph_ms"],
+                                                       **{k: rows[key][k] for k in KEYS})
+                                for cache, key in (("float32", "decode_f32"),
+                                                   ("bfloat16", "decode_f32_bf16_cache"))})
+    for name, source, replaces, row, extra in (
+            ("flash_attention", FLASH_SOURCE, FLASH_REPLACES, "flash_S2048", {}),
             ("flash_attention_bwd", FLASH_SOURCE, FLASH_BWD_REPLACES,
-             "flash_bwd_smollm"),
-            ("decode_attention", DECODE_SOURCE, DECODE_REPLACES, "decode"),
-            ("gla_scan", GLA_SOURCE, GLA_REPLACES, "gla_T2048")):
+             "flash_bwd_smollm", {}),
+            ("decode_attention", DECODE_SOURCE, DECODE_REPLACES, "decode",
+             decode_extra),
+            ("gla_scan", GLA_SOURCE, GLA_REPLACES, "gla_T2048", {})):
         if rows and served.get(name):
             kernels.append(kernel_entry(name, source, replaces, served[name],
-                                        rows[row]))
+                                        rows[row], **extra))
     if rows and microgrid_launches:
         kernels.append(kernel_entry("microgrid_scan", MICROGRID_SOURCE,
                                     MICROGRID_REPLACES, microgrid_launches,

@@ -57,11 +57,39 @@
 //     to 136 elements) and 55,296 at D = 64, so two CTAs fit on an SM at
 //     D = 128 (__launch_bounds__(128, 2)). chip_smoke.py phase 2 prints both,
 //     and those of the other head dims.
-//   - float32 q with a float32 or bf16 cache (float32 models keep either):
-//     decode_split_kernel + decode_combine_kernel, the first port's split-K
-//     kernel (one warp per cache row, lanes split D, float32 FMAs and
-//     shuffles, 256-slot splits, a second pass that combines); its query
-//     and output are float32 only, since bf16 queries take the route above.
+//   - float32 q with a float32 or bf16 cache (float32 models keep either),
+//     at every D: decode_f32_kernel (route "bulk.fma"), one launch with the
+//     same splits (ops.split_plan), folded combine and tickets. A CTA is a
+//     producer warp and three consumer warps, each consumer owning one
+//     stage of a ring of 32-slot tiles in shared memory (float32 at
+//     D = 128: 3 stages of 32 KB, two CTAs an SM). Two producer lanes, one
+//     for K and one for V, arm a stage's "full" mbarrier with the tile's
+//     bytes and ask TMA for its boxes (a 4-D tensor map over the cache,
+//     boxes of 128 bytes of a row by 32 slots, 128-byte swizzle), so the
+//     copy engine keeps every free stage in flight with no registers or
+//     per-byte instructions; the first stages go out before q is read.
+//     Each consumer frees its stage's K after the scores and its V after
+//     P V, on "empty" mbarriers, so the next K lands while P V runs. The
+//     products run on FMAs: at G <= 8 there are at most 2 FMAs per byte
+//     read against the card's ~10, so tensor cores (3xTF32 would split
+//     every operand) buy nothing here. Lane t scores slot t for every head
+//     over the whole of D (its K row read in 16-byte chunks; the swizzle
+//     spreads eight lanes over all banks; q broadcast from shared memory),
+//     so no score is reduced across lanes. The online softmax runs once
+//     per tile: one warp max per head (5 shuffles a head a tile, where a
+//     warp-per-row kernel spends 5 a head a row), each lane keeps its
+//     share of the row sum, and P goes through shared memory to P V, where
+//     lane i accumulates channels 4i..4i+3 over the tile's valid slots in
+//     order. Warps' partials merge in warp order, splits' in split order:
+//     two launches give the same bits. Query and output are float32 only,
+//     since bf16 queries take the route above. What bounds it: the copy
+//     engine streams the valid rows at about the rate of a plain reduction
+//     over as many bytes (chip_smoke.py phase 3 prints both); the rest is
+//     each CTA's start (lengths, q, the first tiles' latency), its
+//     consumers' compute holding stages, and its epilogue. A persistent
+//     variant (dynamic item queue, per-warp partials, a grid-wide combine)
+//     and row-by-row cp.async.bulk copies were slower on the card.
+#include <cuda.h>  // CUtensorMap and its enums; no link against libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>  // INFINITY
@@ -69,24 +97,7 @@
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
-constexpr int UNROLL = 4;     // cache rows each warp loads before it computes
-constexpr int DMAX = 128;     // each lane holds 4 of the D <= 128 channels
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
-  const float4 u = *reinterpret_cast<const float4*>(p);
-  x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
-}
-
+constexpr int DMAX = 128;     // the largest head_dim either kernel takes
 
 __device__ __forceinline__ int valid_slots(const int* lengths, int b, int W,
                                            int window) {
@@ -94,205 +105,6 @@ __device__ __forceinline__ int valid_slots(const int* lengths, int b, int W,
   if (window > 0) n = min(n, window);
   return max(0, min(n, W));
 }
-
-// Pass 1. q: (B, 1, H, D) with h = kvh * G + g; caches: (B, W, KV, D).
-// Partials: m, l (B, KV, n_split, G); acc (B, KV, n_split, G, D), unnormalised.
-// grid: (n_split, KV, B); block: THREADS. GMAX >= G.
-template <typename TC, int GMAX>
-__global__ void __launch_bounds__(THREADS)
-decode_split_kernel(const float* __restrict__ q, const TC* __restrict__ kc,
-                    const TC* __restrict__ vc, const int* __restrict__ lengths,
-                    float* __restrict__ part_m, float* __restrict__ part_l,
-                    float* __restrict__ part_acc, int W, int KV, int G, int D,
-                    int chunk, float scale, int window) {
-  __shared__ float sm_m[WARPS][GMAX], sm_l[WARPS][GMAX];
-  __shared__ float sm_acc[WARPS][GMAX][DMAX];
-
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int t0 = split * chunk;
-  const int t1 = min(t0 + chunk, valid_slots(lengths, b, W, window));
-  const size_t part = ((size_t)b * KV + kvh) * gridDim.x + split;
-  float* pm = part_m + part * G;
-  float* pl = part_l + part * G;
-  float* pa = part_acc + part * G * D;
-  if (t0 >= t1) {  // nothing valid here: mark the split empty
-    if (tid < G) {
-      pm[tid] = NEG_INF;
-      pl[tid] = 0.f;
-    }
-    return;
-  }
-
-  const int d0 = 4 * lane;
-  const bool active = d0 < D;
-  float qv[GMAX][4];
-  const float* qb = q + ((size_t)b * KV + kvh) * G * D + d0;
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g < G && active) {
-      load4(qb + (size_t)g * D, qv[g]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) qv[g][e] = 0.f;
-    }
-  }
-
-  float m[GMAX], l[GMAX], acc[GMAX][4];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
-  }
-
-  const size_t row = (size_t)KV * D;  // elements between consecutive slots
-  const TC* kb = kc + (size_t)b * W * row + (size_t)kvh * D + d0;
-  const TC* vb = vc + (size_t)b * W * row + (size_t)kvh * D + d0;
-
-  for (int t = t0 + warp * UNROLL; t < t1; t += WARPS * UNROLL) {
-    float kx[UNROLL][4], vx[UNROLL][4];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (t + u < t1 && active) {
-        load4(kb + (size_t)(t + u) * row, kx[u]);
-        load4(vb + (size_t)(t + u) * row, vx[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) kx[u][e] = vx[u][e] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (t + u >= t1) break;  // warp-uniform
-      float s[GMAX];
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        s[g] = 0.f;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[g] = fmaf(qv[g][e], kx[u][e], s[g]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int g = 0; g < GMAX; ++g)
-          s[g] += __shfl_xor_sync(0xffffffffu, s[g], off);
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        if (g >= G) break;
-        const float sc = s[g] * scale;
-        const float m_new = fmaxf(m[g], sc);
-        const float alpha = expf(m[g] - m_new);
-        const float p = expf(sc - m_new);
-        l[g] = l[g] * alpha + p;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[g][e] = fmaf(p, vx[u][e], acc[g][e] * alpha);
-        m[g] = m_new;
-      }
-    }
-  }
-
-  // merge the warps' partials; a warp that saw no slot has l == 0
-  if (lane == 0) {
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-  }
-  if (active) {
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sm_acc[warp][g][d0 + e] = acc[g][e];
-  }
-  __syncthreads();
-  for (int i = tid; i < G * D; i += THREADS) {
-    const int g = i / D, d = i - g * D;
-    float M = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w)
-      if (sm_l[w][g] > 0.f) M = fmaxf(M, sm_m[w][g]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      if (sm_l[w][g] > 0.f) {
-        const float f = expf(sm_m[w][g] - M);
-        L = fmaf(sm_l[w][g], f, L);
-        A = fmaf(sm_acc[w][g][d], f, A);
-      }
-    }
-    pa[(size_t)g * D + d] = A;
-    if (d == 0) {
-      pm[g] = M;
-      pl[g] = L;
-    }
-  }
-}
-
-// Pass 2. out: (B, 1, H, D). grid: (KV, B); block: THREADS.
-__global__ void __launch_bounds__(THREADS)
-decode_combine_kernel(const float* __restrict__ part_m,
-                      const float* __restrict__ part_l,
-                      const float* __restrict__ part_acc, float* __restrict__ out,
-                      int KV, int G, int D, int n_split) {
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const size_t base = ((size_t)b * KV + kvh) * n_split;
-  for (int i = threadIdx.x; i < G * D; i += THREADS) {
-    const int g = i / D, d = i - g * D;
-    float M = NEG_INF;
-    for (int s = 0; s < n_split; ++s) {
-      const size_t ps = (base + s) * G + g;
-      if (part_l[ps] > 0.f) M = fmaxf(M, part_m[ps]);
-    }
-    float L = 0.f, A = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const size_t ps = (base + s) * G + g;
-      const float ls = part_l[ps];
-      if (ls > 0.f) {  // empty splits left their acc unwritten: never read it
-        const float f = expf(part_m[ps] - M);
-        L = fmaf(ls, f, L);
-        A = fmaf(part_acc[ps * D + d], f, A);
-      }
-    }
-    out[(((size_t)b * KV + kvh) * G + g) * D + d] = A / fmaxf(L, 1e-37f);
-  }
-}
-
-template <typename TC, int GMAX>
-cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const int* lengths, void* out, float* part_m,
-                   float* part_l, float* part_acc, int B, int W, int KV,
-                   int G, int D, int chunk, int n_split, float scale,
-                   int window, cudaStream_t stream) {
-  decode_split_kernel<TC, GMAX><<<dim3(n_split, KV, B), THREADS, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const TC*>(kc),
-      static_cast<const TC*>(vc), lengths, part_m, part_l, part_acc, W, KV, G,
-      D, chunk, scale, window);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_combine_kernel<<<dim3(KV, B), THREADS, 0, stream>>>(
-      part_m, part_l, part_acc, static_cast<float*>(out), KV, G, D, n_split);
-  return cudaGetLastError();
-}
-
-template <typename TC>
-cudaError_t dispatch(const void* q, const void* kc, const void* vc,
-                     const int* lengths, void* out, float* part_m,
-                     float* part_l, float* part_acc, int B, int W, int KV,
-                     int G, int D, int chunk, int n_split, float scale,
-                     int window, cudaStream_t stream) {
-#define REPRO_DECODE_LAUNCH(GM)                                              \
-  return launch<TC, GM>(q, kc, vc, lengths, out, part_m, part_l, part_acc, B, \
-                       W, KV, G, D, chunk, n_split, scale, window, stream)
-  if (G <= 1) REPRO_DECODE_LAUNCH(1);
-  if (G <= 2) REPRO_DECODE_LAUNCH(2);
-  if (G <= 4) REPRO_DECODE_LAUNCH(4);
-  REPRO_DECODE_LAUNCH(8);
-#undef REPRO_DECODE_LAUNCH
-}
-
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor-core tiles over a cp.async ring
@@ -636,16 +448,560 @@ cudaError_t launch_mma(const void* q, const void* kc, const void* vc,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// float32 q: a TMA ring in shared memory, FMA products, one launch
+// ---------------------------------------------------------------------------
+
+constexpr int F_TS = 32;                           // cache slots a tile: one a lane
+constexpr int F_CONSUMERS = 3;                     // consumer warps, a stage each
+constexpr int F_THREADS = 32 * (1 + F_CONSUMERS);  // warp 0 is the producer
+constexpr int F_GMAX = 8;                          // query heads a KV head, at most
+constexpr int F_BOX = F_TS * 128;                  // bytes of a TMA box: 32 rows of 128
+
+// Byte offsets of the float32 kernel's shared memory for head_dim D, cache
+// elements of `es` bytes and `gmax` query heads, from a 1024-byte aligned
+// base: the ring (a stage for each consumer warp, the K tile, then the V
+// tile; a tile is nb boxes of F_TS rows x 128 bytes, the row's bytes
+// j * 128 .. j * 128 + 127 in box j, swizzled by TMA's 128-byte pattern,
+// zero past D), q (gmax x D floats, heads past G zero), each consumer
+// warp's probabilities (F_TS x gmax floats), then the stages' full and
+// empty mbarriers, K's and V's apart. bytes counts 1024 of slack for the
+// alignment.
+struct F32Smem {
+  int nb, mat, stage, q, p, bars, bytes;
+};
+
+__host__ __device__ constexpr F32Smem f32_smem(int D, int es, int gmax) {
+  F32Smem L{};
+  L.nb = (D * es + 127) / 128;
+  L.mat = L.nb * F_BOX;
+  L.stage = 2 * L.mat;
+  L.q = F_CONSUMERS * L.stage;
+  L.p = L.q + gmax * D * 4;
+  L.bars = L.p + F_CONSUMERS * F_TS * gmax * 4;
+  L.bytes = 1024 + L.bars + 4 * F_CONSUMERS * 8;
+  return L;
+}
+
+// The largest case, float32 at D = 128 and G = 8 (106,592 bytes), leaves
+// room for two CTAs on an SM (233,472 bytes, 1 KB of it reserved per CTA).
+constexpr int F_BUDGET = 233472 / 2 - 1024;
+static_assert(f32_smem(DMAX, 4, F_GMAX).bytes <= F_BUDGET, "two CTAs an SM");
+
+// Byte offset, in a tile, of the 16-byte chunk c of row t: box c / 8, and
+// TMA's 128-byte swizzle (chunk bits 4..6 xor row bits 7..9), which spreads
+// lanes that read one chunk of eight rows, or eight chunks of one row, over
+// all the banks.
+__device__ __forceinline__ int swz(int t, int c) {
+  return (c >> 3) * F_BOX + t * 128 + (((c & 7) ^ (t & 7)) << 4);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier's phase of parity `parity` has completed. A wait
+// that lasts ~2 s (2^32 cycles) is a lost arrival: trap, so that a fault
+// ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 32)) __trap();
+}
+
+// One box of a 4-D tensor map (D, KV, W, B) at (col, head, slot, batch)
+// into shared memory; completion is counted in bytes on `bar`. Slots past W
+// and columns past D are zero-filled. The cache is read once a call, so its
+// lines go first out of L2 (evict_first: 1-3% faster on the card than the
+// default policy).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "{\n.reg .b64 pol;\n"
+      "createpolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%3, %4, %5, %6}], [%2], pol;\n}\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+
+// The 16 bytes at p as floats: 4 float32 values or 8 bf16.
+template <typename TC>
+__device__ __forceinline__ void load_chunk(const unsigned char* p,
+                                           float (&x)[16 / sizeof(TC)]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  if constexpr (sizeof(TC) == 4) {
+    x[0] = __uint_as_float(u.x); x[1] = __uint_as_float(u.y);
+    x[2] = __uint_as_float(u.z); x[3] = __uint_as_float(u.w);
+  } else {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// Four channels at p as floats: 16 bytes of float32 or 8 of bf16.
+template <typename TC>
+__device__ __forceinline__ void load4(const unsigned char* p, float (&x)[4]) {
+  if constexpr (sizeof(TC) == 4) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    x[0] = __uint_as_float(u.x << 16); x[1] = __uint_as_float(u.x & 0xffff0000u);
+    x[2] = __uint_as_float(u.y << 16); x[3] = __uint_as_float(u.y & 0xffff0000u);
+  }
+}
+
+// GMAX consecutive floats of shared memory, in vector loads and stores.
+template <int GMAX>
+__device__ __forceinline__ void load_heads(const float* p, float (&x)[GMAX]) {
+  if constexpr (GMAX >= 4) {
+#pragma unroll
+    for (int g = 0; g < GMAX; g += 4) {
+      const float4 u = *reinterpret_cast<const float4*>(p + g);
+      x[g] = u.x; x[g + 1] = u.y; x[g + 2] = u.z; x[g + 3] = u.w;
+    }
+  } else if constexpr (GMAX == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    x[0] = u.x; x[1] = u.y;
+  } else {
+    x[0] = p[0];
+  }
+}
+
+template <int GMAX>
+__device__ __forceinline__ void store_heads(float* p, const float (&x)[GMAX]) {
+  if constexpr (GMAX >= 4) {
+#pragma unroll
+    for (int g = 0; g < GMAX; g += 4)
+      *reinterpret_cast<float4*>(p + g) = make_float4(x[g], x[g + 1], x[g + 2], x[g + 3]);
+  } else if constexpr (GMAX == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    p[0] = x[0];
+  }
+}
+
+// q: (B, 1, H, D) float32 with h = kvh * G + g; tk, tv: maps over the
+// (B, W, KV, D) caches of TC (float or bf16), boxes of 128 bytes by F_TS
+// slots (make_map); out: float32 like q. Partials of split s of pair
+// p = b * KV + kvh as decode_mma_kernel's (m in log2 units); counters: one
+// int per pair, zero between launches. grid: (n_split, KV, B); block:
+// F_THREADS; dynamic shared memory f32_smem(D, sizeof(TC), GMAX).bytes.
+// GMAX >= G.
+template <typename TC, int GMAX>
+__global__ void __launch_bounds__(F_THREADS, 2)
+decode_f32_kernel(const float* __restrict__ q, __grid_constant__ const CUtensorMap tk,
+                  __grid_constant__ const CUtensorMap tv, const int* __restrict__ lengths,
+                  float* __restrict__ out, float* __restrict__ part_m,
+                  float* __restrict__ part_l, float* __restrict__ part_acc,
+                  int* __restrict__ counters, int W, int KV, int G, int D,
+                  int chunk, float scale_log2, int window) {
+  constexpr int ES = sizeof(TC);
+  constexpr int CH = 16 / ES;  // channels in 16 bytes of a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int is_last;
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_valid = valid_slots(lengths, b, W, window);
+  const int t0 = split * chunk;
+  const int pair = b * KV + kvh;
+  float* o_out = out + (size_t)pair * G * D;
+  if (t0 >= n_valid) {  // nothing valid here; no valid slot at all: output 0
+    if (split == 0)
+      for (int i = tid; i < G * D; i += F_THREADS) o_out[i] = 0.f;
+    return;
+  }
+  const int t1 = min(t0 + chunk, n_valid);
+  const int n_active = (n_valid + chunk - 1) / chunk;
+  const int n_tiles = (t1 - t0 + F_TS - 1) / F_TS;
+  const F32Smem L = f32_smem(D, ES, GMAX);
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* sq = reinterpret_cast<float*>(smem + L.q);     // [GMAX][D]
+  float* sprob = reinterpret_cast<float*>(smem + L.p);  // [F_CONSUMERS][F_TS][GMAX]
+  const uint32_t ring = smem_u32(smem);
+  // mbarriers, 8 bytes each: full[0][s] (K), full[1][s] (V), empty[0][s],
+  // empty[1][s]; stage s belongs to consumer warp s
+  const uint32_t bars = smem_u32(smem + L.bars);
+  auto full = [&](int kv, int s) { return bars + 8 * (kv * F_CONSUMERS + s); };
+  auto empty = [&](int kv, int s) { return bars + 8 * ((2 + kv) * F_CONSUMERS + s); };
+  // Producer: lane 0 of warp 0 loads K tiles, lane 1 V tiles, each arming
+  // the stage's full barrier with the tile's bytes and asking TMA for its
+  // boxes (whole boxes: slots past the valid ones are read too, and never
+  // used). Tile j goes to stage (and consumer warp) j % F_CONSUMERS. The
+  // first stages go out before q is in place.
+  const int prod = warp == 0 && lane < 2 ? lane : -1;
+  auto load_tile = [&](int j) {
+    constexpr int COLS = 128 / ES;  // columns of a box
+    const int s = j % F_CONSUMERS;
+    const uint32_t bar = full(prod, s), dst = ring + s * L.stage + prod * L.mat;
+    mbar_expect_tx(bar, L.mat);
+    for (int x = 0; x < L.nb; ++x)
+      tma_load(dst + x * F_BOX, prod ? &tv : &tk, bar, x * COLS, kvh, t0 + j * F_TS, b);
+  };
+  if (warp == 0) {
+    if (lane == 0) {
+      for (int i = 0; i < 4 * F_CONSUMERS; ++i)
+        mbar_init(bars + 8 * i, 1);  // full: the producer's arrival, then the
+                                     // bytes; empty: the consuming warp's lane 0
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();
+    if (prod >= 0)
+      for (int j = 0; j < min(n_tiles, F_CONSUMERS); ++j) load_tile(j);
+  }
+  const float* qp = q + (size_t)pair * G * D;
+  for (int i = tid; i < GMAX * D; i += F_THREADS) sq[i] = i < G * D ? qp[i] : 0.f;
+  __syncthreads();
+
+  // Consumer warp c takes tiles c, c + F_CONSUMERS, ... of the split, in
+  // its one stage, and frees the stage's K after the scores and its V after
+  // P V. m is uniform over a warp's lanes; l and acc are each lane's share
+  // (the slots it scored; the channels 4 lane .. 4 lane + 3 it
+  // accumulates).
+  float m[GMAX], l[GMAX], acc[GMAX][4];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+    acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+  }
+  const int cw = warp - 1;
+  if (warp == 0) {
+    if (prod >= 0)
+      for (int j = F_CONSUMERS; j < n_tiles; ++j) {
+        mbar_wait(empty(prod, j % F_CONSUMERS), (j / F_CONSUMERS - 1) & 1);
+        load_tile(j);
+      }
+  } else {
+    float* pw = sprob + cw * F_TS * GMAX;
+    const int nch = D / CH;
+    const unsigned char* kt = smem + cw * L.stage;
+    const unsigned char* vt = kt + L.mat;
+    const int vch = 4 * ES * lane / 16, vo = 4 * ES * lane % 16;  // V chunk, byte
+    for (int j = cw; j < n_tiles; j += F_CONSUMERS) {
+      const int parity = (j / F_CONSUMERS) & 1;
+      mbar_wait(full(0, cw), parity);
+      const int ts = t0 + j * F_TS;
+      const int rows = min(F_TS, t1 - ts);
+
+      // lane t scores slot ts + t for every head over the whole of D: K's
+      // row t chunk by chunk (swizzled: eight lanes, eight banks), q
+      // broadcast to the warp
+      float sc[GMAX];
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) sc[g] = 0.f;
+#pragma unroll 2
+      for (int c = 0; c < nch; ++c) {
+        float kx[CH];
+        load_chunk<TC>(kt + swz(lane, c), kx);
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) {
+          const float* qg = sq + g * D + c * CH;
+#pragma unroll
+          for (int e = 0; e < CH; e += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(qg + e);
+            sc[g] = fmaf(qv.x, kx[e], sc[g]);
+            sc[g] = fmaf(qv.y, kx[e + 1], sc[g]);
+            sc[g] = fmaf(qv.z, kx[e + 2], sc[g]);
+            sc[g] = fmaf(qv.w, kx[e + 3], sc[g]);
+          }
+        }
+      }
+      __syncwarp();  // every lane is done with K
+      if (lane == 0) mbar_arrive(empty(0, cw));
+
+      // the online softmax, once per tile: one max over the warp per head;
+      // slots past the valid ones score -inf
+      float alpha[GMAX];
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        const float x = lane < rows ? sc[g] * scale_log2 : -INFINITY;
+        float mx = x;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[g], mx);  // finite: slot ts is valid
+        alpha[g] = ex2(m[g] - m_new);
+        sc[g] = ex2(x - m_new);
+        l[g] = l[g] * alpha[g] + sc[g];
+        m[g] = m_new;
+      }
+      store_heads<GMAX>(pw + lane * GMAX, sc);
+      __syncwarp();
+      mbar_wait(full(1, cw), parity);
+
+      // P V: lane i accumulates channels 4 i .. 4 i + 3 over the tile's
+      // valid slots, in slot order
+      if (4 * lane < D) {
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[g][e] *= alpha[g];
+#pragma unroll 4
+        for (int t = 0; t < rows; ++t) {
+          float vx[4], pt[GMAX];
+          load4<TC>(vt + swz(t, vch) + vo, vx);
+          load_heads<GMAX>(pw + t * GMAX, pt);
+#pragma unroll
+          for (int g = 0; g < GMAX; ++g)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[g][e] = fmaf(pt[g], vx[e], acc[g][e]);
+        }
+      }
+      __syncwarp();  // every lane is done with V and with pw
+      if (lane == 0) mbar_arrive(empty(1, cw));
+    }
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        l[g] += __shfl_xor_sync(0xffffffffu, l[g], off);
+  }
+
+  // merge the consumer warps' partials in warp order in shared memory (the
+  // ring is free: every tile has been consumed); a warp that had no tile
+  // has l == 0
+  __syncthreads();
+  float* sm_o = reinterpret_cast<float*>(smem);  // [F_CONSUMERS][GMAX][D]
+  float* sm_m = sm_o + F_CONSUMERS * GMAX * D;            // [F_CONSUMERS][GMAX]
+  float* sm_l = sm_m + F_CONSUMERS * GMAX;                // [F_CONSUMERS][GMAX]
+  if (warp > 0) {
+    if (lane == 0)
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        sm_m[cw * GMAX + g] = m[g];
+        sm_l[cw * GMAX + g] = l[g];
+      }
+    if (4 * lane < D)
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g)
+        reinterpret_cast<float4*>(sm_o + (cw * GMAX + g) * D)[lane] =
+            make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+  }
+  __syncthreads();
+
+  const size_t part = (size_t)pair * gridDim.x + split;
+  for (int i = tid; i < G * D; i += F_THREADS) {
+    const int g = i / D, d = i % D;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < F_CONSUMERS; ++w)
+      if (sm_l[w * GMAX + g] > 0.f) M = fmaxf(M, sm_m[w * GMAX + g]);
+    float Ls = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < F_CONSUMERS; ++w) {
+      const float lw = sm_l[w * GMAX + g];
+      if (lw > 0.f) {
+        const float f = ex2(sm_m[w * GMAX + g] - M);
+        Ls = fmaf(lw, f, Ls);
+        A = fmaf(sm_o[(w * GMAX + g) * D + d], f, A);
+      }
+    }
+    if (n_active == 1) {
+      o_out[i] = A / Ls;
+    } else {
+      part_acc[part * G * D + i] = A;
+      if (d == 0) {
+        part_m[part * G + g] = M;
+        part_l[part * G + g] = Ls;
+      }
+    }
+  }
+  if (n_active == 1) return;
+
+  // the last split of this pair to arrive combines every split's partial,
+  // in split order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    is_last = atomicAdd(counters + pair, 1) == n_active - 1;
+    if (is_last) counters[pair] = 0;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const size_t first = (size_t)pair * gridDim.x;
+  float* sm_f = reinterpret_cast<float*>(smem);  // [n_active][GMAX]: exp2(m - M) / L
+  if (tid < G) {
+    float M = -INFINITY;
+    for (int sp = 0; sp < n_active; ++sp)
+      M = fmaxf(M, __ldcg(part_m + (first + sp) * G + tid));
+    float Ls = 0.f;
+    for (int sp = 0; sp < n_active; ++sp) {
+      const float f = ex2(__ldcg(part_m + (first + sp) * G + tid) - M);
+      sm_f[sp * GMAX + tid] = f;
+      Ls = fmaf(__ldcg(part_l + (first + sp) * G + tid), f, Ls);
+    }
+    const float inv = 1.f / Ls;
+    for (int sp = 0; sp < n_active; ++sp) sm_f[sp * GMAX + tid] *= inv;
+  }
+  __syncthreads();
+  // four channels a thread (D is a multiple of 16), the splits' loads
+  // four in flight at a time: this pass is the launch's tail
+  const float4* pa = reinterpret_cast<const float4*>(part_acc + first * G * D);
+  const int n4 = G * D / 4;
+  for (int i = tid; i < n4; i += F_THREADS) {
+    const int g = 4 * i / D;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int sp = 0; sp < n_active; ++sp) {
+      const float f = sm_f[sp * GMAX + g];
+      const float4 v = __ldcg(pa + (size_t)sp * n4 + i);
+      A.x = fmaf(f, v.x, A.x);
+      A.y = fmaf(f, v.y, A.y);
+      A.z = fmaf(f, v.z, A.z);
+      A.w = fmaf(f, v.w, A.w);
+    }
+    reinterpret_cast<float4*>(o_out)[i] = A;
+  }
+}
+
+// cuTensorMapEncodeTiled lives in libcuda. It is reached through the
+// runtime's entry-point query, so the library needs no -lcuda and loads
+// wherever the CUDA runtime does.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over a contiguous (B, W, KV, D) cache of float32 (es = 4) or
+// bf16, dimensions innermost first: (D, KV, W, B); a box is 128 bytes of a
+// row (32 float32 or 64 bf16 columns, zero past D) by F_TS slots, with the
+// 128-byte swizzle. W stays its own dimension, so the zero fill past W never
+// reads the next sequence's rows.
+bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B,
+              int W, int KV, int D, int es) {
+  const cuuint64_t e = es;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)KV, (cuuint64_t)W,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * e, (cuuint64_t)KV * D * e,
+                                 (cuuint64_t)W * KV * D * e};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / es), 1, (cuuint32_t)F_TS, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, es == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename TC, int GMAX>
+cudaError_t launch_f32(const void* q, const void* kc, const void* vc,
+                       const int* lengths, void* out, float* part_m,
+                       float* part_l, float* part_acc, int* counters, int B,
+                       int W, int KV, int G, int D, int chunk, int n_split,
+                       float scale, int window, cudaStream_t stream) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap tk, tv;
+  if (!make_map(&tk, encode, kc, B, W, KV, D, sizeof(TC)) ||
+      !make_map(&tv, encode, vc, B, W, KV, D, sizeof(TC)))
+    return cudaErrorInvalidValue;
+  static unsigned long long configured = 0;  // devices whose limit is raised
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(configured & bit)) {
+    err = cudaFuncSetAttribute(decode_f32_kernel<TC, GMAX>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, F_BUDGET);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(decode_f32_kernel<TC, GMAX>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    configured |= bit;
+  }
+  decode_f32_kernel<TC, GMAX>
+      <<<dim3(n_split, KV, B), F_THREADS, f32_smem(D, sizeof(TC), GMAX).bytes, stream>>>(
+          static_cast<const float*>(q), tk, tv, lengths, static_cast<float*>(out),
+          part_m, part_l, part_acc, counters, W, KV, G, D, chunk,
+          scale * 1.4426950408889634f, window);
+  return cudaGetLastError();
+}
+
+template <typename TC>
+cudaError_t dispatch_f32(const void* q, const void* kc, const void* vc,
+                         const int* lengths, void* out, float* part_m,
+                         float* part_l, float* part_acc, int* counters, int B,
+                         int W, int KV, int G, int D, int chunk, int n_split,
+                         float scale, int window, cudaStream_t stream) {
+#define REPRO_DECODE_F32(GM)                                                    \
+  return launch_f32<TC, GM>(q, kc, vc, lengths, out, part_m, part_l, part_acc, \
+                            counters, B, W, KV, G, D, chunk, n_split, scale,   \
+                            window, stream)
+  if (G <= 1) REPRO_DECODE_F32(1);
+  if (G <= 2) REPRO_DECODE_F32(2);
+  if (G <= 4) REPRO_DECODE_F32(4);
+  REPRO_DECODE_F32(8);
+#undef REPRO_DECODE_F32
+}
+
 // The kernel decode_attention_fwd runs for (q dtype, cache dtype, D), and
 // its dynamic shared memory in bytes.
-enum Route { ROUTE_NONE, ROUTE_FMA, ROUTE_MMA };
+enum Route { ROUTE_NONE, ROUTE_F32, ROUTE_MMA };
 
 Route route(int q_dtype, int cache_dtype, int D, int* smem) {
   *smem = 0;
   const bool bf16 = q_dtype == 1 && cache_dtype == 1;
   const bool f32 = q_dtype == 0 && (cache_dtype == 0 || cache_dtype == 1);
   if (D % 16 != 0 || D < 16 || D > DMAX || !(bf16 || f32)) return ROUTE_NONE;
-  if (!bf16) return ROUTE_FMA;
+  if (!bf16) {
+    *smem = f32_smem(D, cache_dtype == 0 ? 4 : 2, F_GMAX).bytes;
+    return ROUTE_F32;
+  }
   switch (D) {
 #define REPRO_DECODE_SMEM(DD) \
     case DD: *smem = MmaSmem<DD>::BYTES; break;
@@ -665,9 +1021,9 @@ extern "C" {
 // caches share cache_dtype (a float32 model keeps a bfloat16 cache, as the
 // reference does). window <= 0: no sliding window. The cache of each
 // (sequence, KV head) is cut into n_split splits of `chunk` slots.
-// scratch: B*KV*n_split*G*(D + 2) floats (part_m, part_l, then part_acc).
-// counters: B*KV ints, zero, for the mma.sync route (left zero after it).
-// Returns the CUDA error code of the launches (0 on success).
+// scratch: B*KV*n_split*G*(D + 2) floats (part_acc, then part_m, part_l).
+// counters: B*KV ints, zero (left zero after the launch). Returns the CUDA
+// error code of the launch (0 on success).
 int decode_attention_fwd(const void* q, const void* k_cache,
                          const void* v_cache, const int* lengths, void* out,
                          float* scratch, int* counters, int B, int W, int KV,
@@ -680,9 +1036,9 @@ int decode_attention_fwd(const void* q, const void* k_cache,
       (long long)n_split * chunk < W)
     return (int)cudaErrorInvalidValue;
   const size_t n_part = (size_t)B * KV * n_split * G;
-  float* part_m = scratch;
-  float* part_l = scratch + n_part;
-  float* part_acc = scratch + 2 * n_part;
+  float* part_acc = scratch;  // first: 16-byte aligned rows of D floats
+  float* part_m = scratch + n_part * D;
+  float* part_l = part_m + n_part;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (r == ROUTE_MMA) {
     if (chunk % PASS != 0 || n_split > MAX_SPLIT || counters == nullptr)
@@ -700,22 +1056,24 @@ int decode_attention_fwd(const void* q, const void* k_cache,
     }
     return (int)cudaErrorInvalidValue;  // unreachable: route() took D
   }
-#define REPRO_DECODE_DISPATCH(TC)                                            \
-  return (int)dispatch<TC>(q, k_cache, v_cache, lengths, out, part_m,    \
-                               part_l, part_acc, B, W, KV, G, D, chunk,      \
-                               n_split, scale, window, st)
-  if (cache_dtype == 0) REPRO_DECODE_DISPATCH(float);
-  REPRO_DECODE_DISPATCH(__nv_bfloat16);
-#undef REPRO_DECODE_DISPATCH
+  if (chunk % F_TS != 0 || n_split > MAX_SPLIT || counters == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (cache_dtype == 0)
+    return (int)dispatch_f32<float>(q, k_cache, v_cache, lengths, out, part_m, part_l,
+                                    part_acc, counters, B, W, KV, G, D, chunk,
+                                    n_split, scale, window, st);
+  return (int)dispatch_f32<__nv_bfloat16>(q, k_cache, v_cache, lengths, out, part_m,
+                                          part_l, part_acc, counters, B, W, KV, G, D,
+                                          chunk, n_split, scale, window, st);
 }
 
 // Name of the kernel decode_attention_fwd runs for (q dtype, cache dtype,
-// D): "mma.sync" or "fma", or NULL where it refuses them; *smem_bytes is
-// that kernel's dynamic shared memory per CTA.
+// D): "mma.sync" or "bulk.fma", or NULL where it refuses them; *smem_bytes
+// is that kernel's dynamic shared memory per CTA (bulk.fma: at G = 8).
 const char* decode_attention_route(int q_dtype, int cache_dtype, int D,
                                    int* smem_bytes) {
   const Route r = route(q_dtype, cache_dtype, D, smem_bytes);
-  return r == ROUTE_MMA ? "mma.sync" : r == ROUTE_FMA ? "fma" : nullptr;
+  return r == ROUTE_MMA ? "mma.sync" : r == ROUTE_F32 ? "bulk.fma" : nullptr;
 }
 
 const char* decode_attention_error_string(int code) {

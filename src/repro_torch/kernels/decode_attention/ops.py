@@ -5,9 +5,10 @@
 it runs the plain version (``ref.decode_attention_reference``); on CUDA
 tensors it launches the kernel or raises. The C entry point picks the kernel
 by dtype: bf16 q with a bf16 cache runs the ``mma.sync`` kernel (tensor-core
-tiles over a ``cp.async`` ring, its combine folded in), a float32 q with a
-float32 or bf16 cache the split-K FMA kernel and its combine pass. ``decode_attention.launches`` counts calls that
-launched (one per call, whichever kernel ran).
+tiles over a ``cp.async`` ring), a float32 q with a float32 or bf16 cache
+the ``bulk.fma`` kernel (FMA products over a ring of 32-slot tiles that
+TMA fills); each folds its combine in, so a call is one launch. ``decode_attention.launches`` counts calls that launched (one per
+call, whichever kernel ran).
 """
 from __future__ import annotations
 
@@ -25,13 +26,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (query dtype, cache dtype) pairs the library is built for
 SUPPORTED = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
              (torch.float32, torch.bfloat16)}
-FMA_CHUNK = 256    # cache slots per split of the split-K FMA kernel
 PASS = 64          # slots one CTA of the mma.sync kernel covers per pass
-MIN_CHUNK = 128    # at least two passes per split
-MAX_SPLIT = 256    # the mma.sync kernel's combine holds this many splits
+MIN_CHUNK = 128    # at least two passes (four bulk.fma tiles) per split
+MAX_SPLIT = 256    # either kernel's combine holds this many splits
 _LIB = None
 _SMS = {}          # device index -> SM count
-_COUNTERS = {}     # device index -> zeroed int32 tickets of the mma.sync combine
+_COUNTERS = {}     # device index -> zeroed int32 tickets of the combine
 _RETIRED = []      # outgrown ticket buffers, kept for graphs that captured them
 
 
@@ -57,8 +57,9 @@ def kernel_route(q_dtype: torch.dtype, cache_dtype: torch.dtype,
                  head_dim: int) -> Tuple[Optional[str], int]:
     """(name, dynamic shared memory in bytes) of the kernel the C entry point
     runs for these dtypes and ``head_dim``: "mma.sync" (bf16 q and cache) or
-    "fma" (float32 q); name None
-    where it refuses them. Builds the library (card machine only)."""
+    "bulk.fma" (float32 q; its shared memory at 8 query heads a KV head);
+    name None where it refuses them. Builds the library (card machine
+    only)."""
     smem = ctypes.c_int(0)
     name = _lib().decode_attention_route(DTYPE_CODES[q_dtype],
                                          DTYPE_CODES[cache_dtype], head_dim,
@@ -67,17 +68,21 @@ def kernel_route(q_dtype: torch.dtype, cache_dtype: torch.dtype,
 
 
 def split_plan(W: int, KV: int, sms: int = 132) -> Tuple[int, int]:
-    """(chunk, n_split) of the mma.sync kernel: each (sequence, KV head)'s
-    cache of W slots is cut into n_split splits of ``chunk`` slots, one CTA
-    each. A function of the shapes only: the lengths live on the card, and
+    """(chunk, n_split) of either kernel: each (sequence, KV head)'s cache
+    of W slots is cut into n_split splits of ``chunk`` slots, one CTA each.
+    A function of the shapes only: the lengths live on the card, and
     reading them would sync. Not of the batch either, so that a sequence's
     result does not depend on how many others share its launch (an engine
     with 8 slots and a loop over one sequence agree to the bit). One
     sequence at its full window gets about sms / 2 CTAs (KV of them per
     split), so 8 served slots give each SM about 4, or 2 where half the
-    splits lie past their sequence's valid slots. A chunk is a multiple of
-    PASS (rounding up may drop a split) and at least MIN_CHUNK; there are
-    at most MAX_SPLIT splits."""
+    splits lie past their sequence's valid slots; a CTA whose split holds
+    no valid slot reads its sequence's length and exits. A chunk is a
+    multiple of PASS (an mma.sync CTA's pass; two of the bulk.fma kernel's
+    32-slot tiles; rounding up may drop a split) and at least MIN_CHUNK
+    (four bulk.fma tiles: a tile for each of its three consumer warps);
+    there are at most MAX_SPLIT splits. At Llama-3-8B's decode shape (W =
+    4096, KV = 8) a split is 512 slots: 256 KB of float32 K and V rows."""
     want = -(-sms // (2 * KV))
     chunk = max(-(-W // want), -(-W // MAX_SPLIT), MIN_CHUNK)
     chunk = -(-chunk // PASS) * PASS
@@ -104,7 +109,7 @@ def _check(q, k_cache, v_cache, lengths, window):
     if lengths.dtype != torch.int32 or lengths.shape != (B,):
         raise TypeError("lengths must be int32 of shape (B,)")
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        # cp.async and the kernels' vector loads take 16-byte aligned rows
+        # cp.async, TMA and the kernels' vector loads take 16-byte aligned rows
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: data_ptr must be a multiple of 16 "
                              f"bytes, got {x.data_ptr() % 16} bytes off")
@@ -149,12 +154,12 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     """Model layout: q (B, 1, H, D); caches (B, W, KV, D); lengths (B,).
     Returns (B, 1, H, D).
 
-    On the card, bf16 calls on one device share one buffer of the combine's
-    tickets, which each launch leaves at zero: they must run in order, on one
-    stream or on streams ordered by events. Two such calls that overlap (two
-    unordered streams, or two CUDA graphs of this call replayed at once)
-    take each other's tickets and may return an unfinished output with no
-    error."""
+    On the card, calls on one device (bf16 and float32 alike) share one
+    buffer of the combine's tickets, which each launch leaves at zero: they
+    must run in order, on one stream or on streams ordered by events. Two
+    such calls that overlap (two unordered streams, or two CUDA graphs of
+    this call replayed at once) take each other's tickets and may return an
+    unfinished output with no error."""
     B, _, H, D = q.shape
     W, KV = k_cache.shape[1], k_cache.shape[2]
     if q.device.type == "cpu":
@@ -165,12 +170,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     _check(q, k_cache, v_cache, lengths, window)
     G = H // KV
     dev = q.device
-    if kernel_route(q.dtype, k_cache.dtype, D)[0] == "mma.sync":
-        chunk, n_split = split_plan(W, KV, _sms(dev))
-        counters = _counters(dev, B * KV)
-    else:
-        chunk, n_split = FMA_CHUNK, -(-W // FMA_CHUNK)
-        counters = None
+    chunk, n_split = split_plan(W, KV, _sms(dev))
+    counters = _counters(dev, B * KV)
     out = torch.empty_like(q)
     scratch = torch.empty(B * KV * n_split * G * (D + 2), dtype=torch.float32,
                           device=dev)

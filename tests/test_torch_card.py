@@ -80,6 +80,17 @@ DECODE_LENGTHS = [(1, None), (15, None), (17, None), (63, None), (65, None),
 DECODE_OTHER_D = [16, 32, 48, 80, 96, 112]
 DECODE_OTHER_LENGTHS = [(1, None), (17, None), (129, None), (1024, None),
                         (1324, 1024)]
+# The float32-q path (bulk.fma; float32 or bf16 cache), as chip_smoke.py
+# phase 3, at the head groups and dims of
+# tests/test_torch_decode_f32_design.py: W = 1024 (8 splits of 128 slots, 4
+# tiles of 32 each), KV = 2, B = 8, G of 1, 2, 3, 4 and 8,
+# head dims 16, 64, 80 and 128; the first sequence at 1 and 33 (both sides
+# of a tile), 128 and 129 (of a split), W, past W in a ring of W and past a
+# window of 500 inside W, the others at random; q x1 and x8.
+DECODE_F32_G = [1, 2, 3, 4, 8]
+DECODE_F32_D = [16, 64, 80, 128]
+DECODE_F32_LENGTHS = [(1, None), (33, None), (128, None), (129, None),
+                      (1024, None), (1324, 1024), (900, 500)]
 GLA_SHAPES = [(1, 64, 2, 32, 32), (2, 130, 2, 64, 64), (1, 256, 4, 16, 64)]
 # The bf16 gla_scan path (tensor cores, 64-token chunks of four 16-token
 # sub-chunks): T on both sides of a sub-chunk and a chunk, and the served
@@ -438,7 +449,11 @@ def test_flash_wrapper_refuses_misaligned_float32_view_on_card():
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("window", [None, 64])
 def test_decode_kernel_matches_plain_on_card(B, W, H, KV, D, dtype, window):
+    """The tests/test_kernels.py sweep: bf16 on the mma.sync kernel, float32
+    on the bulk.fma kernel."""
     _cuda_or_skip()
+    want = "bulk.fma" if dtype == "float32" else "mma.sync"
+    assert kernel_route(DTYPES[dtype], DTYPES[dtype], D)[0] == want
     rng = np.random.default_rng(1)
     q, kc, vc = _inputs(rng, dtype, (B, 1, H, D), (B, W, KV, D), (B, W, KV, D))
     lengths = torch.from_numpy(rng.integers(1, W + 1, B).astype(np.int32)).cuda()
@@ -575,6 +590,105 @@ def test_decode_mma_kernel_replays_from_a_cuda_graph_on_card():
     B, W, H, KV, D = 8, 2048, 32, 8, 128
     q, kc, vc = _inputs(np.random.default_rng(10), "bfloat16", (B, 1, H, D),
                         (B, W, KV, D), (B, W, KV, D))
+    lengths = torch.linspace(1, W, B).round().int().cuda()
+    eager = decode_attention(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, kc, vc, lengths)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", DECODE_F32_G)
+@pytest.mark.parametrize("D", DECODE_F32_D)
+@pytest.mark.parametrize("length,window", DECODE_F32_LENGTHS)
+@pytest.mark.parametrize("amp", [1, 8])
+def test_decode_f32_kernel_matches_plain_on_card(cache, G, D, length, window,
+                                                 amp):
+    """A float32 q with a float32 or bf16 cache runs the bulk.fma kernel:
+    one launch, a float32 output within 2e-5 of the plain version and each
+    sequence within 2e-2 of its own scale."""
+    _cuda_or_skip()
+    assert kernel_route(torch.float32, DTYPES[cache], D)[0] == "bulk.fma"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert split_plan(DECODE_W, 2, sms)[0] == 128  # the split edge above
+    rng = np.random.default_rng(length + 11 * G + D)
+    B, H, KV = 8, 2 * G, 2
+    q = _inputs(rng, "float32", (B, 1, H, D))[0] * amp
+    kc, vc = _inputs(rng, cache, (B, DECODE_W, KV, D), (B, DECODE_W, KV, D))
+    lengths = rng.integers(1, DECODE_W + 1, B).astype(np.int32)
+    lengths[0] = length
+    lengths = torch.from_numpy(lengths).cuda()
+    n = decode_attention.launches
+    out = decode_attention(q, kc, vc, lengths, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n + 1
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    ref = decode_attention_reference(
+        q.reshape(B, KV, G, D), kc.transpose(1, 2), vc.transpose(1, 2),
+        lengths, window=window).reshape(B, 1, H, D)
+    np.testing.assert_allclose(_np(out), _np(ref), **_tol("float32"))
+    _assert_within_sequence_scale(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,top", [(None, 4096), (4096, 8000)])
+def test_decode_f32_kernel_matches_plain_at_the_served_shape_on_card(
+        cache, window, top):
+    """Llama-3-8B's decode shape in float32 (8 sequences, W = 4096, H = 32,
+    KV = 8, D = 128), lengths 1..4096 or a wrapped ring up to 8000."""
+    _cuda_or_skip()
+    B, W, H, KV, D = 8, 4096, 32, 8, 128
+    rng = np.random.default_rng(21)
+    q = _inputs(rng, "float32", (B, 1, H, D))[0]
+    kc, vc = _inputs(rng, cache, (B, W, KV, D), (B, W, KV, D))
+    lengths = torch.linspace(1, top, B).round().int().cuda()
+    out = decode_attention(q, kc, vc, lengths, window=window)
+    ref = decode_attention_reference(
+        q.reshape(B, KV, H // KV, D), kc.transpose(1, 2), vc.transpose(1, 2),
+        lengths, window=window).reshape(B, 1, H, D)
+    np.testing.assert_allclose(_np(out), _np(ref), **_tol("float32"))
+    _assert_within_sequence_scale(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["float32", "bfloat16"])
+def test_decode_f32_kernel_is_deterministic_and_batch_invariant_on_card(cache):
+    """Two launches on the same input give the same bits, and a sequence
+    alone gives, bit for bit, its row of the batch of 8: splits and warps
+    merge in a fixed order, and the split plan ignores B."""
+    _cuda_or_skip()
+    B, W, H, KV, D = 8, 4096, 32, 8, 128
+    rng = np.random.default_rng(23)
+    q = _inputs(rng, "float32", (B, 1, H, D))[0]
+    kc, vc = _inputs(rng, cache, (B, W, KV, D), (B, W, KV, D))
+    lengths = torch.tensor([513, 1, 1, 1, 2000, 1, 1, 4096],
+                           dtype=torch.int32).cuda()
+    a = decode_attention(q, kc, vc, lengths)
+    b = decode_attention(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    for i in range(B):
+        one = decode_attention(q[i:i + 1].contiguous(), kc[i:i + 1].contiguous(),
+                               vc[i:i + 1].contiguous(), lengths[i:i + 1].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(one, a[i:i + 1])
+
+
+@pytest.mark.cuda
+def test_decode_f32_kernel_replays_from_a_cuda_graph_on_card():
+    """The float32 kernel shares the combine's tickets, which each launch
+    leaves at zero: replays of a captured call give the eager result."""
+    _cuda_or_skip()
+    B, W, H, KV, D = 8, 2048, 32, 8, 128
+    rng = np.random.default_rng(25)
+    q, kc, vc = _inputs(rng, "float32", (B, 1, H, D), (B, W, KV, D), (B, W, KV, D))
     lengths = torch.linspace(1, W, B).round().int().cuda()
     eager = decode_attention(q, kc, vc, lengths)
     torch.cuda.synchronize()

@@ -140,8 +140,9 @@ def test_flash_check_refuses_misaligned_views():
 @pytest.mark.parametrize("W", [1, 64, 300, 1024, 4096, 131072])
 @pytest.mark.parametrize("sms", [66, 132])
 def test_decode_split_plan_covers_the_cache(KV, W, sms):
-    """The mma.sync kernel's splits cover the W slots with no split wholly
-    past W, in whole 64-slot CTA passes, within the combine's 256 splits."""
+    """Either kernel's splits (mma.sync, bulk.fma) cover the W slots with no
+    split wholly past W, in whole 64-slot CTA passes (two 32-slot bulk.fma
+    tiles), within the combine's 256 splits."""
     from repro_torch.kernels.decode_attention.ops import (MAX_SPLIT, PASS,
                                                           split_plan)
     chunk, n_split = split_plan(W, KV, sms)

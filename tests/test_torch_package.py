@@ -48,7 +48,7 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_ab.py", ROOT / "chip_sweeps.py",
-    ROOT / "chip_profiler_probe.py"],
+    ROOT / "chip_profiler_probe.py", ROOT / "chip_decode_probe.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_neither_jax_nor_reference(path):
     bad = [m for m in _imported_roots(path)
