@@ -46,6 +46,7 @@ from repro_torch.configs.base import AttentionConfig
 from repro_torch.distributed.axes import constrain, contract_whole, on_local
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
+from repro_torch.obs.spans import PROFILER
 from repro_torch.models.layers import (apply_rope, as_param, project_heads,
                                        rope_angles, truncated_normal_init)
 
@@ -494,15 +495,16 @@ def attention_block(x, p: AttnParams, cfg: AttentionConfig, *,
         W = ck.shape[1]
         window = cfg.sliding_window
         ck, cv = cache_insert_decode(ck, cv, k, v, lengths, W)
-        if impl == "kernel":
-            out = decode_attention(q, ck, cv, lengths + 1, window=window)
-        else:
-            # under a mesh on each rank's batch (and head) shards
-            out = on_local(
-                lambda q, ck, cv, n: attention_decode(
-                    q, ck, cv, cfg, n.reshape(-1) + 1, window=window),
-                q, ck, cv, lengths[:, None, None, None],
-                keep=_kernel_dims(q, ck, cv))
+        with PROFILER.span("attn.kernel"):
+            if impl == "kernel":
+                out = decode_attention(q, ck, cv, lengths + 1, window=window)
+            else:
+                # under a mesh on each rank's batch (and head) shards
+                out = on_local(
+                    lambda q, ck, cv, n: attention_decode(
+                        q, ck, cv, cfg, n.reshape(-1) + 1, window=window),
+                    q, ck, cv, lengths[:, None, None, None],
+                    keep=_kernel_dims(q, ck, cv))
         new_cache = (ck, cv)
     else:
         if impl == "kernel" and mode == "train" and torch.is_grad_enabled():
@@ -518,7 +520,8 @@ def attention_block(x, p: AttnParams, cfg: AttentionConfig, *,
         else:
             run = lambda q, k, v: attention_flash_xla(q, k, v, cfg,
                                                       kv_valid=kv_valid)
-        out = on_local(run, q, k, v, keep=_kernel_dims(q, k, v))
+        with PROFILER.span("attn.kernel"):
+            out = on_local(run, q, k, v, keep=_kernel_dims(q, k, v))
         new_cache = (k, v)
 
     out = constrain(out, ("batch", "seq_inner", "heads", "head_dim"))

@@ -34,6 +34,7 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models import zamba as zamba_mod
 from repro_torch.models.layers import REMAT_POLICIES
+from repro_torch.obs.spans import PROFILER
 
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -186,7 +187,8 @@ class Model:
                     c, pre, filled, max_len, B)
             else:
                 zamba_mod.write_prefill_to_zamba_cache(cache, rows, pre, S)
-            return tf.lm_logits(params, c, last(h))[:, 0], cache
+            with PROFILER.span("model.head"):
+                return tf.lm_logits(params, c, last(h))[:, 0], cache
         if c.is_encoder_only:
             h, _ = tf.transformer_forward(params, c, x, positions=positions,
                                           mode="train", kv_valid=kv_valid,
@@ -202,7 +204,8 @@ class Model:
             tf.write_prefill_to_cache(cache, rows, pre["computed_k"],
                                       pre["computed_v"], S)
         # last position logits only (serving does not need all logits)
-        return tf.lm_logits(params, c, last(h))[:, 0], cache
+        with PROFILER.span("model.head"):
+            return tf.lm_logits(params, c, last(h))[:, 0], cache
 
     # ---------------- serving: one decode step ----------------
     @torch.no_grad()
@@ -226,7 +229,8 @@ class Model:
                    else tf.transformer_forward)
         h, new_cache = forward(params, c, x, positions=positions, mode="decode",
                                cache=cache, attn_impl=self.attn_impl)
-        return tf.lm_logits(params, c, h)[:, 0], new_cache
+        with PROFILER.span("model.head"):
+            return tf.lm_logits(params, c, h)[:, 0], new_cache
 
     # ---------------- cache factory ----------------
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,

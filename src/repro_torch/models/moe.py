@@ -21,6 +21,14 @@ Two deliberate differences of form, neither of value:
 
 At decode (one token per row) C = 8, so every expert computes 8 capacity
 slots per row: the reference's static-shape semantics, kept.
+
+While ``obs.spans.PROFILER`` is enabled, ``apply_moe`` spans its stages
+(``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``) and
+adds the layer's counts to the span open around it (``model.moe``):
+``assigned`` (B*S*K), ``kept`` (assignments within capacity), ``routed``
+(experts with a kept assignment anywhere in the batch), ``slots``
+(B*E*C capacity rows computed), ``d_model`` and ``d_expert``. The counts'
+own operations run under ``trace.count``; under a mesh there are none.
 """
 from __future__ import annotations
 
@@ -31,12 +39,14 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.distributed.axes import (constrain, contract_whole, on_local,
                                           split_over)
 from repro_torch.models.layers import (activation, as_param, dense_init,
                                        truncated_normal_init)
+from repro_torch.obs.spans import PROFILER
 
 
 class MoEParams(nn.Module):
@@ -111,8 +121,9 @@ def dispatch(idx: torch.Tensor, E: int, C: int):
 
 def _dispatch_rows(x: torch.Tensor, idx: torch.Tensor, E: int, C: int):
     """Each row's capacity buffer (B, E, C, D) of the tokens its experts
-    ``idx`` (B, S, K) keep, and where each (token, k) assignment's output
-    lies in it: ``slot`` (B, S*K) and ``kept`` (B, S*K)."""
+    ``idx`` (B, S, K) keep, where each (token, k) assignment's output lies
+    in it: ``slot`` (B, S*K) and ``kept`` (B, S*K), and each expert's
+    assignments in each row, ``size`` (B, E)."""
     B, S, D = x.shape
     K = idx.shape[-1]
     order, keep, dest, start, size = dispatch(idx, E, C)
@@ -127,7 +138,7 @@ def _dispatch_rows(x: torch.Tensor, idx: torch.Tensor, E: int, C: int):
     # combine: assignment s*K + k sits at sorted place inv[s*K + k]
     inv = torch.empty_like(order).scatter_(
         1, order, torch.arange(S * K, device=x.device).expand(B, S * K))
-    return buf, torch.gather(dest, 1, inv), torch.gather(keep, 1, inv)
+    return buf, torch.gather(dest, 1, inv), torch.gather(keep, 1, inv), size
 
 
 def _combine_rows(out_buf: torch.Tensor, slot: torch.Tensor,
@@ -152,26 +163,48 @@ def apply_moe(x: torch.Tensor, p: MoEParams, cfg: MoEConfig, act: str = "silu",
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = capacity_for(S, cfg, capacity_factor)
-    probs, gates, idx = on_local(
-        lambda x, w: route(x, SimpleNamespace(router=w), cfg), x, p.router,
-        whole=(1,))
+    with PROFILER.span("moe.route"):
+        probs, gates, idx = on_local(
+            lambda x, w: route(x, SimpleNamespace(router=w), cfg), x, p.router,
+            whole=(1,))
 
-    # aux load-balancing loss (Switch-style), over all tokens
-    me = probs.mean(dim=(0, 1))
-    ce = on_local(lambda i: F.one_hot(i[..., 0], E).float(), idx).mean(dim=(0, 1))
-    aux = cfg.aux_loss_coef * E * torch.sum(me * ce)
+        # aux load-balancing loss (Switch-style), over all tokens
+        me = probs.mean(dim=(0, 1))
+        ce = on_local(lambda i: F.one_hot(i[..., 0], E).float(), idx).mean(dim=(0, 1))
+        aux = cfg.aux_loss_coef * E * torch.sum(me * ce)
 
-    buf, slot, kept = on_local(lambda x, i: _dispatch_rows(x, i, E, C), x, idx)
-    buf = constrain(buf, ("batch", "expert", None, None))
-    up = torch.einsum("becd,edf->becf", buf, p.up.to(x.dtype))
-    gt = torch.einsum("becd,edf->becf", buf, p.gate.to(x.dtype))
-    h = activation(gt, act) * up
-    # experts split along d_expert (no expert parallelism): h is gathered
-    # along it, and a DTensor einsum's view of the strided gather fails
-    # where a broadcast matmul's reshape copies
-    product = ((lambda h, w: h @ w[None]) if split_over(p.down, (1,)) else
-               (lambda h, w: torch.einsum("becf,efd->becd", h, w)))
-    out_buf = contract_whole(product, h, p.down, dims=(1,))
-    out_buf = constrain(out_buf, ("batch", "expert", None, None))
-    out = on_local(_combine_rows, out_buf, slot, kept, gates)
-    return out.to(x.dtype), aux
+    with PROFILER.span("moe.dispatch"):
+        buf, slot, kept, size = on_local(
+            lambda x, i: _dispatch_rows(x, i, E, C), x, idx)
+    if PROFILER.enabled and not isinstance(size, DTensor):
+        with PROFILER.span("trace.count"):
+            counts = moe_counts(size, S, K, C)
+        PROFILER.count(d_model=D, d_expert=cfg.d_expert, **counts)
+    with PROFILER.span("moe.experts"):
+        buf = constrain(buf, ("batch", "expert", None, None))
+        up = torch.einsum("becd,edf->becf", buf, p.up.to(x.dtype))
+        gt = torch.einsum("becd,edf->becf", buf, p.gate.to(x.dtype))
+        h = activation(gt, act) * up
+        # experts split along d_expert (no expert parallelism): h is
+        # gathered along it, and a DTensor einsum's view of the strided
+        # gather fails where a broadcast matmul's reshape copies
+        product = ((lambda h, w: h @ w[None]) if split_over(p.down, (1,)) else
+                   (lambda h, w: torch.einsum("becf,efd->becd", h, w)))
+        out_buf = contract_whole(product, h, p.down, dims=(1,))
+        out_buf = constrain(out_buf, ("batch", "expert", None, None))
+    with PROFILER.span("moe.combine"):
+        out = on_local(_combine_rows, out_buf, slot, kept, gates)
+        return out.to(x.dtype), aux
+
+
+def moe_counts(size: torch.Tensor, S: int, K: int, C: int):
+    """The dispatch's counts from ``size`` (B, E), each expert's
+    assignments in each row of S tokens with K experts each, of which the
+    first C are kept: ``assigned`` (B*S*K) and ``slots`` (B*E*C) as ints,
+    ``kept`` and ``routed`` (experts with a kept assignment in any row:
+    every expert assigned at all, since C >= 1) as 0-d device tensors,
+    which nothing reads inside a step."""
+    B, E = size.shape
+    per_expert = size.clamp(max=C).sum(0)
+    return {"assigned": B * S * K, "kept": per_expert.sum(),
+            "routed": torch.count_nonzero(per_expert), "slots": B * E * C}

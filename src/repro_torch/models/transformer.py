@@ -29,6 +29,7 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, as_param,
                                        embed_init, mlp_params, norm_params,
                                        rematerialized)
 from repro_torch.models.moe import apply_moe, moe_params
+from repro_torch.obs.spans import PROFILER
 
 FAMILIES = ("dense", "moe", "vlm", "audio")
 
@@ -104,19 +105,23 @@ def _layer_apply(x, lp: LayerParams, cfg: ModelConfig, *, rope, mode,
                  cache_kv, lengths, impl, kv_valid=None):
     h = apply_norm(x, lp.attn_norm, cfg.norm, cfg.norm_eps)
     h = constrain(h, ("batch", "seq_inner", "embed"))
-    a_out, new_kv = attn.attention_block(
-        h, lp.attn, cfg.attention, rope=rope, mode=mode,
-        cache=cache_kv, lengths=lengths, kv_valid=kv_valid, impl=impl)
+    with PROFILER.span("model.attn"):
+        a_out, new_kv = attn.attention_block(
+            h, lp.attn, cfg.attention, rope=rope, mode=mode,
+            cache=cache_kv, lengths=lengths, kv_valid=kv_valid, impl=impl)
     x = add_to_stream(x, a_out)
     x = constrain(x, ("batch", "seq", "embed"))
     h = apply_norm(x, lp.mlp_norm, cfg.norm, cfg.norm_eps)
     h = constrain(h, ("batch", "seq_inner", "embed"))
     if cfg.family == "moe":
         # the aux loss trains the router; serving ignores it
-        m_out, aux = apply_moe(h, lp.moe, cfg.moe,
-                               act=cfg.mlp.activation if cfg.mlp else "silu")
+        with PROFILER.span("model.moe"):
+            m_out, aux = apply_moe(h, lp.moe, cfg.moe,
+                                   act=cfg.mlp.activation if cfg.mlp else "silu")
     else:
-        m_out, aux = apply_mlp(h, lp.mlp, cfg.mlp.activation, cfg.mlp.gated), None
+        with PROFILER.span("model.mlp"):
+            m_out, aux = apply_mlp(h, lp.mlp, cfg.mlp.activation,
+                                   cfg.mlp.gated), None
     x = constrain(add_to_stream(x, m_out), ("batch", "seq", "embed"))
     return x, new_kv, aux
 

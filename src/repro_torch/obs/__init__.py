@@ -16,8 +16,13 @@ Two clocks, one contract:
   ones (neutrality, pinned by tests/test_torch_obs.py and
   tests/test_torch_audit.py).
 * **wall-clock** — the ``SpanProfiler`` (module-global ``PROFILER``)
-  over the sweep pipeline: cache lookups, trace grouping, event-loop
-  runs, stacked passes, the device-mode grid program, worker fan-out.
+  over the sweep pipeline (cache lookups, trace grouping, event-loop
+  runs, stacked passes, the device-mode grid program, worker fan-out) and
+  over the served path: a request's wait in the engine's queue, each
+  prefill and decode iteration, the model's sublayers and the MoE's
+  stages, with request ids and the MoE's counts. Enabled under a
+  ``torch.profiler`` session, its spans are also profiler ranges, so the
+  trace puts the device's work and idle gaps down to them.
 
 ``repro_torch.obs.diff`` localizes the *first* divergent (scenario,
 stage, column) cell between two runs — sweep records, golden records

@@ -15,6 +15,12 @@ Every iteration is logged (start, duration, token counts) so the served
 trace can be priced by Eq. 1 and Eq. 4. Each duration ends with the argmax
 copied to the host, which waits for the device, so it times the work and not
 only its enqueueing.
+
+While ``obs.spans.PROFILER`` is enabled the engine spans its work:
+``serve.queued`` from a request's submission to the start of its prefill
+(request id), ``serve.prefill`` (request id, ``prompt`` tokens) and
+``serve.decode`` (``rows`` served) around each iteration, and
+``serve.sample`` around the argmax and its copy to the host.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.lm import Model
+from repro_torch.obs.spans import PROFILER
 
 
 @dataclasses.dataclass
@@ -38,6 +45,7 @@ class ServeRequest:
     generated: Optional[List[int]] = None
     slot: int = -1
     t_submit: float = 0.0
+    t_queued: Optional[float] = None   # perf_counter at submit, spans on
     t_first: float = -1.0
     t_done: float = -1.0
 
@@ -70,6 +78,8 @@ class ServingEngine:
     def submit(self, req: ServeRequest):
         req.generated = []
         req.t_submit = self.clock
+        if PROFILER.enabled:
+            req.t_queued = time.perf_counter()
         self.waiting.append(req)
 
     def run(self, max_iters: int = 10_000):
@@ -87,17 +97,21 @@ class ServingEngine:
         t0 = time.perf_counter()
         if self.waiting and free:
             req = self.waiting.pop(0)
+            if req.t_queued is not None:
+                PROFILER.record("serve.queued", req.t_queued, t0, rid=req.rid)
             slot = free[0]
             P = len(req.prompt)
-            tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
-                                     device=self.device)[None]
-            # the prompt's K/V (or recurrent states) are written into the
-            # slot's cache row in place (the reference rebuilds the whole
-            # shared cache on every insert)
-            logits, _ = self.model.prefill(self.params, {"tokens": tokens},
-                                           self.max_len, cache=self.cache,
-                                           slot=slot)
-            tok = int(torch.argmax(logits[0]))
+            with PROFILER.span("serve.prefill", rid=req.rid, prompt=P):
+                tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
+                                         device=self.device)[None]
+                # the prompt's K/V (or recurrent states) are written into
+                # the slot's cache row in place (the reference rebuilds the
+                # whole shared cache on every insert)
+                logits, _ = self.model.prefill(self.params, {"tokens": tokens},
+                                               self.max_len, cache=self.cache,
+                                               slot=slot)
+                with PROFILER.span("serve.sample"):
+                    tok = int(torch.argmax(logits[0]))
             req.slot = slot
             req.generated.append(tok)
             req.t_first = self.clock
@@ -111,13 +125,16 @@ class ServingEngine:
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             return
-        tokens = np.zeros((self.max_slots, 1), np.int64)
-        for i in active:
-            tokens[i, 0] = self.slots[i].generated[-1]
-        logits, self.cache = self.model.decode_step(
-            self.params, {"tokens": torch.as_tensor(tokens, device=self.device)},
-            self.cache)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        with PROFILER.span("serve.decode", rows=len(active)):
+            tokens = np.zeros((self.max_slots, 1), np.int64)
+            for i in active:
+                tokens[i, 0] = self.slots[i].generated[-1]
+            logits, self.cache = self.model.decode_step(
+                self.params,
+                {"tokens": torch.as_tensor(tokens, device=self.device)},
+                self.cache)
+            with PROFILER.span("serve.sample"):
+                nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         dur = time.perf_counter() - t0
         self.logs.append(IterationLog(self.clock, dur, "decode",
                                       len(active), len(active)))

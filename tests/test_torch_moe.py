@@ -6,7 +6,10 @@ packages in float32: ``apply_moe``'s dispatch must match exactly (experts,
 kept tokens, slots), including a case where capacity drops tokens and a
 case with tied router probabilities; logits within 1e-4. Reduced
 Qwen3-MoE has 4 experts top-2; reduced Mixtral the same, with a 32-token
-window that a 40-token prompt passes.
+window that a 40-token prompt passes. With the span profiler on, the MoE's
+counts equal a hand count of the dispatch, and an engine serves the same
+tokens and cache bits as with it off, its spans nested as the served path
+nests.
 """
 import jax
 import jax.numpy as jnp
@@ -24,12 +27,20 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.models import build_model
 from repro_torch.models import moe
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.obs.spans import PROFILER
 from repro_torch.serve.engine import ServeRequest, ServingEngine
 
 ARCHS = ["qwen3-moe-30b-a3b", "mixtral-8x22b"]
 # Mixtral's prompt passes its reduced 32-token window
 PROMPT_LEN = {"qwen3-moe-30b-a3b": 12, "mixtral-8x22b": 40}
 MAX_LEN = 64
+
+
+@pytest.fixture(autouse=True)
+def _profiler_clean():
+    yield
+    PROFILER.disable()
+    PROFILER.reset()
 
 
 def _np(x):
@@ -119,6 +130,94 @@ def test_apply_moe_matches_reference(arch, case):
     if case == "ties":
         # experts 1-3 tie everywhere: the lower index wins, never 3
         assert (idx == 3).sum() == 0 and ((idx == 1) & (idx.roll(-1, -1) == 2)).any()
+
+
+@pytest.mark.parametrize("case", ["random", "drops"])
+def test_moe_counts_match_a_hand_count_of_the_dispatch(case):
+    """``model.moe``'s counts against the dispatch's keep mask counted by
+    hand; under ``drops`` expert 0 overflows in both rows."""
+    arch = "qwen3-moe-30b-a3b"
+    S = 24
+    _, p, x = _moe_inputs(arch, case, S)
+    cfg = reduced_config(get_config(arch))
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    C = moe.capacity_for(S, cfg.moe)
+    tp = moe.MoEParams(*(torch.from_numpy(p[k]) for k in
+                         ("router", "up", "gate", "down")))
+    tx = torch.from_numpy(x)
+    _, _, idx = moe.route(tx, tp, cfg.moe)
+    order, keep, _, _, _ = moe.dispatch(idx, E, C)
+    flat = idx.reshape(2, S * K)
+    kept_experts = {int(flat[b, order[b, j]]) for b in range(2)
+                    for j in range(S * K) if keep[b, j]}
+    PROFILER.enable(reset=True)
+    with PROFILER.span("model.moe"):
+        out, _ = moe.apply_moe(tx, tp, cfg.moe)
+    PROFILER.disable()
+    torch.testing.assert_close(out, moe.apply_moe(tx, tp, cfg.moe)[0],
+                               rtol=0, atol=0)
+    rec = next(r for r in PROFILER.records() if r.name == "model.moe")
+    assert rec.counts == {
+        "assigned": 2 * S * K, "kept": int(keep.sum()),
+        "routed": len(kept_experts), "slots": 2 * E * C,
+        "d_model": cfg.d_model, "d_expert": cfg.moe.d_expert}
+    if case == "drops":
+        assert rec.counts["kept"] < rec.counts["assigned"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_traced_engine_serves_the_same_tokens_and_cache(arch):
+    """Spans on: the same tokens and cache bits as spans off; each
+    ``moe.*`` span under ``model.moe`` under a served iteration; a
+    ``serve.queued`` for each request prefilled, from its submission to
+    its prefill's start."""
+    cfg = reduced_config(get_config(arch))
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    prompts = _prompts(3, PROMPT_LEN[arch], cfg.vocab_size)
+
+    def serve():
+        eng = ServingEngine(model, params, max_slots=2, max_len=MAX_LEN,
+                            device="cpu")
+        for i, p in enumerate(prompts):
+            eng.submit(ServeRequest(rid=i, prompt=p, max_new_tokens=4))
+        return {r.rid: r.generated for r in eng.run()}, eng.cache
+
+    want, cache_off = serve()
+    PROFILER.enable(reset=True)
+    got, cache_on = serve()
+    PROFILER.disable()
+    assert got == want
+    for key in ("k", "v", "lengths"):
+        assert torch.equal(cache_on[key], cache_off[key]), key
+
+    recs = PROFILER.records()
+    by_sid = {r.sid: r for r in recs}
+
+    def chain(r):
+        names = []
+        while r.parent is not None:
+            r = by_sid[r.parent]
+            names.append(r.name)
+        return names
+
+    stages = [r for r in recs if r.name.startswith("moe.")]
+    assert {r.name for r in stages} == {"moe.route", "moe.dispatch",
+                                        "moe.experts", "moe.combine"}
+    for r in stages + [r for r in recs if r.name == "trace.count"]:
+        up = chain(r)
+        assert up[0] == "model.moe" and up[-1] in ("serve.decode",
+                                                   "serve.prefill"), up
+    iters = [r for r in recs if r.name in ("serve.prefill", "serve.decode")]
+    n_moe = sum(r.name == "model.moe" for r in recs)
+    assert n_moe == len(iters) * cfg.n_layers
+    queued = {r.rid: r for r in recs if r.name == "serve.queued"}
+    prefills = {r.rid: r for r in recs if r.name == "serve.prefill"}
+    assert set(queued) == set(prefills) == {0, 1, 2}
+    for rid, q in queued.items():
+        assert q.t0 <= q.t1 <= prefills[rid].t0
+    # the third request waits for a slot through the first one's decode
+    assert queued[2].t1 - queued[2].t0 > queued[0].t1 - queued[0].t0
 
 
 def test_capacity_matches_reference():

@@ -8,8 +8,9 @@
   binning and device counts bitwise.
 - The Chrome trace: the same events as the reference's (names, phases,
   tracks, timestamps), numeric arguments within ``DEVICE_MODE_RTOL``.
-- The span profiler, the logger, ``obs.diff``'s tolerance ladder and the
-  ``python -m repro_torch.obs`` CLI.
+- The span profiler (parents, request ids, intervals, counts, its
+  disabled path, its ranges under ``torch.profiler``), the logger,
+  ``obs.diff``'s tolerance ladder and the ``python -m repro_torch.obs`` CLI.
 """
 import json
 import logging
@@ -17,6 +18,7 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 import repro.obs.chrometrace as r_trace
 import repro.obs.diff as r_diff
@@ -32,7 +34,7 @@ from repro_torch.core.power import DEVICE_MODE_RTOL
 from repro_torch.obs import __main__ as obs_cli
 from repro_torch.obs.log import configure, get_logger
 from repro_torch.obs.probe import NULL_PROBE, MultiProbe, SiteIndexProbe
-from repro_torch.obs.spans import PROFILER, SpanProfiler
+from repro_torch.obs.spans import _NULL_SPAN, PROFILER, SpanProfiler
 
 CPU = "cpu"
 
@@ -198,6 +200,101 @@ def test_span_profiler_nesting_aggregate_and_merge(tmp_path):
     agg = prof.aggregate()
     assert agg["inner"]["count"] == 4 and agg["outer"]["count"] == 1
     assert "inner" in prof.format_aggregate()
+
+
+def test_span_parent_request_interval_and_counts():
+    prof = SpanProfiler()
+    prof.enable()
+    with prof.span("serve.decode", rows=3) as outer:
+        with prof.span("model.moe"):
+            with prof.span("trace.count"):
+                kept = torch.tensor([1, 0, 1]).sum()
+            prof.count(kept=kept, d_model=8)
+        prof.record("serve.queued", 1.0, 2.5, rid=7)
+    with prof.span("serve.prefill", rid=7, prompt=12):
+        pass
+    prof.record("serve.queued", 3.0, 4.0, rid=8)
+    recs = prof.records()
+    assert [r.name for r in recs] == ["serve.decode", "model.moe", "trace.count",
+                                     "serve.queued", "serve.prefill",
+                                     "serve.queued"]
+    by_sid = {r.sid: r for r in recs}
+    parents = [None if r.parent is None else by_sid[r.parent].name for r in recs]
+    assert parents == [None, "serve.decode", "model.moe", "serve.decode", None,
+                       None]
+    assert [r.depth for r in recs] == [0, 1, 2, 1, 0, 0]
+    assert outer.counts == {"rows": 3}
+    # a device tensor is kept as it is until the spans are read
+    assert isinstance(prof._records[1].counts["kept"], torch.Tensor)
+    assert recs[1].counts == {"kept": 2, "d_model": 8}
+    assert type(recs[1].counts["kept"]) is int
+    assert (recs[3].t0, recs[3].t1, recs[3].rid) == (1.0, 2.5, 7)
+    assert recs[4].rid == 7 and recs[4].counts == {"prompt": 12}
+    assert all(r.t0 <= r.t1 for r in recs)
+    assert recs[0].t0 <= recs[1].t0 <= recs[2].t0 <= recs[2].t1 <= recs[1].t1
+
+
+def test_disabled_profiler_returns_the_null_span_and_records_nothing():
+    prof = SpanProfiler()
+    assert prof.span("serve.decode", rid=1, rows=2) is _NULL_SPAN
+    with prof.span("model.moe") as s:
+        prof.count(kept=3)
+        prof.record("serve.queued", 0.0, 1.0, rid=1)
+    assert s is _NULL_SPAN
+    assert prof.records() == [] and prof.spans() == [] and prof.aggregate() == {}
+    prof.enable()
+    prof.count(kept=3)          # no span open: nothing to add to
+    prof.disable()
+    assert prof.records() == []
+
+
+def test_aggregate_is_unchanged_by_request_ids_and_counts():
+    """The sweep pipeline's reading: per name a count and a total, whatever
+    else the spans carry; ``spans()`` keeps its (name, t0, dur, depth)."""
+    plain, rich = SpanProfiler(), SpanProfiler()
+    plain.enable()
+    rich.enable()
+    for prof, kw in ((plain, {}), (rich, {"rid": 4, "rows": 2})):
+        with prof.span("cache.lookup", **kw):
+            with prof.span("sim.event_loop"):
+                prof.count(kept=1)
+    agg_plain, agg_rich = plain.aggregate(), rich.aggregate()
+    assert {n: a["count"] for n, a in agg_plain.items()} == \
+        {n: a["count"] for n, a in agg_rich.items()} == \
+        {"cache.lookup": 1, "sim.event_loop": 1}
+    assert all(set(a) == {"count", "total_s"} for a in agg_rich.values())
+    assert [(n, d) for n, _, _, d in rich.spans()] == \
+        [("cache.lookup", 0), ("sim.event_loop", 1)]
+
+
+def test_spans_appear_among_the_profilers_host_events():
+    """Enabled, each span begun under a profiler session is a
+    ``record_function`` range on the profiler's clock, and only such a
+    span enters one; disabled, none is."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(8, 8)
+
+    def names(enabled):
+        prof = SpanProfiler()
+        if enabled:
+            prof.enable()
+        with profile(activities=[ProfilerActivity.CPU]) as tp:
+            with prof.span("serve.decode"):
+                with prof.span("model.moe"):
+                    x @ x
+        return {e.name: e for e in tp.events()}
+
+    on = names(True)
+    assert on["serve.decode"].is_user_annotation
+    outer, inner = on["serve.decode"].time_range, on["model.moe"].time_range
+    assert outer.start <= inner.start <= on["aten::mm"].time_range.start
+    assert on["aten::mm"].time_range.end <= inner.end <= outer.end
+    off = names(False)
+    assert "aten::mm" in off and not {"serve.decode", "model.moe"} & set(off)
+    prof = SpanProfiler()
+    prof.enable()
+    with prof.span("serve.decode") as outside:
+        assert outside._rf is None
 
 
 def test_logger_namespacing_and_verbosity(capsys):
