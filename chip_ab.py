@@ -2,7 +2,7 @@
 """Time kernels of several checkouts on one card, at the served shapes,
 with ``chip_smoke.py``'s clocks.
 
-    python3 chip_ab.py [--only flash,flash_bwd,flash_small,flash_small_f32,flash_f32,train_f32,decode,decode_f32,gla,microgrid] <parent checkout>/src src src <parent checkout>/src
+    python3 chip_ab.py [--only flash,flash_bwd,flash_small,flash_small_f32,flash_f32,train_f32,decode,decode_f32,gla,microgrid,moe] <parent checkout>/src src src <parent checkout>/src
 
 Each argument is a directory that holds a ``repro_torch`` package. Each runs
 in a process of its own: its kernels are built, held against their plain
@@ -46,7 +46,9 @@ timed first, then held bit for bit against the plain step loop (Table 2's
 on the card, the year's on the CPU, whose loop gives the card's bits:
 ``tests/test_torch_card.py::test_microgrid_loop_on_card_matches_cpu``),
 so a scratch variant that computes less still prints its times before it
-fails. ``--only`` picks some of the ten (default: all). Listing
+fails, and ``moe_dispatch`` and ``moe_combine`` (``--only moe``, a tree
+that has them) at ``chip_smoke.MOE_SHAPES`` in bf16 beside their plain
+versions and their bounds in bytes. ``--only`` picks some of the eleven (default: all). Listing
 the trees as parent, change, change, parent shows the card's drift within
 the call. One JSON line per (tree, shape); a kernel that disagrees with
 its plain version exits non-zero.
@@ -71,7 +73,7 @@ GLA_SHAPES = (("rwkv", 32, 128, "bfloat16"), ("rwkv", 32, 1000, "bfloat16"),
 
 
 KERNELS = ("flash", "flash_bwd", "flash_small", "flash_small_f32", "flash_f32",
-           "train_f32", "decode", "decode_f32", "gla", "microgrid")
+           "train_f32", "decode", "decode_f32", "gla", "microgrid", "moe")
 
 
 def one(src: Path, only):
@@ -266,6 +268,20 @@ def microgrid(cs, src: Path):
                               plain_on=dev, equal=equal)), flush=True)
         if not equal:
             cs.fail(f"microgrid_scan {name}: kernel differs from the plain loop")
+
+
+def moe(cs, src: Path):
+    """``moe_dispatch`` and ``moe_combine`` at ``chip_smoke.MOE_SHAPES``:
+    ``chip_smoke.moe_case`` holds each to its plain version and times it
+    eager and from a CUDA graph beside its bounds in bytes and the plain
+    version's eager time, with the device ms of each kernel a call
+    launches."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, arch, B, S in cs.MOE_SHAPES:
+        for kernel, row in cs.moe_case(arch, B, S, gen, timed=True).items():
+            print(json.dumps(dict(src=str(src), kernel=kernel, shape=label,
+                                  B=B, S=S, **row)), flush=True)
 
 
 def main():

@@ -237,6 +237,18 @@ FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 DECODE_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
 GLA_REPLACES = "src/repro/kernels/gla_scan/kernel.py:103"
 GLA_SOURCE = "src/repro_torch/kernels/gla_scan/csrc/gla_scan.cu"
+MOE_SOURCE = "src/repro_torch/kernels/moe_dispatch/csrc/moe_dispatch.cu"
+MOE_DISPATCH_REPLACES = ("src/repro/models/moe.py:48 (_dispatch_row; XLA's "
+                         "gathers and scatters, no Pallas kernel)")
+MOE_COMBINE_REPLACES = ("src/repro/models/moe.py:71 (_combine_row; XLA's "
+                        "gathers, no Pallas kernel)")
+# the MoE kernels' served shapes (label, arch, B, S): the prefill pool's mean
+# and longest prompt, cell 1's decode of 32 rows, Mixtral's mean paper-mix
+# prompt
+MOE_SHAPES = (("qwen3-prefill-4431", "qwen3-moe-30b-a3b", 1, 4431),
+              ("qwen3-prefill-8192", "qwen3-moe-30b-a3b", 1, 8192),
+              ("qwen3-decode-32", "qwen3-moe-30b-a3b", 32, 1),
+              ("mixtral-prefill-1474", "mixtral-8x22b", 1, 1474))
 # the wgmma flash paths' cases, as in tests/test_torch_card.py: bf16 and
 # float32 (3xTF32) at every head dim
 WGMMA_D = (64, 80, 96, 112, 128)
@@ -832,6 +844,87 @@ def gla_case(B, T, H, K, V, mode, dtype, gen, lw_dtype=None, timed=False,
     return row
 
 
+def moe_case(arch: str, B: int, S: int, gen, timed=False) -> dict:
+    """``moe_dispatch`` and ``moe_combine`` in bf16 at ``arch``'s widths
+    (the full config's E, K, D and capacity at S), experts from a router of
+    normal draws, against their plain versions (``ref.py``): the dispatch's
+    four outputs bit for bit; the combine in float32 within the float32
+    sum-order bound (both add the same K products, the kernel in k order
+    and PyTorch's reduction in its own, each within (K-1) u sum_k |g v| of
+    the exact sum, u = 2^-24, so the two within twice that), and written in
+    bf16 as that float32 result rounded once. Returns {kernel: row}, timed
+    (eager, from a CUDA graph, device ms by kernel, the plain version's
+    eager ms) when ``timed``. Bounds in bytes, the least each function
+    moves: the dispatch reads idx and x once and writes the buffer, slot,
+    kept and size once; the combine reads each kept row, slot, kept and
+    gates once and writes (B, S, D) once. ``bound_rows_ms`` reads x once a
+    kept assignment instead, as the fill does (its rows from L2)."""
+    from types import SimpleNamespace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_dispatch import (moe_combine,
+                                                  moe_combine_reference,
+                                                  moe_dispatch,
+                                                  moe_dispatch_reference)
+    from repro_torch.models import moe as moe_model
+    cfg = get_config(arch)
+    bf16 = torch.bfloat16
+    E, K, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
+    C = moe_model.capacity_for(S, cfg.moe)
+    x = randn((B, S, D), bf16, gen)
+    router = randn((D, E), torch.float32, gen) / D ** 0.5
+    _, gates, idx = moe_model.route(x, SimpleNamespace(router=router), cfg.moe)
+    got = moe_dispatch(x, idx, E, C)
+    torch.cuda.synchronize()
+    want = moe_dispatch_reference(x, idx, E, C)
+    for name, g, w in zip(("buf", "slot", "kept", "size"), got, want):
+        if not (g.dtype == w.dtype and torch.equal(g, w)):
+            fail(f"moe_dispatch {arch} B={B} S={S}: {name} differs from the "
+                 "plain gathers")
+    buf, slot, kept, size = got
+    out_buf = randn(tuple(buf.shape), bf16, gen)
+    out = moe_combine(out_buf, slot, kept, gates, torch.float32)
+    low = moe_combine(out_buf, slot, kept, gates, bf16)
+    torch.cuda.synchronize()
+    ref = moe_combine_reference(out_buf, slot, kept, gates)
+    scale = moe_combine_reference(out_buf.float().abs(), slot, kept, gates.abs())
+    excess = float(((out - ref).abs() - 2 * (K - 1) * 2.0 ** -24 * scale).max())
+    if not (torch.isfinite(out).all() and excess <= 0):
+        fail(f"moe_combine {arch} B={B} S={S}: beyond the float32 sum-order "
+             f"bound by {excess:.3e}")
+    if not torch.equal(low, out.to(bf16)):
+        fail(f"moe_combine {arch} B={B} S={S}: the bf16 output is not the "
+             "float32 sum rounded once")
+    n_kept, row_b = int(kept.sum()), D * 2
+    meta = B * S * K * 8 + B * S * K * 9 + B * E * 8
+    bytes_d = B * S * row_b + buf.numel() * 2 + meta
+    bytes_c = n_kept * row_b + B * S * K * 13 + B * S * row_b
+    errs = {"moe_dispatch": 0.0,
+            "moe_combine": float((out - ref).abs().max())}
+    calls = {
+        "moe_dispatch": (lambda: moe_dispatch(x, idx, E, C),
+                         lambda: moe_dispatch_reference(x, idx, E, C),
+                         bytes_d, 3 if S * K > 1024 else 2),
+        "moe_combine": (lambda: moe_combine(out_buf, slot, kept, gates, bf16),
+                        lambda: moe_combine_reference(out_buf, slot, kept,
+                                                      gates).to(bf16),
+                        bytes_c, 1)}
+    rows = {}
+    for kernel, (fn, plain, nbytes, launches) in calls.items():
+        row = dict(E=E, K=K, C=C, D=D, kept=n_kept, assigned=B * S * K,
+                   max_abs_err=errs[kernel], bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes", library_ms=None)
+        if kernel == "moe_dispatch":
+            row["bound_rows_ms"] = (bytes_d - B * S * row_b + n_kept * row_b) \
+                / HBM_BYTES_PER_S * 1e3
+        if timed:
+            row.update(ms=time_ms(fn, 20), graph_ms=graph_ms(fn),
+                       plain_ms=time_ms(plain, 5),
+                       by_kernel=device_ms_by_kernel(fn, launches))
+            row["graph_gb_s"] = nbytes / row["graph_ms"] / 1e6
+        rows[kernel] = row
+    return rows
+
+
 def device_ms_by_kernel(fn, kernels: int, iters: int = 10) -> dict:
     """Device milliseconds per call of ``fn`` by kernel name, from a
     ``torch.profiler`` trace of ``iters`` calls (``profiled``) that holds
@@ -1195,6 +1288,17 @@ def phase_kernels() -> dict:
     row = gla_case(1, 2048, 64, 64, 64, "ssd", bf16, gen,
                    lw_dtype=torch.float32, timed=True)
     print(f"gla ssd B=1 T=2048 H=64 K=V=64 (Zamba2's served prefill): {fmt(row)}")
+    print("-- moe_dispatch (bit for bit) and moe_combine (float32 within the "
+          "sum-order bound 2 (K-1) 2^-24 sum|g v|; bf16 that sum rounded once) "
+          "against the plain gathers at the served shapes, bf16, a random "
+          "router; the timed call writes bf16")
+    for label, arch, B, S in MOE_SHAPES:
+        for kernel, row in moe_case(arch, B, S, gen, timed=True).items():
+            print(f"{kernel} {label} B={B} S={S} E={row['E']} K={row['K']} "
+                  f"C={row['C']} D={row['D']} kept={row['kept']}/"
+                  f"{row['assigned']}: {fmt(row)} graph_GB_s="
+                  f"{row['graph_gb_s']:.1f}")
+            rows[f"{kernel}_{label}"] = row
     rows.update(microgrid_cases())
     return rows
 
@@ -1548,10 +1652,12 @@ def kernel_wrappers() -> dict:
                                                      flash_attention_bwd)
     from repro_torch.kernels.gla_scan import gla_scan
     from repro_torch.kernels.microgrid_scan import microgrid_scan
+    from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
     return {"flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention, "gla_scan": gla_scan,
-            "microgrid_scan": microgrid_scan}
+            "microgrid_scan": microgrid_scan, "moe_dispatch": moe_dispatch,
+            "moe_combine": moe_combine}
 
 
 def reset_counts():
@@ -1562,8 +1668,9 @@ def reset_counts():
 def expected_launches(cfg) -> tuple:
     """({kernel: launches per prefill}, {kernel: launches per decode
     iteration}) of a model of ``cfg``: attention once per layer (Zamba2:
-    once per shared-block application) and the GLA scan once per recurrent
-    layer; an encoder has no decode."""
+    once per shared-block application), the GLA scan once per recurrent
+    layer, the MoE's dispatch and combine once per MoE layer; an encoder has
+    no decode."""
     from repro_torch.models.zamba import n_shared_applications
     L = cfg.n_layers
     if cfg.family == "ssm":
@@ -1571,8 +1678,9 @@ def expected_launches(cfg) -> tuple:
     if cfg.family == "hybrid":
         n_app = n_shared_applications(cfg)
         return {"gla_scan": L, "flash_attention": n_app}, {"decode_attention": n_app}
-    return ({"flash_attention": L},
-            {} if cfg.is_encoder_only else {"decode_attention": L})
+    moe = {"moe_dispatch": L, "moe_combine": L} if cfg.family == "moe" else {}
+    return ({"flash_attention": L, **moe},
+            {} if cfg.is_encoder_only else {"decode_attention": L, **moe})
 
 
 def check_counts(cfg, n_pre: int, n_dec: int = 0) -> dict:
@@ -1918,6 +2026,19 @@ class SharedRoutes:
         return hooked
 
 
+def plain_moe(model) -> Patched:
+    """``model`` whose MoE layers dispatch and combine through the plain
+    gathers (``kernels.moe_dispatch.ref``), as on the CPU."""
+    from repro_torch.kernels.moe_dispatch import (moe_combine_reference,
+                                                  moe_dispatch_reference)
+    from repro_torch.models import moe
+
+    def combine(out_buf, slot, kept, gates, out_dtype):
+        return moe_combine_reference(out_buf, slot, kept, gates).to(out_dtype)
+    return Patched(model, {(moe, "moe_dispatch"): lambda f: moe_dispatch_reference,
+                           (moe, "moe_combine"): lambda f: combine})
+
+
 def kernel_vs_plain(params, batch, model, steps: int = 5) -> float:
     """Worst relative logit difference of ``model`` (the kernel path)
     against the plain einsum path over one prefill and ``steps - 1`` decode
@@ -1927,20 +2048,31 @@ def kernel_vs_plain(params, batch, model, steps: int = 5) -> float:
     differed by 6.0e-2 of the scale on an H100, one step's argmax
     flipped). So for MoE the plain path takes the kernel path's experts
     (``SharedRoutes``) and the flips are counted and printed; the unrouted
-    difference is printed, not held."""
+    difference is printed, not held. The plain path's MoE layers dispatch
+    and combine through the plain gathers (``plain_moe``); the counters
+    show that only the kernel path launched the MoE kernels."""
+    from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
     from repro_torch.models import build_model
     plain = build_model(model.cfg, attn_impl="einsum")
     if model.cfg.family != "moe":
         return max(logit_gap(params, batch, model, plain, "kernel", "einsum",
                              steps))
+    plain = plain_moe(plain)
+    n0 = (moe_dispatch.launches, moe_combine.launches)
     free = max(logit_gap(params, batch, model, plain, "kernel", "einsum", steps))
     routes = SharedRoutes()
     worst = max(logit_gap(params, batch, routes.recorder(model),
                           routes.replayer(plain), "kernel",
                           "einsum routed as kernel", steps))
+    n = (moe_dispatch.launches - n0[0], moe_combine.launches - n0[1])
     print(f"routing: {routes.flips} of {routes.total} (token, layer) expert "
           f"choices of the plain path differ from the kernel path's; "
-          f"unrouted worst {free:.3e} (not held)")
+          f"unrouted worst {free:.3e} (not held); MoE kernel launches "
+          f"(dispatch, combine) {n}, all the kernel path's")
+    if n != (2 * steps * model.cfg.n_layers,) * 2:
+        fail(f"{model.cfg.name}: {n} MoE dispatch and combine launches over "
+             f"two kernel-path runs of {steps} steps at {model.cfg.n_layers} "
+             "layers: the plain path launched some, or a layer none")
     return worst
 
 
@@ -3572,6 +3704,17 @@ def main():
         if rows and served.get(name):
             kernels.append(kernel_entry(name, source, replaces, served[name],
                                         rows[row], **extra))
+    for name, replaces in (("moe_dispatch", MOE_DISPATCH_REPLACES),
+                           ("moe_combine", MOE_COMBINE_REPLACES)):
+        if rows and served.get(name):
+            # the pool's mean prompt; every served shape beside it
+            kernels.append(kernel_entry(
+                name, MOE_SOURCE, replaces, served[name],
+                rows[f"{name}_{MOE_SHAPES[0][0]}"],
+                shapes={label: {k: rows[f"{name}_{label}"][k] for k in
+                                ("max_abs_err", "ms", "graph_ms", "plain_ms",
+                                 "bound_ms")}
+                        for label, *_ in MOE_SHAPES}))
     if rows and microgrid_launches:
         kernels.append(kernel_entry("microgrid_scan", MICROGRID_SOURCE,
                                     MICROGRID_REPLACES, microgrid_launches,

@@ -16,8 +16,15 @@ Two deliberate differences of form, neither of value:
   - the dispatch buffer and the combine are gathers, not scatters: each
     (token, k) pair has exactly one place in the sorted order, so the
     combine inverts the permutation, gathers (B, S, K, D) and sums over K
-    in float32. The reference's ``.at[token].add`` would be ``index_add_``
-    here, whose float32 atomics change with each run on the card.
+    in float32, in k order. The reference's ``.at[token].add`` would be
+    ``index_add_`` here, whose float32 atomics change with each run on the
+    card.
+
+The dispatch and the combine are ``kernels.moe_dispatch``: on the card a
+rank of the assignments and one pass into the capacity buffer, and one
+gate-weighted gather back written in x's dtype; on the CPU their plain
+versions (its ``ref.py``, which also holds ``dispatch``, the per-row sort
+metadata, imported here).
 
 At decode (one token per row) C = 8, so every expert computes 8 capacity
 slots per row: the reference's static-shape semantics, kept.
@@ -44,6 +51,8 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs.base import MoEConfig
 from repro_torch.distributed.axes import (constrain, contract_whole, on_local,
                                           split_over)
+from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
+from repro_torch.kernels.moe_dispatch.ref import dispatch  # noqa: F401 (the tests read it here)
 from repro_torch.models.layers import (activation, as_param, dense_init,
                                        truncated_normal_init)
 from repro_torch.obs.spans import PROFILER
@@ -98,61 +107,6 @@ def route(x: torch.Tensor, p: MoEParams, cfg: MoEConfig):
     return probs, gates, idx
 
 
-def dispatch(idx: torch.Tensor, E: int, C: int):
-    """Per-row capacity dispatch of the experts ``idx`` (B, S, K).
-
-    Returns, in the sorted order of each row's S*K assignments (a stable
-    sort by expert): ``order`` (the flat s*K + k of each), ``keep`` (within
-    its expert's first C) and ``dest`` (its slot e*C + position, or E*C
-    when dropped), and each expert's ``group_start`` and ``group_size``
-    (B, E). The reference's ``_dispatch_row`` metadata, batched."""
-    B, S, K = idx.shape
-    flat = idx.reshape(B, S * K)
-    order = torch.argsort(flat, dim=-1, stable=True)
-    sorted_expert = torch.gather(flat, 1, order)
-    size = torch.zeros((B, E), dtype=torch.long, device=idx.device)
-    size.scatter_add_(1, flat, torch.ones_like(flat))
-    start = torch.cumsum(size, dim=1) - size
-    pos = torch.arange(S * K, device=idx.device) - torch.gather(start, 1, sorted_expert)
-    keep = pos < C
-    dest = torch.where(keep, sorted_expert * C + pos, E * C)
-    return order, keep, dest, start, size
-
-
-def _dispatch_rows(x: torch.Tensor, idx: torch.Tensor, E: int, C: int):
-    """Each row's capacity buffer (B, E, C, D) of the tokens its experts
-    ``idx`` (B, S, K) keep, where each (token, k) assignment's output lies
-    in it: ``slot`` (B, S*K) and ``kept`` (B, S*K), and each expert's
-    assignments in each row, ``size`` (B, E)."""
-    B, S, D = x.shape
-    K = idx.shape[-1]
-    order, keep, dest, start, size = dispatch(idx, E, C)
-    # slot (e, c) holds the assignment at sorted place start[e] + c when
-    # c < size[e], else zeros: a gather, one source per slot
-    c_idx = torch.arange(C, device=x.device)
-    src = (start[:, :, None] + c_idx).reshape(B, E * C).clamp(max=S * K - 1)
-    token = torch.gather(order, 1, src) // K                       # (B, E*C)
-    filled = (c_idx < size[:, :, None]).reshape(B, E * C, 1)
-    buf = torch.gather(x, 1, token[..., None].expand(B, E * C, D))
-    buf = torch.where(filled, buf, 0).reshape(B, E, C, D)
-    # combine: assignment s*K + k sits at sorted place inv[s*K + k]
-    inv = torch.empty_like(order).scatter_(
-        1, order, torch.arange(S * K, device=x.device).expand(B, S * K))
-    return buf, torch.gather(dest, 1, inv), torch.gather(keep, 1, inv), size
-
-
-def _combine_rows(out_buf: torch.Tensor, slot: torch.Tensor,
-                  kept: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
-    """(B, S, D) float32: each token's kept expert outputs, gate-weighted,
-    summed over its K choices."""
-    B, E, C, D = out_buf.shape
-    S, K = gates.shape[1], gates.shape[2]
-    picked = torch.gather(out_buf.reshape(B, E * C, D), 1,
-                          slot.clamp(max=E * C - 1)[..., None].expand(B, S * K, D))
-    picked = torch.where(kept[..., None], picked.float(), 0.0)
-    return (picked.reshape(B, S, K, D) * gates[..., None]).sum(dim=2)
-
-
 def apply_moe(x: torch.Tensor, p: MoEParams, cfg: MoEConfig, act: str = "silu",
               capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B, S, D), aux_loss scalar).
@@ -175,7 +129,7 @@ def apply_moe(x: torch.Tensor, p: MoEParams, cfg: MoEConfig, act: str = "silu",
 
     with PROFILER.span("moe.dispatch"):
         buf, slot, kept, size = on_local(
-            lambda x, i: _dispatch_rows(x, i, E, C), x, idx)
+            lambda x, i: moe_dispatch(x, i, E, C), x, idx)
     if PROFILER.enabled and not isinstance(size, DTensor):
         with PROFILER.span("trace.count"):
             counts = moe_counts(size, S, K, C)
@@ -193,8 +147,9 @@ def apply_moe(x: torch.Tensor, p: MoEParams, cfg: MoEConfig, act: str = "silu",
         out_buf = contract_whole(product, h, p.down, dims=(1,))
         out_buf = constrain(out_buf, ("batch", "expert", None, None))
     with PROFILER.span("moe.combine"):
-        out = on_local(_combine_rows, out_buf, slot, kept, gates)
-        return out.to(x.dtype), aux
+        out = on_local(lambda *a: moe_combine(*a, x.dtype), out_buf, slot,
+                       kept, gates)
+        return out, aux
 
 
 def moe_counts(size: torch.Tensor, S: int, K: int, C: int):

@@ -1362,3 +1362,216 @@ def test_remote_card_worker_matches_in_process_card_run(tmp_path):
             [r["metrics"] for r in local], mode
         assert (tmp_path / f"cache-{mode}" / "cuda").is_dir()
         assert not (tmp_path / f"cache-{mode}" / "cpu").exists()
+
+
+# ---------------------------------------------------------------------------
+# moe_dispatch: the MoE layer's capacity dispatch and combine
+# ---------------------------------------------------------------------------
+
+# (label, arch, B, S): the served shapes, Qwen3-MoE (E=128, K=8, D=2048) at
+# the prefill pool's 2048, mean 4431 and 8192 tokens and cell 1's decode of
+# 32 rows, Mixtral (E=8, K=2, D=6144) at the paper mix's mean prompt and a
+# decode of 16 rows; and the reduced configs (E=4, K=2, D=64), whose
+# 24-token rows fit one rank block, at B=2.
+MOE_SHAPES = [("qwen3-prefill-2048", "qwen3-moe-30b-a3b", 1, 2048),
+              ("qwen3-prefill-4431", "qwen3-moe-30b-a3b", 1, 4431),
+              ("qwen3-prefill-8192", "qwen3-moe-30b-a3b", 1, 8192),
+              ("qwen3-decode-32", "qwen3-moe-30b-a3b", 32, 1),
+              ("mixtral-prefill-1474", "mixtral-8x22b", 1, 1474),
+              ("mixtral-decode-16", "mixtral-8x22b", 16, 1),
+              ("qwen3-reduced", "qwen3-moe-30b-a3b-reduced", 2, 24)]
+MOE_CASES = ["random", "drops", "ties"]
+
+
+def _moe_routed(arch, B, S, dtype, case, seed=0):
+    """x (B, S, D) in ``dtype`` and its gates and experts from a router of
+    normal draws, on the card. ``drops``: feature 0 of x is 1 and router[0, 0]
+    is 30, so expert 0 is every token's first choice and overflows its
+    capacity (as ``tests/test_torch_moe.py::_moe_inputs``); ``ties``: the
+    router's columns 2 and 3 copy column 1, so experts 1-3 tie on every
+    token. Returns (x, gates, idx, E, K, C)."""
+    from types import SimpleNamespace
+
+    from repro_torch.models import moe
+    reduced = arch.endswith("-reduced")
+    cfg = get_config(arch.removesuffix("-reduced"))
+    cfg = reduced_config(cfg) if reduced else cfg
+    E, K, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, D), dtype=np.float32)
+    w = rng.standard_normal((D, E), dtype=np.float32) / np.sqrt(D)
+    if case == "drops":
+        x[..., 0] = 1.0
+        w[0, 0] = 30.0
+    elif case == "ties":
+        w[:, 2] = w[:, 1]
+        w[:, 3] = w[:, 1]
+    x = torch.from_numpy(x).to(DTYPES[dtype]).cuda()
+    _, gates, idx = moe.route(x, SimpleNamespace(router=torch.from_numpy(w).cuda()),
+                              cfg.moe)
+    return x, gates, idx, E, K, moe.capacity_for(S, cfg.moe)
+
+
+def _moe_id(shape):
+    return shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", MOE_SHAPES, ids=_moe_id)
+def test_moe_dispatch_and_combine_match_plain_on_card(shape, dtype, case):
+    """The dispatch's buffer, slots, mask and sizes equal the plain gathers'
+    bit for bit; two launches of each kernel are bit-identical; each call is
+    one launch of the counter. The combine in float32 is held against the
+    plain combine within the float32 sum-order bound: both add the same K
+    products, the kernel in k order and PyTorch's reduction in its own, and
+    each order is within (K-1) u sum_k |g v| of the exact sum (u = 2^-24),
+    so the two within twice that. Written in the input's dtype it is the
+    float32 result rounded once (the cast ``apply_moe`` did, folded in)."""
+    _cuda_or_skip()
+    from repro_torch.kernels.moe_dispatch import (moe_combine,
+                                                  moe_combine_reference,
+                                                  moe_dispatch,
+                                                  moe_dispatch_reference)
+    _, arch, B, S = shape
+    x, gates, idx, E, K, C = _moe_routed(arch, B, S, dtype, case)
+    n = (moe_dispatch.launches, moe_combine.launches)
+    got = moe_dispatch(x, idx, E, C)
+    again = moe_dispatch(x, idx, E, C)
+    torch.cuda.synchronize()
+    assert moe_dispatch.launches - n[0] == 2
+    want = moe_dispatch_reference(x, idx, E, C)
+    for name, g, a, w in zip(("buf", "slot", "kept", "size"), got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+        assert torch.equal(g, a), name
+    buf, slot, kept, size = got
+    if case == "drops" and S > C:   # expert 0 takes every token, over C
+        assert not kept.all()
+    # expert outputs: the buffer through a fixed random map of its rows
+    out_buf = (buf.float() * 0.5 + torch.randn_like(buf, dtype=torch.float32)
+               ).to(buf.dtype)
+    out = moe_combine(out_buf, slot, kept, gates, torch.float32)
+    out2 = moe_combine(out_buf, slot, kept, gates, torch.float32)
+    low = moe_combine(out_buf, slot, kept, gates, x.dtype)
+    torch.cuda.synchronize()
+    assert moe_combine.launches - n[1] == 3
+    assert torch.equal(out, out2)
+    assert low.dtype == x.dtype and torch.equal(low, out.to(x.dtype))
+    ref = moe_combine_reference(out_buf, slot, kept, gates)
+    scale = moe_combine_reference(out_buf.float().abs(), slot, kept, gates.abs())
+    bound = 2 * (K - 1) * 2.0 ** -24 * scale
+    assert out.shape == ref.shape == (B, S, x.shape[-1])
+    assert bool(((out - ref).abs() <= bound).all()), \
+        f"max excess {float(((out - ref).abs() - bound).max()):.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "drops"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [MOE_SHAPES[0], MOE_SHAPES[3], MOE_SHAPES[4],
+                                   MOE_SHAPES[6]], ids=_moe_id)
+def test_moe_dispatch_functions_match_plain_gradients_on_card(shape, dtype,
+                                                              case):
+    """The autograd Functions' gradients (x's a combine with unit gates,
+    out_buf's a dispatch of gate x the output's gradient, the gates' dot
+    products in the same launch) against autograd through the plain
+    gathers on the card. out_buf's is one product a slot in both: bit for
+    bit. x's sums K rows in float32 (the gathers' backward adds them with
+    atomics in x's dtype), the gates' D products in another order: within
+    2e-5 of the largest gradient in float32, 2e-2 in bf16 (the file's
+    tolerances)."""
+    _cuda_or_skip()
+    from repro_torch.kernels.moe_dispatch import (moe_combine,
+                                                  moe_combine_reference,
+                                                  moe_dispatch,
+                                                  moe_dispatch_reference)
+    _, arch, B, S = shape
+    x, gates, idx, E, K, C = _moe_routed(arch, B, S, dtype, case, seed=1)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+
+    def close(a, b):
+        assert bool(((a.float() - b.float()).abs()
+                     <= tol * b.float().abs().max()).all())
+
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    n = moe_combine.launches
+    buf, slot, kept, _ = moe_dispatch(xa, idx, E, C)
+    ref_buf = moe_dispatch_reference(xb, idx, E, C)[0]
+    r_buf = torch.randn_like(buf)
+    (buf.float() * r_buf.float()).sum().backward()
+    (ref_buf.float() * r_buf.float()).sum().backward()
+    assert moe_combine.launches - n == 1
+    close(xa.grad, xb.grad)
+
+    out_buf = torch.randn_like(buf)
+    oa, ob = out_buf.clone().requires_grad_(), out_buf.clone().requires_grad_()
+    ga, gb = gates.clone().requires_grad_(), gates.clone().requires_grad_()
+    n = (moe_dispatch.launches, moe_combine.grad_launches)
+    out = moe_combine(oa, slot, kept, ga, x.dtype)
+    ref = moe_combine_reference(ob, slot, kept, gb).to(x.dtype)
+    r_out = torch.randn_like(out)
+    (out.float() * r_out.float()).sum().backward()
+    (ref.float() * r_out.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert (moe_dispatch.launches - n[0], moe_combine.grad_launches - n[1]) \
+        == (0, 1)
+    assert torch.equal(oa.grad, ob.grad)
+    close(ga.grad, gb.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [12, 6])
+def test_moe_dispatch_refuses_rows_not_in_16_byte_words_on_card(D):
+    """The kernels move rows in 16-byte words: a bf16 row of 12 or 6
+    elements (24 or 12 bytes) is refused by name, and so is a row of 64
+    that starts 2 bytes into its allocation; the plain versions on the CPU
+    take them."""
+    _cuda_or_skip()
+    from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
+    idx = torch.zeros((1, 4, 2), dtype=torch.long, device="cuda")
+    x = torch.zeros((1, 4, D), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match=f"D = {D} "):
+        moe_dispatch(x, idx, 4, 8)
+    buf, slot, kept, _ = moe_dispatch(x.cpu(), idx.cpu(), 4, 8)
+    with pytest.raises(ValueError, match=f"D = {D} "):
+        moe_combine(buf.cuda(), slot.cuda(), kept.cuda(),
+                    torch.ones((1, 4, 2), device="cuda"), torch.bfloat16)
+    shifted = torch.zeros(4 * 64 + 1, dtype=torch.bfloat16,
+                          device="cuda")[1:].view(1, 4, 64)
+    with pytest.raises(ValueError, match="D = 64 "):
+        moe_dispatch(shifted, idx, 4, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x22b"])
+def test_moe_layers_launch_one_dispatch_and_one_combine_on_card(arch):
+    """A reduced MoE model on the card: each prefill and each decode step
+    counts one dispatch and one combine a layer, and its logits equal the
+    same model's with the plain gathers within bf16's 2e-2 of their
+    scale."""
+    _cuda_or_skip()
+    from repro_torch.kernels import moe_dispatch as kernels
+    from repro_torch.models import moe
+    cfg = reduced_config(get_config(arch))
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    tokens = torch.randint(1, cfg.vocab_size, (2, 12), device="cuda")
+    n = (kernels.moe_dispatch.launches, kernels.moe_combine.launches)
+    logits, cache = model.prefill(params, {"tokens": tokens}, 32)
+    assert (kernels.moe_dispatch.launches - n[0],
+            kernels.moe_combine.launches - n[1]) == (cfg.n_layers,) * 2
+    n = (kernels.moe_dispatch.launches, kernels.moe_combine.launches)
+    model.decode_step(params, {"tokens": tokens[:, -1:]}, cache)
+    assert (kernels.moe_dispatch.launches - n[0],
+            kernels.moe_combine.launches - n[1]) == (cfg.n_layers,) * 2
+    orig = (moe.moe_dispatch, moe.moe_combine)
+    try:
+        moe.moe_dispatch = kernels.moe_dispatch_reference
+        moe.moe_combine = lambda *a: kernels.moe_combine_reference(*a[:4]).to(a[4])
+        plain, _ = model.prefill(params, {"tokens": tokens}, 32)
+    finally:
+        moe.moe_dispatch, moe.moe_combine = orig
+    assert float((logits.float() - plain.float()).abs().max()) \
+        <= 2e-2 * float(plain.float().abs().max())

@@ -24,6 +24,7 @@ from repro.models import moe as jax_moe
 from repro.serve.engine import ServeRequest as JaxServeRequest
 from repro.serve.engine import ServingEngine as JaxServingEngine
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.kernels import moe_dispatch as moe_kernels
 from repro_torch.models import build_model
 from repro_torch.models import moe
 from repro_torch.models.convert import params_from_numpy
@@ -218,6 +219,133 @@ def test_traced_engine_serves_the_same_tokens_and_cache(arch):
         assert q.t0 <= q.t1 <= prefills[rid].t0
     # the third request waits for a slot through the first one's decode
     assert queued[2].t1 - queued[2].t0 > queued[0].t1 - queued[0].t0
+
+
+def _routed(arch, case, S=24):
+    """The reduced layer's weights, x (2, S, D), its gates and experts, E,
+    K and C, float32."""
+    _, p, x = _moe_inputs(arch, case, S)
+    cfg = reduced_config(get_config(arch))
+    tp = moe.MoEParams(*(torch.from_numpy(p[k]) for k in
+                         ("router", "up", "gate", "down")))
+    tx = torch.from_numpy(x)
+    _, gates, idx = moe.route(tx, tp, cfg.moe)
+    return (cfg, tp, tx, gates, idx, cfg.moe.n_experts, cfg.moe.top_k,
+            moe.capacity_for(S, cfg.moe))
+
+
+def _plain_combine(out_buf, slot, kept, gates, out_dtype):
+    return moe_kernels.moe_combine_reference(out_buf, slot, kept,
+                                             gates).to(out_dtype)
+
+
+@pytest.mark.parametrize("case", ["random", "drops", "ties"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_dispatch_functions_give_the_gradients_of_the_plain_gathers(
+        arch, case):
+    """The autograd Functions' backward (on the CPU their plain versions:
+    x's gradient a combine with unit gates, out_buf's a dispatch of gate x
+    the output's gradient, the gates' dot products) against autograd
+    through the plain gathers. out_buf's gradient holds one product a slot
+    in both, so bit for bit; x's sums the same K float32 terms in k order
+    where the gathers' backward adds them in slot order, and the gates' sum
+    D products, so 1e-6 of their scale."""
+    _, _, x, gates, idx, E, K, C = _routed(arch, case)
+    rng = np.random.default_rng(5)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    buf, slot, kept, size = moe_kernels.moe_dispatch(xa, idx, E, C)
+    want = moe_kernels.moe_dispatch_reference(xb, idx, E, C)
+    for got, ref in zip((buf, slot, kept, size), want):
+        assert torch.equal(got, ref)
+    if case == "drops":
+        assert not kept.all()
+    r_buf = torch.from_numpy(rng.standard_normal(buf.shape, dtype=np.float32))
+    (buf * r_buf).sum().backward()
+    (want[0] * r_buf).sum().backward()
+    torch.testing.assert_close(xa.grad, xb.grad, rtol=1e-6, atol=1e-6)
+
+    out_buf = torch.from_numpy(rng.standard_normal(buf.shape, dtype=np.float32))
+    oa, ob = out_buf.clone().requires_grad_(), out_buf.clone().requires_grad_()
+    ga, gb = gates.clone().requires_grad_(), gates.clone().requires_grad_()
+    out = moe_kernels.moe_combine(oa, slot, kept, ga, torch.float32)
+    ref = _plain_combine(ob, slot, kept, gb, torch.float32)
+    assert torch.equal(out, ref)
+    r_out = torch.from_numpy(rng.standard_normal(out.shape, dtype=np.float32))
+    (out * r_out).sum().backward()
+    (ref * r_out).sum().backward()
+    assert torch.equal(oa.grad, ob.grad)
+    torch.testing.assert_close(ga.grad, gb.grad, rtol=1e-6, atol=1e-6)
+    if case == "drops":   # a dropped assignment's gate gets no gradient
+        assert (ga.grad.reshape(2, -1)[~kept] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["random", "drops"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_apply_moe_gradients_match_the_plain_gathers(arch, case,
+                                                     monkeypatch):
+    """The whole layer's gradients (x and every weight) through the
+    Functions against the same layer with ``moe_dispatch`` and
+    ``moe_combine`` replaced by the plain gathers, in float32: sums of the
+    same terms in other orders, within 1e-5 of their scale."""
+    cfg, tp, x, _, _, _, _, _ = _routed(arch, case)
+
+    def grads():
+        xg = x.clone().requires_grad_()
+        mp = moe.MoEParams(*(w.detach().clone() for w in
+                             (tp.router, tp.up, tp.gate, tp.down)))
+        ws = [w.requires_grad_() for w in (mp.router, mp.up, mp.gate, mp.down)]
+        out, aux = moe.apply_moe(xg, mp, cfg.moe)
+        r = torch.from_numpy(np.random.default_rng(6).standard_normal(
+            out.shape, dtype=np.float32))
+        ((out * r).sum() + aux).backward()
+        return out.detach(), [xg.grad] + [w.grad for w in ws]
+
+    out, got = grads()
+    monkeypatch.setattr(moe, "moe_dispatch", moe_kernels.moe_dispatch_reference)
+    monkeypatch.setattr(moe, "moe_combine", _plain_combine)
+    want_out, want = grads()
+    assert torch.equal(out, want_out)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()))
+
+
+def test_moe_dispatch_wrapper_checks_its_inputs():
+    x = torch.zeros(2, 3, 8)
+    idx = torch.zeros(2, 3, 2, dtype=torch.long)
+    with pytest.raises(ValueError, match="bad shapes"):
+        moe_kernels.moe_dispatch(x, idx[:, :2], 4, 8)
+    with pytest.raises(TypeError, match="int64"):
+        moe_kernels.moe_dispatch(x, idx.float(), 4, 8)
+    buf, slot, kept, _ = moe_kernels.moe_dispatch(x, idx, 4, 8)
+    with pytest.raises(ValueError, match="gates"):
+        moe_kernels.moe_combine(buf, slot, kept, torch.ones(2, 3, 3),
+                                torch.float32)
+    with pytest.raises(ValueError, match="one device"):
+        moe_kernels.moe_combine(buf, slot, kept.to("meta"), torch.ones(2, 3, 2),
+                                torch.float32)
+    n = (moe_kernels.moe_dispatch.launches, moe_kernels.moe_combine.launches)
+    moe_kernels.moe_combine(buf, slot, kept, torch.ones(2, 3, 2), torch.float32)
+    # the plain versions launch nothing
+    assert (moe_kernels.moe_dispatch.launches,
+            moe_kernels.moe_combine.launches) == n
+
+
+def test_moe_kernel_rows_must_be_16_byte_words():
+    """The wrapper's row check before a launch: the last dimension made
+    contiguous, a dimension of one given stride 0, and a row, address or
+    stride off 16 bytes refused, naming D."""
+    from repro_torch.kernels.moe_dispatch.ops import _rows16
+    x = torch.zeros(2, 3, 8, dtype=torch.bfloat16)
+    assert _rows16(x, "x")[1] == (24, 8)
+    assert _rows16(x[:1], "x")[1] == (0, 8)
+    t = torch.zeros(2, 8, 3, dtype=torch.bfloat16).transpose(1, 2)
+    got, strides = _rows16(t, "x")
+    assert got.is_contiguous() and torch.equal(got, t) and strides == (24, 8)
+    for bad in (torch.zeros(2, 3, 12, dtype=torch.bfloat16),
+                torch.zeros(2, 3, 6),
+                torch.zeros(2, 3, 9, dtype=torch.bfloat16)[..., :8]):
+        with pytest.raises(ValueError, match=f"x: rows of D = {bad.shape[-1]} "):
+            _rows16(bad, "x")
 
 
 def test_capacity_matches_reference():
